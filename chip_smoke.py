@@ -1,0 +1,469 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port on one NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc/`` and
+drives ``repro_torch`` on the card, phase by phase; each phase prints one
+JSON line, and any failure raises (exit code != 0):
+
+1. device: the card's name and power limit, and the kernel build's time;
+2. kernels: every kernel against its plain PyTorch version on the same
+   inputs, at the serving path's full-width shapes (llama3.2-1b: d=2048,
+   H=32, KH=8, D=64, bf16), with its time, the plain version's, the card's
+   bound for the same work and one PyTorch library call's where there is
+   one;
+3. served f32 trace: a short greedy trace of the full-width config cut to
+   2 layers, once through the kernels and once with the plain versions
+   bound; the tokens must be identical;
+4. the main path: full-width llama3.2-1b (16 layers, seeded random
+   weights made on the card) served by ``repro_torch.serve.ServeEngine``
+   from the paged KV cache (page_size=16, 8 slots, 16 requests), with
+   every kernel's launch count over that run, each of which must be > 0;
+5. decode profile: a full-width decode step at 8 busy slots, wall time
+   and device time by kernel (``torch.profiler``).
+
+The last lines are the card as ``nvidia-smi`` reports it, the kernels'
+summary and ``{"ok": true, "device": {...}}``.  Needs CUDA and the rest of
+the repository next to this file; exits non-zero without either.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; flop/s by type
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+
+# kernel vs plain version on the same inputs: f32 differs only by the order
+# of f32 sums; bf16 outputs are rounded once from f32 by both, so they may
+# sit one bf16 step apart (2^-8 relative; values here stay below ~4)
+TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
+
+SOURCES = {
+    "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:47"),
+    "paged_attention": (
+        "src/repro_torch/kernels/csrc/paged_attention.cu",
+        "src/repro/kernels/paged_attention.py:330",
+    ),
+    "flash_attention": (
+        "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "src/repro/kernels/attention.py:107",
+    ),
+}
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# -- timing --------------------------------------------------------------------
+
+
+class Timer:
+    """Device time of one call.  ``reps`` calls are captured in a CUDA graph
+    (so the host's launch cost is left out) and the graph is timed with
+    CUDA events, median of 5 replays.  Before each call a 64 MB buffer is
+    rewritten so the call finds the 50 MB L2 cold, as in the serving loop,
+    where 16 layers of K/V and weights pass between two uses of one layer's
+    data; the rewrite's own time, measured the same way, is subtracted."""
+
+    def __init__(self, torch, reps: int = 20):
+        self.torch = torch
+        self.reps = reps
+        self.flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+        self._flush_ms = self._graph_ms(self.flush.zero_)
+
+    def _graph_ms(self, body) -> float:
+        torch = self.torch
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up outside the capture
+            for _ in range(2):
+                body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(self.reps):
+                body()
+        graph.replay()
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            graph.replay()
+            end.record()
+            torch.cuda.synchronize()
+            times.append(start.elapsed_time(end))
+        return sorted(times)[2] / self.reps
+
+    def ms(self, fn) -> float:
+        def body():
+            self.flush.zero_()
+            fn()
+
+        return self._graph_ms(body) - self._flush_ms
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def compare(torch, got, want, dtype: str) -> float:
+    atol, rtol = TOL[dtype]
+    got, want = got.float(), want.float()
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError("kernel output is not finite")
+    err = (got - want).abs()
+    if bool((err > atol + rtol * want.abs()).any()):
+        raise AssertionError(
+            f"kernel disagrees with its plain version: max abs err "
+            f"{float(err.max()):.3g} > {atol} + {rtol}*|want| ({dtype})"
+        )
+    return float(err.max())
+
+
+# -- phases --------------------------------------------------------------------
+
+
+def phase_device(torch) -> dict:
+    from repro_torch.kernels import build
+
+    t0 = time.perf_counter()
+    build.library()
+    seconds = time.perf_counter() - t0
+    ptxas = [
+        line.strip() for line in build.build_info.get("log", "").splitlines()
+        if "registers" in line or "spill" in line
+    ]
+    info = {
+        "phase": "device",
+        "kind": torch.cuda.get_device_name(0),
+        "nvidia_smi": nvidia_smi(),
+        "torch": torch.__version__,
+        "cuda": torch.version.cuda,
+        "build_seconds": round(seconds, 3),
+        "nvcc_seconds": round(build.build_info["seconds"], 3),
+        "library": build.build_info["path"],
+        "ptxas": ptxas,
+    }
+    emit(info)
+    return info
+
+
+def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbytes, flops):
+    err = compare(torch, got, want, dtype)
+    bound, by = bound_ms(nbytes, flops, dtype)
+    row = {
+        "phase": "kernel", "name": name, "dtype": dtype, "shape": shape,
+        "max_abs_err": err, "tol": TOL[dtype],
+        "ms": timer.ms(run), "plain_ms": timer.ms(plain),
+        "bound_ms": bound, "bound_by": by,
+        "library_ms": timer.ms(library) if library is not None else None,
+    }
+    emit(row)
+    return row
+
+
+def phase_kernels(torch) -> dict:
+    """Each kernel vs its plain version at the main path's shapes."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.attention import flash_attention, flash_attention_torch
+    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_torch
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_torch
+
+    dev = "cuda"
+    gen = torch.Generator(device=dev).manual_seed(0)
+    timer = Timer(torch)
+    rows: dict[str, list] = {k: [] for k in SOURCES}
+    d, h, kh, dh, ps = 2048, 32, 8, 64, 16
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
+
+    # rmsnorm: decode (8 rows) and prefill (512 rows)
+    for n_rows, dtype in ((8, torch.bfloat16), (512, torch.bfloat16), (8, torch.float32)):
+        x = randn(n_rows, d, dtype=dtype)
+        w = 1.0 + 0.1 * randn(d, dtype=torch.float32)
+        eps = 1e-5
+        w_lib = w.to(dtype)
+        e = x.element_size()
+        rows["rmsnorm"].append(_case(
+            torch, "rmsnorm", str(dtype).split(".")[1], [n_rows, d],
+            rmsnorm(x, w, eps), rmsnorm_torch(x, w, eps), timer,
+            lambda: rmsnorm(x, w, eps), lambda: rmsnorm_torch(x, w, eps),
+            lambda: F.rms_norm(x, (d,), w_lib, eps),
+            nbytes=2 * n_rows * d * e + 4 * d, flops=4 * n_rows * d,
+        ))
+
+    # paged attention: decode B=8 with ragged lengths up to 1024, an
+    # extend chunk (S=4) and the MLA operands; null pages poisoned
+    def paged_case(b, hh, kkh, s, dk, dv, lengths, dtype, dr=0):
+        mp = 1024 // ps
+        n_pages = b * mp
+        null = n_pages
+        k_pool = randn(n_pages + 1, kkh, ps, dk, dtype=dtype)
+        v_pool = randn(n_pages + 1, kkh, ps, dv, dtype=dtype)
+        k_pool[null] = 1e6  # poison: masked rows must never contribute
+        v_pool[null] = 1e6
+        q = randn(b, hh, s, dk, dtype=dtype)
+        perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+        pages = perm.reshape(b, mp).clone()
+        for i, ln in enumerate(lengths):
+            pages[i, -(-(ln + s) // ps):] = null
+        index = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = {}
+        if dr:
+            kr_pool = randn(n_pages + 1, 1, ps, dr, dtype=dtype)
+            kr_pool[null] = 1e6
+            kw = dict(q_rope=randn(b, hh, s, dr, dtype=dtype), kr_pool=kr_pool,
+                      scale=1.0 / (dk + dr) ** 0.5)
+        args = (q, k_pool, v_pool, pages, index)
+        e = q.element_size()
+        seen = [min(ln + si + 1, mp * ps) for ln in lengths for si in range(s)]
+        n_pos = [min(ln + s, mp * ps) for ln in lengths]
+        g = hh // kkh
+        # each input read once (only the K/V rows the lengths reach), the
+        # output written once; flops: q.k, q_rope.k_rope and p.v per seen row
+        nbytes = (
+            e * (q.numel() + b * hh * s * dv + (kw["q_rope"].numel() if dr else 0))
+            + e * sum(n_pos) * (kkh * (dk + dv) + dr) + 4 * (pages.numel() + b)
+        )
+        flops = 2 * kkh * g * sum(seen) * (dk + dv + dr)
+        return _case(
+            torch, "paged_attention", str(dtype).split(".")[1],
+            {"B": b, "H": hh, "KH": kkh, "S": s, "Dk": dk, "Dv": dv, "Dr": dr,
+             "page_size": ps, "lengths": list(lengths)},
+            paged_attention(*args, **kw), paged_attention_torch(*args, **kw), timer,
+            lambda: paged_attention(*args, **kw), lambda: paged_attention_torch(*args, **kw),
+            None, nbytes=nbytes, flops=flops,
+        )
+
+    decode_lengths = [1022, 700, 511, 256, 95, 16, 15, 0]
+    rows["paged_attention"].append(paged_case(8, h, kh, 1, dh, dh, decode_lengths, torch.bfloat16))
+    rows["paged_attention"].append(paged_case(8, h, kh, 4, dh, dh, [1000, 300, 17, 0, 64, 5, 900, 250], torch.bfloat16))
+    rows["paged_attention"].append(paged_case(4, 16, 1, 1, 512, 512, [1022, 333, 64, 0], torch.bfloat16, dr=64))
+    rows["paged_attention"].append(paged_case(8, h, kh, 1, dh, dh, decode_lengths, torch.float32))
+
+    # flash attention: prefill B=1 at S=512 and a ragged S=300
+    for s, dtype in ((512, torch.bfloat16), (300, torch.bfloat16), (300, torch.float32)):
+        q = randn(1, h, s, dh, dtype=dtype)
+        k = randn(1, kh, s, dh, dtype=dtype)
+        v = randn(1, kh, s, dh, dtype=dtype)
+        e = q.element_size()
+        rows["flash_attention"].append(_case(
+            torch, "flash_attention", str(dtype).split(".")[1], [1, h, kh, s, dh],
+            flash_attention(q, k, v), flash_attention_torch(q, k, v), timer,
+            lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+            nbytes=e * (2 * q.numel() + k.numel() + v.numel()),
+            flops=4 * dh * h * s * (s + 1) // 2,
+        ))
+    return rows
+
+
+def _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw):
+    engine = ServeEngine(cfg, params=params, seed=0, device="cuda", **kw)
+    ids = [engine.submit(Request(p, max_new_tokens=g)) for p, g in zip(prompts, gens)]
+    engine.run_until_idle(max_steps=10_000)
+    return [engine.completions[i].tokens for i in ids]
+
+
+def phase_served_f32(torch) -> None:
+    """Full-width llama3.2-1b cut to 2 layers in f32: kernels vs plain."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core import blocks
+    from repro_torch.models import lm
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2, compute_dtype="float32")
+    params = lm.init_params(cfg, seed=1, device="cuda")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (37, 100, 16, 70)]
+    gens = [12, 6, 10, 8]
+    kw = dict(n_slots=2, max_len=128, page_size=16)
+    t0 = time.perf_counter()
+    kernels = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw)
+    with blocks.bind({"rmsnorm": "torch", "attention": "torch", "paged_attention": "torch"}):
+        plain = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw)
+    if kernels != plain:
+        raise AssertionError(f"f32 served trace differs: kernels {kernels} vs plain {plain}")
+    emit({"phase": "served_f32", "layers": 2, "requests": len(prompts),
+          "identical": True, "tokens": [list(t) for t in kernels],
+          "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def phase_main_path(torch) -> dict:
+    """Full-width llama3.2-1b served from the paged KV cache."""
+    import numpy as np
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    engine = ServeEngine(cfg, n_slots=8, max_len=1024, page_size=16, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    rng = np.random.default_rng(0)
+    n_req, gen = 16, 32
+    prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
+               for _ in range(n_req)]
+
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ids = [engine.submit(Request(p, max_new_tokens=gen)) for p in prompts]
+    completions = engine.run_until_idle(max_steps=10_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.launch_counts()
+
+    if len(completions) != n_req:
+        raise AssertionError(f"{len(completions)}/{n_req} requests completed")
+    for i in ids:
+        toks = engine.completions[i].tokens
+        if len(toks) != gen or not all(0 <= t < cfg.vocab_size for t in toks):
+            raise AssertionError(f"request {i}: bad tokens {toks}")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"main path never launched {missing}: {launches}")
+
+    stats = engine.stats
+    pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
+    ttft = [c.ttft * 1e3 for c in completions]
+    lat = [c.latency * 1e3 for c in completions]
+    out = {
+        "phase": "main_path", "arch": cfg.name, "layers": cfg.n_layers,
+        "slots": 8, "max_len": 1024, "page_size": 16, "requests": n_req,
+        "prompt_tokens": sum(len(p) for p in prompts), "generated_tokens": n_req * gen,
+        "setup_seconds": setup, "wall_seconds": wall,
+        "tok_per_s": n_req * gen / wall,
+        "prefill_tok_per_s": engine.telemetry["prefill"].tokens_per_second,
+        "decode_tok_per_s": engine.telemetry["decode"].tokens_per_second,
+        "decode_median_ms": engine.median_decode_step() * 1e3,
+        "ttft_p50_ms": pct(ttft, 50), "ttft_p99_ms": pct(ttft, 99),
+        "latency_p50_ms": pct(lat, 50), "latency_p99_ms": pct(lat, 99),
+        "slot_reuses": stats.slot_reuses, "preemptions": stats.preemptions,
+        "prefill_calls": stats.prefill_calls, "decode_steps": stats.decode_steps,
+        "launches": launches,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+    }
+    emit(out)
+    return out
+
+
+def phase_decode_profile(torch) -> dict:
+    """Where a full-width decode step's time goes, at 8 busy slots with
+    ~512-token contexts: wall time per step unprofiled, then device time
+    per step by kernel from ``torch.profiler`` over the same number of
+    steps.  The busy share is device time over unprofiled wall time."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = get_config("llama3.2-1b")
+    engine = ServeEngine(cfg, n_slots=8, max_len=1024, page_size=16, seed=0, device="cuda")
+    rng = np.random.default_rng(2)
+    for _ in range(8):
+        engine.submit(Request(rng.integers(0, cfg.vocab_size, 512).tolist(), max_new_tokens=64))
+    for _ in range(3):  # admits all 8, then warm decode steps
+        engine.step()
+    if len(engine.scheduler.active) != 8:
+        raise AssertionError("profile: not all 8 slots are decoding")
+    n = 8
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        engine.step()
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            engine.step()
+        torch.cuda.synchronize()
+    device = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "self_device_time_total", 0) or 0
+        if us > 0:
+            device[ev.key] = device.get(ev.key, 0.0) + us / 1e3 / n
+    total = sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:10]
+    out = {
+        "phase": "decode_profile", "slots": 8, "context": 512, "steps": n,
+        "wall_ms_per_step": wall_ms,
+        "device_ms_per_step": total if device else None,
+        "device_busy_share": total / wall_ms if device else None,
+        "top_device_ms_per_step": {k[:80]: v for k, v in top},
+    }
+    emit(out)
+    return out
+
+
+def main() -> int:
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: {SRC}/repro_torch not found beside this script", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; it needs the H100",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in f32
+    torch.backends.cudnn.allow_tf32 = False
+
+    phase_device(torch)
+    rows = phase_kernels(torch)
+    phase_served_f32(torch)
+    main = phase_main_path(torch)
+    phase_decode_profile(torch)
+
+    summary = []
+    for name, (source, replaces) in SOURCES.items():
+        head = rows[name][0]  # the main path's headline shape
+        summary.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": main["launches"][name],
+            "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
+            "ms": head["ms"], "plain_ms": head["plain_ms"],
+            "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+            "library_ms": head["library_ms"],
+        })
+    print(nvidia_smi())
+    print(json.dumps({"kernels": summary}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

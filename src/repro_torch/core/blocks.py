@@ -1,0 +1,98 @@
+"""FunctionBlock registry — the port of ``repro/core/blocks.py``.
+
+Models call *named function blocks* (``call("rmsnorm", ...)``); every name
+has implementations tagged by execution target:
+
+    "ref"    plain-torch oracle (the reference package's ``ref`` target)
+    "torch"  plain-torch formulation (the kernels' plain versions)
+    "cuda"   the hand-written Hopper kernel's wrapper
+
+When no binding names a block, :meth:`FunctionBlockRegistry.call` picks the
+target from the device of its first tensor argument: ``cuda`` for a CUDA
+tensor, ``torch`` for a CPU tensor — the counterpart of the reference's
+``ops._auto_backend``, which picks the Pallas kernel on the accelerator.
+``bind({"rmsnorm": "torch"})`` pins a target for a scope (``chip_smoke.py``
+uses it to compare a kernel against its plain version on the card).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import threading
+from typing import Any, Callable, Iterator, Mapping
+
+import torch
+
+TARGETS = ("ref", "torch", "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class Impl:
+    block: str
+    target: str  # "ref" | "torch" | "cuda"
+    fn: Callable[..., Any]
+    note: str = ""
+
+
+def _device_target(args: tuple) -> str:
+    for a in args:
+        if isinstance(a, torch.Tensor):
+            return "cuda" if a.is_cuda else "torch"
+    raise TypeError("function block called without a tensor argument")
+
+
+class FunctionBlockRegistry:
+    def __init__(self) -> None:
+        self._impls: dict[str, dict[str, Impl]] = {}
+        self._local = threading.local()
+
+    def register(
+        self, block: str, target: str, fn: Callable[..., Any], note: str = ""
+    ) -> None:
+        if target not in TARGETS:
+            raise ValueError(f"unknown target '{target}'; known: {TARGETS}")
+        self._impls.setdefault(block, {})[target] = Impl(block, target, fn, note)
+
+    def targets(self, block: str) -> list[str]:
+        return sorted(self._impls.get(block, {}))
+
+    @property
+    def _bindings(self) -> dict[str, str]:
+        b = getattr(self._local, "bindings", None)
+        if b is None:
+            b = {}
+            self._local.bindings = b
+        return b
+
+    @contextlib.contextmanager
+    def bind(self, mapping: Mapping[str, str]) -> Iterator[None]:
+        """Scope a block->target binding."""
+        for block, target in mapping.items():
+            if target not in self._impls.get(block, {}):
+                raise KeyError(f"block '{block}' has no target '{target}'")
+        saved = dict(self._bindings)
+        self._bindings.update(mapping)
+        try:
+            yield
+        finally:
+            self._local.bindings = saved
+
+    def call(self, block: str, *args: Any, **kwargs: Any) -> Any:
+        impls = self._impls.get(block)
+        if not impls:
+            raise KeyError(f"unknown function block '{block}'")
+        target = self._bindings.get(block) or _device_target(args)
+        return impls[target].fn(*args, **kwargs)
+
+
+# Global registry used by the models.
+registry = FunctionBlockRegistry()
+
+
+def call(block: str, *args: Any, **kwargs: Any) -> Any:
+    return registry.call(block, *args, **kwargs)
+
+
+def bind(mapping: Mapping[str, str]):
+    return registry.bind(mapping)

@@ -1,0 +1,176 @@
+"""Build and load the port's CUDA kernels.
+
+Every ``kernels/csrc/*.cu`` is compiled by ``nvcc`` for ``sm_90a`` (one
+``nvcc`` process per source, all started together), linked into one shared
+library with a plain C interface, and loaded with ``ctypes``.  The library
+lives in ``build/repro_torch/`` at the repository root, named by a hash of
+the sources and flags: it is built at first use and rebuilt whenever a
+source changes.  A missing ``nvcc`` raises — there is no fallback.
+
+Every C entry point returns ``cudaGetLastError()`` after its launch;
+:func:`launch` raises on a non-zero code.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+COMPILE_FLAGS = ARCH_FLAGS + (
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+
+#: C entry point -> argtypes.  Pointers and the stream are ``c_void_p`` so
+#: ctypes never truncates them to 32 bits.
+ENTRY_POINTS = {
+    # x, w, out, rows, d, eps, dtype, stream
+    "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
+    # q, k_pool, v_pool, q_rope, kr_pool, pages, index, out,
+    # B, H, KH, S, Dk, Dv, Dr, page_size, max_pages, scale, dtype, stream
+    "repro_paged_attention": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+    # q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, dtype, stream
+    "repro_flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
+}
+
+#: dtype code the C entry points take
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_lock = threading.Lock()
+_lib: ctypes.CDLL | None = None
+#: what the last build did: seconds, library path, nvcc's output
+build_info: dict = {}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def source_hash() -> str:
+    h = hashlib.sha256()
+    for path in sorted(CSRC.glob("*.cu*")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
+    h.update(" ".join(COMPILE_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        found = "/usr/local/cuda/bin/nvcc"
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found: repro_torch's CUDA kernels are built from "
+            f"{CSRC} with nvcc for sm_90a, and there is no fallback"
+        )
+    return found
+
+
+def build() -> Path:
+    """Compile the sources into ``build/repro_torch/`` unless a library
+    for the current source hash exists; returns its path."""
+    lib_path = BUILD_DIR / f"librepro_torch_{source_hash()}.so"
+    if lib_path.exists():
+        build_info.update(seconds=0.0, path=str(lib_path), log="(cached)")
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [Path(tmp) / f"{src.stem}.o" for src in sources()]
+        procs = [
+            subprocess.Popen(
+                [nvcc, *COMPILE_FLAGS, "-c", str(src), "-o", str(obj)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for src, obj in zip(sources(), objs)
+        ]
+        logs, failed = [], []
+        for src, proc in zip(sources(), procs):
+            out, _ = proc.communicate()
+            logs.append(f"== {src.name}\n{out}")
+            if proc.returncode:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(
+                f"nvcc failed on {failed}:\n" + "\n".join(logs)
+            )
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run(
+            [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp_lib),
+             *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        if link.returncode:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        os.replace(tmp_lib, lib_path)  # atomic: a reader never sees half
+    build_info.update(
+        seconds=time.perf_counter() - t0, path=str(lib_path),
+        log="\n".join(logs),
+    )
+    return lib_path
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library (built on first call)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in ENTRY_POINTS.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.repro_error_string.argtypes = [ctypes.c_int]
+            lib.repro_error_string.restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call one C entry point and raise if its launch failed."""
+    lib = library()
+    err = getattr(lib, name)(*args)
+    if err:
+        msg = lib.repro_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    """PyTorch's current stream on ``t``'s device, as a C pointer value."""
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    try:
+        return DTYPE_CODES[t.dtype]
+    except KeyError:
+        raise TypeError(
+            f"the CUDA kernels take float32 or bfloat16, got {t.dtype}"
+        ) from None
+
+
+def check_cuda(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is a contiguous tensor on one CUDA device."""
+    dev = tensors[0].device
+    for t in tensors:
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{name}: every operand must be on {dev}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")

@@ -1,0 +1,213 @@
+"""Paged decode/extend attention over the block-paged KV pool (the port of
+``repro/kernels/paged_attention.py``).
+
+Slot ``b``'s logical position ``t`` lives in pool page
+``pages[b, t // page_size]`` at row ``t % page_size``; table entries past a
+slot's allocation point at the shared *null page* (index ``n_pages``, the
+last pool row), whose garbage rows the mask ``t <= index + s`` always hides.
+
+* :func:`paged_attention` — the wrapper of the fused CUDA kernel
+  (``csrc/paged_attention.cu``, replacing ``paged_attention_pallas``);
+* :func:`paged_attention_torch` — its plain version, operation for
+  operation the reference's ``paged_attention_xla`` (page gather, then
+  dense masked softmax), used for CPU tensors and as the kernel's yardstick;
+* the page plumbing shared with the model and the serve engine:
+  :func:`gather_kv_pages`, :func:`scatter_token_pages`,
+  :func:`scatter_chunk_pages`, :func:`insert_pages`.  The scatters write
+  into the pool in place (the reference returns a new array).
+
+Pool layouts: GQA ``(P_total, KH, page_size, D)``; MLA latent
+``(P_total, 1, page_size, r)`` with its rope pool ``(P_total, 1,
+page_size, dr)``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+_NEG = -1e30
+
+
+# -- page-table plumbing --------------------------------------------------------
+
+
+def gather_kv_pages(pool: torch.Tensor, pages: torch.Tensor, seq_axis: int) -> torch.Tensor:
+    """``pool`` (P_total, ..., page_size @ seq_axis, ...), ``pages``
+    (B, max_pages) -> (B, ..., max_pages * page_size @ seq_axis, ...)."""
+    blocks = pool[pages.long()]  # (B, max_pages, ..., page_size, ...)
+    blocks = torch.movedim(blocks, 1, seq_axis)  # max_pages before page_size
+    return blocks.flatten(seq_axis, seq_axis + 1)
+
+
+def scatter_token_pages(
+    pool: torch.Tensor,
+    val: torch.Tensor,
+    pages: torch.Tensor,
+    index: torch.Tensor,
+    seq_axis: int,
+) -> torch.Tensor:
+    """Write each row's new token into its current page, in place.
+
+    ``val`` is the token slice with the sequence axis squeezed out (GQA
+    (B, KH, D)); ``index`` (B,) the logical write position.  The page
+    column is clamped into the table, as the reference's
+    ``take_along_axis(..., mode="clip")``; rows whose entry is the null page
+    write into the sacrificial page.
+    """
+    ps = pool.shape[seq_axis]
+    index = index.long()
+    col = torch.clamp(index // ps, 0, pages.shape[1] - 1)
+    pid = torch.gather(pages.long(), 1, col[:, None])[:, 0]
+    idx = (pid,) + (slice(None),) * (seq_axis - 1) + (index % ps,)
+    pool[idx] = val.to(pool.dtype)
+    return pool
+
+
+def scatter_chunk_pages(
+    pool: torch.Tensor,
+    val: torch.Tensor,
+    pages: torch.Tensor,
+    index: torch.Tensor,
+    seq_axis: int,
+) -> torch.Tensor:
+    """Write an S-token ``extend`` chunk (chunk axis at ``seq_axis``) into
+    each row's page list: token ``i`` lands at position ``index + i``."""
+    for i in range(val.shape[seq_axis]):
+        scatter_token_pages(pool, val.select(seq_axis, i), pages, index + i, seq_axis)
+    return pool
+
+
+def insert_pages(
+    pool: torch.Tensor, b1: torch.Tensor, page_ids: torch.Tensor, seq_axis: int
+) -> torch.Tensor:
+    """Write a prefilled batch-1 slot cache into the pool as whole pages,
+    in place.  ``pool`` (L, P_total, ..., page_size, ...), ``b1``
+    (L, 1, ..., S, ...) with ``S == max_pages * page_size``; ``page_ids``
+    (max_pages,) is the slot's page list, null-page entries absorbing the
+    unallocated tail.  ``seq_axis`` is the per-layer position (batch
+    leading), as from ``repro_torch.models.attention.cache_seq_axes``."""
+    ps = pool.shape[seq_axis + 1]
+    x = b1.squeeze(1)  # (L, ..., S, ...): seq back at seq_axis
+    shp = x.shape
+    x = x.reshape(shp[:seq_axis] + (shp[seq_axis] // ps, ps) + shp[seq_axis + 1:])
+    x = torch.movedim(x, seq_axis, 1)  # (L, max_pages, ..., ps, ...)
+    pool[:, page_ids.long()] = x.to(pool.dtype)
+    return pool
+
+
+# -- the plain version: page gather, then dense masked softmax -------------------
+
+
+def paged_attention_torch(
+    q: torch.Tensor,  # (B, H, S, Dk) — S=1 decode, S>1 extend
+    k_pool: torch.Tensor,  # (P_total, KH, page_size, Dk)
+    v_pool: torch.Tensor,  # (P_total, KH, page_size, Dv)
+    pages: torch.Tensor,  # (B, max_pages) int32 page table
+    index: torch.Tensor,  # (B,) first new-token position per slot
+    *,
+    q_rope: torch.Tensor | None = None,  # MLA: (B, H, S, Dr)
+    kr_pool: torch.Tensor | None = None,  # MLA: (P_total, 1, page_size, Dr)
+    scale: float | None = None,
+) -> torch.Tensor:
+    b, h, s, dk = q.shape
+    kh = k_pool.shape[1]
+    g = h // kh
+    dv = v_pool.shape[-1]
+    k_view = gather_kv_pages(k_pool, pages, seq_axis=2).float()  # (B, KH, T, Dk)
+    v_view = gather_kv_pages(v_pool, pages, seq_axis=2).float()
+    smax = k_view.shape[2]
+    qpos = index.long()[:, None] + torch.arange(s, device=q.device)  # (B, S)
+    qg = q.reshape(b, kh, g, s, dk).float()
+    if q_rope is None:
+        # division (not multiply-by-reciprocal), as the reference, to stay
+        # bit-identical with the contiguous decode path
+        qg = qg * scale if scale is not None else qg / (dk ** 0.5)
+        sc = torch.einsum("bkgqd,bktd->bkgqt", qg, k_view)
+    else:
+        if scale is None:
+            scale = 1.0 / (dk ** 0.5)
+        qr = q_rope.reshape(b, kh, g, s, -1).float()
+        kr_view = gather_kv_pages(kr_pool, pages, seq_axis=2).float()
+        sc = (
+            torch.einsum("bkgqd,bktd->bkgqt", qg, k_view)
+            + torch.einsum("bkgqd,bktd->bkgqt", qr, kr_view)
+        ) * scale
+    valid = (
+        torch.arange(smax, device=q.device)[None, None, None, None, :]
+        <= qpos[:, None, None, :, None]
+    )
+    sc = torch.where(valid, sc, torch.full_like(sc, _NEG))
+    p = torch.softmax(sc, dim=-1)
+    o = torch.einsum("bkgqt,bktd->bkgqd", p, v_view)
+    return o.reshape(b, h, s, dv).to(q.dtype)
+
+
+# -- the CUDA kernel's wrapper ----------------------------------------------------
+
+
+def paged_attention(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    pages: torch.Tensor,
+    index: torch.Tensor,
+    *,
+    q_rope: torch.Tensor | None = None,
+    kr_pool: torch.Tensor | None = None,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Fused paged attention: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors.  Returns (B, H, S, Dv) in q's dtype."""
+    if q.device.type == "cpu":
+        return paged_attention_torch(
+            q, k_pool, v_pool, pages, index, q_rope=q_rope, kr_pool=kr_pool,
+            scale=scale,
+        )
+    b, h, s, dk = q.shape
+    n_pool, kh, ps, _ = k_pool.shape
+    dv = v_pool.shape[-1]
+    mp = pages.shape[1]
+    rope = q_rope is not None
+    operands = [q, k_pool, v_pool, pages, index] + ([q_rope, kr_pool] if rope else [])
+    build.check_cuda("paged_attention", *operands)
+    if (q_rope is None) != (kr_pool is None):
+        raise ValueError("paged_attention: q_rope and kr_pool come together")
+    if k_pool.shape[-1] != dk or v_pool.shape[:3] != (n_pool, kh, ps) or h % kh:
+        raise ValueError(
+            f"paged_attention: q {tuple(q.shape)} does not fit pools "
+            f"{tuple(k_pool.shape)} / {tuple(v_pool.shape)}"
+        )
+    if pages.shape != (b, mp) or index.shape != (b,):
+        raise ValueError("paged_attention: pages must be (B, max_pages), index (B,)")
+    if pages.dtype != torch.int32 or index.dtype != torch.int32:
+        raise TypeError("paged_attention: pages and index must be int32")
+    if any(t.dtype != q.dtype for t in (k_pool, v_pool)) or (
+        rope and (q_rope.dtype != q.dtype or kr_pool.dtype != q.dtype)
+    ):
+        raise TypeError("paged_attention: q and the pools must share one dtype")
+    dr = q_rope.shape[-1] if rope else 0
+    if rope and (
+        q_rope.shape[:3] != (b, h, s) or kr_pool.shape != (n_pool, 1, ps, dr)
+    ):
+        raise ValueError("paged_attention: q_rope (B,H,S,Dr) / kr_pool (P,1,ps,Dr) mismatch")
+    if dv > 512:
+        raise ValueError(f"paged_attention: value head dim {dv} exceeds 512")
+    if scale is None:
+        scale = 1.0 / (dk ** 0.5)
+    out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
+    build.launch(
+        "repro_paged_attention",
+        q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+        q_rope.data_ptr() if rope else None,
+        kr_pool.data_ptr() if rope else None,
+        pages.data_ptr(), index.data_ptr(), out.data_ptr(),
+        b, h, kh, s, dk, dv, dr, ps, mp, scale,
+        build.dtype_code(q), build.stream_of(q),
+    )
+    paged_attention.launches += 1
+    return out
+
+
+paged_attention.launches = 0

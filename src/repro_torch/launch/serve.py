@@ -1,0 +1,137 @@
+"""Serving CLI — a thin command line over :class:`repro_torch.serve.ServeEngine`
+(the port of ``repro/launch/serve.py``).
+
+Submits a mixed-length batch of random-token requests, drives the engine
+until idle and prints throughput and latency.  Runs on the CUDA card:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch llama3.2-1b \
+      --page-size 16 --slots 8 --max-len 1024
+
+``--device cpu`` runs on the CPU explicitly (the tests do, with
+``--reduced``).
+"""
+
+from __future__ import annotations
+
+import argparse
+
+import numpy as np
+
+from repro_torch.configs import get_config
+from repro_torch.serve import Request, Sampler, ServeEngine
+
+
+def percentile(xs: "list[float]", q: float) -> float:
+    """Empty-safe quantile of a sample."""
+    if not xs:
+        return float("nan")
+    return float(np.percentile(xs, q * 100))
+
+
+def make_requests(cfg, args: argparse.Namespace, rng: np.random.Generator) -> list[Request]:
+    """Mixed-length random-token trace: prompt and generation lengths jitter
+    uniformly around the base values so slots stagger and free at
+    different steps."""
+    requests = []
+    for _ in range(args.requests):
+        plen = max(1, args.prompt_len + int(rng.integers(-args.len_jitter, args.len_jitter + 1)))
+        gen = max(1, args.gen + int(rng.integers(-args.gen_jitter, args.gen_jitter + 1)))
+        prompt = rng.integers(0, cfg.vocab_size, plen).tolist()
+        requests.append(Request(prompt, max_new_tokens=gen))
+    return requests
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--arch", default="llama3.2-1b")
+    ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--slots", type=int, default=4, help="KV slots = max concurrent requests")
+    ap.add_argument("--max-len", type=int, default=256,
+                    help="cache positions per slot (prompt + generation)")
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--sampler", default="greedy",
+                    help="default sampling policy: greedy | temperature:<t> | top_k:<k>[:<t>]")
+    ap.add_argument("--step-budget", type=int, default=None,
+                    help="max tokens (prefill + decode) one engine step may process")
+    ap.add_argument("--prefill-bucket", type=int, default=None,
+                    help="pad prompts to a multiple of this bucket")
+    ap.add_argument("--page-size", type=int, default=None,
+                    help="block-paged KV cache: tokens per page (default: contiguous slots)")
+    ap.add_argument("--n-pages", type=int, default=None,
+                    help="KV pool size in pages (default: capacity-equivalent, "
+                         "slots * ceil(max_len/page_size); smaller over-commits)")
+    ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    ap.add_argument("--len-jitter", type=int, default=8,
+                    help="uniform prompt-length jitter (staggers slots)")
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--gen-jitter", type=int, default=4)
+    ap.add_argument("--max-steps", type=int, default=10_000)
+    return ap
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    args = build_parser().parse_args(argv)
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    engine = ServeEngine(
+        cfg,
+        n_slots=args.slots,
+        max_len=args.max_len,
+        sampler=Sampler.parse(args.sampler),
+        max_tokens_per_step=args.step_budget,
+        prefill_bucket=args.prefill_bucket,
+        page_size=args.page_size,
+        n_pages=args.n_pages,
+        seed=args.seed,
+        device=args.device,
+    )
+    rng = np.random.default_rng(args.seed)
+    requests = make_requests(engine.cfg, args, rng)
+    for request in requests:
+        engine.submit(request)
+    completions = engine.run_until_idle(max_steps=args.max_steps)
+
+    stats = engine.stats
+    if stats.requests_completed != len(requests):
+        raise RuntimeError(f"{stats.requests_completed}/{len(requests)} requests completed")
+    print(f"arch={engine.cfg.name} slots={args.slots} requests={len(requests)} "
+          f"device={engine.device}")
+    for phase in ("prefill", "decode"):
+        print(engine.telemetry[phase].summary())
+    latencies = [c.latency for c in completions]
+    ttfts = [c.ttft for c in completions]
+    print(
+        f"latency: p50 {percentile(latencies, 0.5)*1e3:.1f} ms "
+        f"p99 {percentile(latencies, 0.99)*1e3:.1f} ms | "
+        f"ttft: p50 {percentile(ttfts, 0.5)*1e3:.1f} ms "
+        f"p99 {percentile(ttfts, 0.99)*1e3:.1f} ms"
+    )
+    ttfts_admitted = [c.ttft_admitted for c in completions]
+    queue_waits = [c.queue_wait for c in completions]
+    print(
+        f"ttft from admit: p50 {percentile(ttfts_admitted, 0.5)*1e3:.1f} ms "
+        f"p99 {percentile(ttfts_admitted, 0.99)*1e3:.1f} ms | "
+        f"queue wait: p50 {percentile(queue_waits, 0.5)*1e3:.1f} ms "
+        f"p99 {percentile(queue_waits, 0.99)*1e3:.1f} ms"
+    )
+    print(
+        f"continuous batching: {stats.slot_reuses} slot reuses, "
+        f"max {stats.max_active} concurrent, {stats.steps} engine steps, "
+        f"decode median {engine.median_decode_step()*1e3:.2f} ms/step"
+    )
+    if engine.kv is not None:
+        kv = engine.kv.stats()
+        print(
+            f"kv pool: {kv['n_pages']} x {kv['page_size']}-token pages, "
+            f"peak {kv['peak_used_pages']} used, {stats.preemptions} preemptions"
+        )
+    sample = completions[0]
+    print(f"sample (request {sample.request_id}):", np.asarray(sample.tokens[:16]))
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

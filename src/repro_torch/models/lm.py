@@ -1,0 +1,249 @@
+"""Decoder LM over a block pattern — the port of ``repro/models/lm.py`` for
+the dense ``'a'`` pattern (attention + SwiGLU MLP per layer).
+
+Consecutive identical pattern chars form a *group* whose parameters and
+caches are stacked with a leading layer axis, keyed exactly as the
+reference keys them (``blocks/g0_a/attn/wq``, ``g0_a/k``, ...); a Python
+loop runs the layers.  MoE, SSM and shared blocks are not ported yet and
+raise.
+
+Modes: ``prefill`` (fill the cache, logits), ``decode`` (one token per row
+against the cache) and ``extend`` (an S-token chunk per row, causal within
+the chunk).  ``cache["index"]`` is per-slot (B,): rows decode at their own
+positions (continuous batching); a paged cache also carries
+``cache["pages"]``, the (B, max_pages) page table.  Caches are updated in
+place and returned.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import torch
+
+import repro_torch.kernels  # noqa: F401  (registers the function blocks)
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import params as pm
+from repro_torch.models.attention import (
+    attention_forward,
+    attn_metas,
+    cache_metas,
+    cache_metas_paged,
+)
+from repro_torch.models.layers import (
+    embed_lookup,
+    embed_metas,
+    lm_logits,
+    mlp_forward,
+    mlp_metas,
+    rmsnorm,
+)
+from repro_torch.models.params import ParamMeta, torch_dtype
+
+
+# -- pattern grouping ------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    index: int
+    kind: str  # 'a' | 'd' | 'm' | 's'
+    count: int
+
+    @property
+    def key(self) -> str:
+        return f"g{self.index}_{self.kind}"
+
+
+def groups_of(cfg: ArchConfig) -> list[Group]:
+    pat = cfg.pattern()
+    out: list[Group] = []
+    i = 0
+    while i < len(pat):
+        j = i
+        while j < len(pat) and pat[j] == pat[i]:
+            j += 1
+        out.append(Group(len(out), pat[i], j - i))
+        i = j
+    return out
+
+
+def _require_dense(cfg: ArchConfig) -> None:
+    if cfg.moe is not None or set(cfg.pattern()) != {"a"}:
+        raise NotImplementedError(
+            f"{cfg.name}: pattern {cfg.pattern()!r} "
+            f"({'MoE' if cfg.moe else 'SSM/shared'} blocks) is not ported yet; "
+            "only the dense 'a' pattern is"
+        )
+
+
+# -- parameter metas ------------------------------------------------------------------
+
+
+def _stack(metas: Any, n: int) -> Any:
+    return pm.tree_map_metas(
+        lambda m: ParamMeta((n,) + m.shape, ("layers",) + m.axes, m.dtype, m.init, m.scale),
+        metas,
+    )
+
+
+def _block_metas(cfg: ArchConfig) -> dict:
+    d = cfg.d_model
+    dt = cfg.param_dtype
+    return {
+        "ln1": ParamMeta((d,), (None,), dt, init="ones"),
+        "attn": attn_metas(cfg),
+        "ln2": ParamMeta((d,), (None,), dt, init="ones"),
+        "mlp": mlp_metas(d, cfg.d_ff, dt),
+    }
+
+
+def build_metas(cfg: ArchConfig) -> dict:
+    _require_dense(cfg)
+    return {
+        "embed": embed_metas(cfg),
+        "blocks": {g.key: _stack(_block_metas(cfg), g.count) for g in groups_of(cfg)},
+        "final_norm": ParamMeta((cfg.d_model,), (None,), cfg.param_dtype, init="ones"),
+    }
+
+
+def cache_metas_tree(
+    cfg: ArchConfig,
+    batch: int,
+    max_len: int,
+    *,
+    page_size: int | None = None,
+    n_pages: int | None = None,
+) -> dict:
+    """Contiguous (default) or block-paged cache layout.  Paged: every
+    attention leaf is a pool of ``n_pages`` pages plus the null page at
+    index ``n_pages``."""
+    _require_dense(cfg)
+    if page_size is not None and n_pages is None:
+        raise ValueError("paged cache needs both page_size and n_pages")
+    caches: dict = {}
+    for g in groups_of(cfg):
+        if page_size is not None:
+            caches[g.key] = _stack(cache_metas_paged(cfg, n_pages + 1, page_size), g.count)
+        else:
+            caches[g.key] = _stack(cache_metas(cfg, batch, max_len), g.count)
+    caches["index"] = ParamMeta((batch,), ("act_batch",), "int32", init="zeros")
+    return caches
+
+
+def init_params(cfg: ArchConfig, seed: int = 0, device="cpu") -> Any:
+    return pm.init_params(build_metas(cfg), seed, device)
+
+
+def init_cache(
+    cfg: ArchConfig,
+    batch: int,
+    max_len: int,
+    *,
+    page_size: int | None = None,
+    n_pages: int | None = None,
+    device="cpu",
+) -> Any:
+    metas = cache_metas_tree(cfg, batch, max_len, page_size=page_size, n_pages=n_pages)
+    return pm.init_params(metas, 0, device)
+
+
+def cast_for_compute(params: Any, cfg: ArchConfig) -> Any:
+    """Cast every matrix (ndim >= 2 per layer: projections, embedding) to the
+    compute dtype once; norm weights keep their parameter dtype.  The
+    reference casts at every use inside its jitted programs; the values are
+    the same, and the model's own ``.to(cd)`` calls become no-ops."""
+    cd = torch_dtype(cfg.compute_dtype)
+
+    def cast(tree: Any, stacked: bool) -> Any:
+        if isinstance(tree, dict):
+            return {k: cast(v, stacked or k == "blocks") for k, v in tree.items()}
+        return tree.to(cd) if tree.ndim - stacked >= 2 else tree
+
+    return cast(params, False)
+
+
+# -- block application ----------------------------------------------------------------
+
+
+def _layer(tree: Any, i: int) -> Any:
+    """Layer ``i`` of a stacked tree (views: in-place cache writes land in
+    the stacked tensors)."""
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def _apply_attn_block(lp, x, cfg, positions, cache, index, mode, pages=None):
+    cd = torch_dtype(cfg.compute_dtype)
+    h_in = rmsnorm(lp["ln1"], x, cfg.norm_eps).to(cd)
+    attn_out, cache = attention_forward(
+        lp["attn"], h_in, cfg, positions, cache, index, mode, pages
+    )
+    x = x + attn_out.to(x.dtype)
+    ff_in = rmsnorm(lp["ln2"], x, cfg.norm_eps).to(cd)
+    return x + mlp_forward(lp["mlp"], ff_in, cd).to(x.dtype)
+
+
+# -- forward / serve ----------------------------------------------------------------------
+
+
+def backbone(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cache: Any = None):
+    """All blocks, no head.  Returns (hidden (B, S, D), cache)."""
+    _require_dense(cfg)
+    cd = torch_dtype(cfg.compute_dtype)
+    x = embed_lookup(params["embed"], batch["tokens"], cd)
+    b, s = x.shape[0], x.shape[1]
+    steps = torch.arange(s, dtype=torch.int32, device=x.device)
+
+    pages = None
+    if mode in ("decode", "extend"):
+        index = cache["index"]
+        if index.ndim != 1:
+            raise ValueError("cache['index'] must be per-slot (B,) write positions")
+        pages = cache.get("pages")  # (B, max_pages) page table, paged only
+        positions = index[:, None] + steps[None, :]
+    else:
+        index = None
+        positions = steps[None, :].expand(b, s)
+
+    for g in groups_of(cfg):
+        gparams = params["blocks"][g.key]
+        gcache = cache[g.key] if cache is not None else None
+        for i in range(g.count):
+            lcache = _layer(gcache, i) if gcache is not None else None
+            x = _apply_attn_block(
+                _layer(gparams, i), x, cfg, positions, lcache, index, mode, pages
+            )
+    return x, cache
+
+
+def head(params: Any, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    return lm_logits(params["embed"], x, cfg, torch_dtype(cfg.compute_dtype))
+
+
+def forward(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cache: Any = None):
+    """Returns (logits, cache)."""
+    x, cache = backbone(params, batch, cfg, mode, cache)
+    s = x.shape[1]
+    logits = head(params, x, cfg)
+    if cache is not None:
+        if mode in ("decode", "extend"):
+            cache["index"] = cache["index"] + s
+        else:  # prefill: every row's cache now holds s tokens
+            cache["index"] = torch.full(
+                (x.shape[0],), s, dtype=torch.int32, device=x.device
+            )
+    return logits, cache
+
+
+def prefill(params: Any, batch: dict, cfg: ArchConfig, cache: Any):
+    return forward(params, batch, cfg, mode="prefill", cache=cache)
+
+
+def decode_step(params: Any, tokens: torch.Tensor, cfg: ArchConfig, cache: Any):
+    """tokens (B, 1) -> (logits (B, 1, V), cache); ``cache["index"]`` (B,)
+    is each row's write position for this token."""
+    return forward(params, {"tokens": tokens}, cfg, mode="decode", cache=cache)
