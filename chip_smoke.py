@@ -21,7 +21,23 @@ JSON line, and any failure raises (exit code != 0):
    from the paged KV cache (page_size=16, 8 slots, 16 requests), with
    every kernel's launch count over that run, each of which must be > 0;
 5. decode profile: a full-width decode step at 8 busy slots, wall time
-   and device time by kernel (``torch.profiler``).
+   and device time by kernel (``torch.profiler``), and the host and
+   device ms of one sampled ``sample_tokens`` call (temperature and top-k)
+   at the same batch and the full vocabulary;
+6. offload: the paper's function-block offload pipeline
+   (``repro_torch.offload.OffloadSession``) on the card for the four
+   application entry points (FFT n=256, LU n=192), with the
+   ``complex_matmul`` and ``schur_update`` launch counts over that run,
+   each of which must be > 0; the ``matmul`` DB entry resolved and called
+   through its C-2 interface adapter; then the prior-work loop-offload GA
+   on both apps and the paper's Fig. 5 comparison (cpu / loop / block,
+   each re-timed as the median of ``FIG5_REPEATS`` calls);
+7. offload_full: the committed libcall applications at the paper's
+   2048 x 2048, checked against ``np.fft.fft2`` and |det| = 1, timed beside
+   cuFFT (``torch.fft.fft2``) and cuSOLVER (``torch.linalg.lu_factor``).
+
+The offload kernels (complex matmul, Schur update, matmul) are held
+against their plain versions in phase 2 at the paper's scale (2048^2 f32).
 
 The last lines are the card as ``nvidia-smi`` reports it, the kernels'
 summary and ``{"ok": true, "device": {...}}``.  Needs CUDA and the rest of
@@ -48,6 +64,10 @@ PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 # of f32 sums; bf16 outputs are rounded once from f32 by both, so they may
 # sit one bf16 step apart (2^-8 relative; values here stay below ~4)
 TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
+# f32 GEMMs over K <= 2048 of unit-scale operands: kernel and cuBLAS sum
+# the same products in another order, each off by ~K * 2^-24 * |a||b|
+# (~1.2e-4 at K = 2048) per output, with outputs up to ~2e2 in size
+GEMM_TOL = (1e-3, 1e-4)
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:47"),
@@ -59,7 +79,20 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/flash_attention.cu",
         "src/repro/kernels/attention.py:107",
     ),
+    "matmul": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:60"),
+    "schur_update": ("src/repro_torch/kernels/csrc/matmul.cu", "src/repro/kernels/matmul.py:115"),
+    "complex_matmul": (
+        "src/repro_torch/kernels/csrc/complex_matmul.cu",
+        "src/repro/kernels/fft.py:90",
+    ),
 }
+
+
+#: the serving path's kernels (phase 4); the offload shelf's run in phase 6
+SERVE_KERNELS = ("rmsnorm", "paged_attention", "flash_attention")
+
+#: calls per version when Fig. 5's cpu / loop / block are re-timed (median)
+FIG5_REPEATS = 5
 
 
 def emit(obj: dict) -> None:
@@ -129,8 +162,8 @@ def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def compare(torch, got, want, dtype: str) -> float:
-    atol, rtol = TOL[dtype]
+def compare(torch, got, want, dtype: str, tol=None) -> float:
+    atol, rtol = tol or TOL[dtype]
     got, want = got.float(), want.float()
     if not bool(torch.isfinite(got).all()):
         raise AssertionError("kernel output is not finite")
@@ -171,12 +204,13 @@ def phase_device(torch) -> dict:
     return info
 
 
-def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbytes, flops):
-    err = compare(torch, got, want, dtype)
+def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbytes, flops,
+          tol=None):
+    err = compare(torch, got, want, dtype, tol)
     bound, by = bound_ms(nbytes, flops, dtype)
     row = {
         "phase": "kernel", "name": name, "dtype": dtype, "shape": shape,
-        "max_abs_err": err, "tol": TOL[dtype],
+        "max_abs_err": err, "tol": tol or TOL[dtype],
         "ms": timer.ms(run), "plain_ms": timer.ms(plain),
         "bound_ms": bound, "bound_by": by,
         "library_ms": timer.ms(library) if library is not None else None,
@@ -280,6 +314,46 @@ def phase_kernels(torch) -> dict:
             nbytes=e * (2 * q.numel() + k.numel() + v.numel()),
             flops=4 * dh * h * s * (s + 1) // 2,
         ))
+    rows.update(_offload_kernel_cases(torch, timer, randn))
+    return rows
+
+
+def _offload_kernel_cases(torch, timer, randn) -> dict:
+    """The offload shelf at the paper's scale (2048^2, f32): one DFT stage
+    of fft2d, the LU's first trailing update at n=2048, nb=128 (and one of
+    n=192, nb=32), and a 2048^3 matmul."""
+    from repro_torch.kernels.fft import complex_matmul, complex_matmul_torch
+    from repro_torch.kernels.matmul import matmul, matmul_torch, schur_update, schur_update_torch
+
+    f32 = torch.float32
+    rows: dict[str, list] = {"complex_matmul": [], "schur_update": [], "matmul": []}
+    n = 2048
+    ar, ai, br, bi = (randn(n, n, dtype=f32) for _ in range(4))
+    ac, bc = torch.complex(ar, ai), torch.complex(br, bi)
+    rows["complex_matmul"].append(_case(
+        torch, "complex_matmul", "float32", [n, n, n],
+        torch.cat(complex_matmul(ar, ai, br, bi)), torch.cat(complex_matmul_torch(ar, ai, br, bi)),
+        timer, lambda: complex_matmul(ar, ai, br, bi), lambda: complex_matmul_torch(ar, ai, br, bi),
+        lambda: torch.matmul(ac, bc),
+        nbytes=4 * 6 * n * n, flops=8 * n ** 3, tol=GEMM_TOL,
+    ))
+    # the trailing update A22 -= L21 @ U12 right after the first panel
+    for m, k in ((1920, 128), (160, 32)):
+        c, a, b = randn(m, m, dtype=f32), randn(m, k, dtype=f32), randn(k, m, dtype=f32)
+        blk = dict(block_m=k, block_n=k, block_k=k)
+        rows["schur_update"].append(_case(
+            torch, "schur_update", "float32", [m, m, k],
+            schur_update(c, a, b, **blk), schur_update_torch(c, a, b), timer,
+            lambda: schur_update(c, a, b, **blk), lambda: schur_update_torch(c, a, b),
+            lambda: torch.addmm(c, a, b, alpha=-1),
+            nbytes=4 * (2 * m * m + 2 * m * k), flops=2 * m * m * k, tol=GEMM_TOL,
+        ))
+    a, b = randn(n, n, dtype=f32), randn(n, n, dtype=f32)
+    rows["matmul"].append(_case(
+        torch, "matmul", "float32", [n, n, n], matmul(a, b), matmul_torch(a, b), timer,
+        lambda: matmul(a, b), lambda: matmul_torch(a, b), lambda: torch.matmul(a, b),
+        nbytes=4 * 3 * n * n, flops=2 * n ** 3, tol=GEMM_TOL,
+    ))
     return rows
 
 
@@ -340,7 +414,7 @@ def phase_main_path(torch) -> dict:
     completions = engine.run_until_idle(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.launch_counts()
+    launches = {k: n for k, n in kernels.launch_counts().items() if k in SERVE_KERNELS}
 
     if len(completions) != n_req:
         raise AssertionError(f"{len(completions)}/{n_req} requests completed")
@@ -420,7 +494,202 @@ def phase_decode_profile(torch) -> dict:
         "device_ms_per_step": total if device else None,
         "device_busy_share": total / wall_ms if device else None,
         "top_device_ms_per_step": {k[:80]: v for k, v in top},
+        "sampled": _sampler_cost(torch, cfg.vocab_size, wall_ms),
     }
+    emit(out)
+    return out
+
+
+def _sampler_cost(torch, vocab: int, step_ms: float, b: int = 8, n: int = 20) -> dict:
+    """What a sampled request adds to a decode step: ``sample_tokens`` at
+    (B, V) = (8, vocab) with temperature 0.8 and top-k 40 (the profiled
+    steps above are greedy).  Host ms is the synchronised wall time per
+    call, device ms the profiler's kernel time per call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.sampler import sample_tokens
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    logits = torch.randn((b, vocab), generator=gen, device="cuda")
+    seeds = torch.arange(b, device="cuda")
+    steps = torch.full((b,), 7, device="cuda")
+    temps = torch.full((b,), 0.8, device="cuda")
+    top_ks = torch.full((b,), 40, device="cuda")
+
+    def call():
+        return sample_tokens(logits, seeds, steps, temps, top_ks)
+
+    toks = call()
+    top40 = torch.topk(logits, 40, dim=-1).indices
+    if not bool((top40 == toks.long()[:, None]).any(dim=-1).all()):
+        raise AssertionError(f"sampled tokens {toks.tolist()} fall outside the top 40")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / n
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            call()
+        torch.cuda.synchronize()
+    device_ms = sum(getattr(ev, "self_device_time_total", 0) or 0
+                    for ev in prof.key_averages()) / 1e3 / n
+    return {"B": b, "V": vocab, "temperature": 0.8, "top_k": 40,
+            "host_ms": host_ms, "device_ms": device_ms or None,
+            "host_share_of_greedy_step": host_ms / step_ms}
+
+
+def phase_offload(torch, n_fft: int = 256, n_lu: int = 192) -> dict:
+    """The paper's function-block offload pipeline on the card, then the
+    prior-work loop-offload GA and the Fig. 5 comparison.  Returns the
+    launch counts of the path that runs each offload kernel, and the
+    committed libcall applications for phase 7."""
+    import functools
+
+    import numpy as np
+
+    import repro_torch.kernels as kernels
+    from repro_torch.apps import fourier, matrix
+    from repro_torch.core import Discovery, OffloadEngine, measure, planner
+    from repro_torch.core.pattern_db import default_db
+    from repro_torch.offload import OffloadSession
+
+    t_phase = time.perf_counter()
+    inputs = {"fourier": fourier.make_input(n_fft), "matrix": matrix.make_input(n_lu)}
+    apps = [(fourier, "fourier_app_libcall"), (fourier, "fourier_app_copied"),
+            (matrix, "matrix_app_libcall"), (matrix, "matrix_app_copied")]
+    results = {}
+    kernels.reset_launches()
+    for mod, name in apps:
+        x = inputs[mod.__name__.rsplit(".", 1)[-1]]
+        res = OffloadSession(getattr(mod, name), args=(x,), repeats=1).run()
+        if not res.numerics_ok:
+            raise AssertionError(f"{name}: the offloaded pattern failed the numerics check")
+        results[name] = res
+        emit({
+            "phase": "offload", "app": name, "n": x.shape[0],
+            "discoveries": [[d.kind, d.source_name, d.entry.name, d.score]
+                            for d in res.discoveries],
+            "pattern": list(res.pattern), "numerics_ok": res.numerics_ok,
+            "baseline_seconds": res.baseline_seconds, "best_seconds": res.best_seconds,
+            "speedup": res.speedup, "search_seconds": res.report.search_seconds,
+        })
+    counts = kernels.launch_counts()
+    launches = {k: counts[k] for k in ("complex_matmul", "schur_update")}
+    for name in ("complex_matmul", "schur_update"):
+        if launches[name] <= 0:
+            raise AssertionError(f"the offload pipeline never launched {name}: {launches}")
+
+    # matmul: no application calls it, so its DB entry is resolved and
+    # called through the C-2 adapter (f64 -> f32 casts, 1000 -> 1024 pads)
+    rng = np.random.default_rng(0)
+    a, b = rng.standard_normal((1000, 1000)), rng.standard_normal((1000, 1000))
+    entry = default_db().get("matmul")
+    block = OffloadEngine().build_replacement(
+        Discovery("libcall", "np.matmul", entry), {}, ((a, b), (a @ b,))
+    )
+    kernels.reset_launches()
+    c = block(a, b)
+    torch.cuda.synchronize()
+    launches["matmul"] = kernels.launch_counts()["matmul"]
+    err = float(np.abs(c - a @ b).max())
+    if launches["matmul"] <= 0 or c.shape != (1000, 1000) or err > GEMM_TOL[0]:
+        raise AssertionError(f"matmul DB entry: launches {launches['matmul']}, err {err}")
+    emit({"phase": "offload", "db_entry": "matmul", "shape": list(c.shape),
+          "dtype": str(c.dtype), "max_abs_err_vs_numpy_f64": err,
+          "launches": launches["matmul"]})
+
+    # Fig. 5: the prior-work loop-offload GA over the staged variants.  The
+    # searches time each candidate once, and the GA's best is a minimum
+    # over its samples, so the three versions are re-timed alike after the
+    # search (median of FIG5_REPEATS calls) before they are compared.
+    fig5 = {}
+    for key, mod, build, n_genes, app in (
+        ("fft", fourier, fourier.build_fft_variant, len(fourier.FFT_STAGES), "fourier_app_libcall"),
+        ("lu", matrix, matrix.build_lu_variant, len(matrix.LU_STAGES), "matrix_app_libcall"),
+    ):
+        x = inputs[mod.__name__.rsplit(".", 1)[-1]]
+        space = planner.SubsetSpace.from_genome_builder(
+            functools.partial(build, device="cuda"), n_genes, tag=key)
+        ga = planner.GeneticSearch(population=4, generations=2, seed=0).search(
+            space, (x,), cache=planner.MeasurementCache(), repeats=1)
+        block_res = results[app]
+        secs = {
+            version: measure(fn, (x,), repeats=FIG5_REPEATS).seconds
+            for version, fn in (("cpu", getattr(mod, app)),
+                                ("loop", space.build(ga.best.candidate)),
+                                ("block", block_res.fn))
+        }
+        fig5[key] = {
+            "n": x.shape[0], "repeats": FIG5_REPEATS,
+            "cpu_seconds": secs["cpu"], "loop_seconds": secs["loop"],
+            "block_seconds": secs["block"],
+            "loop_speedup": secs["cpu"] / secs["loop"],
+            "block_speedup": secs["cpu"] / secs["block"],
+            "loop_genome": list(ga.best.candidate), "ga_evaluations": ga.evaluations,
+            "search_samples": {"cpu": block_res.baseline_seconds, "loop": ga.best.seconds,
+                               "block": block_res.best_seconds},
+            "ga_search_seconds": ga.search_seconds,
+            "block_search_seconds": block_res.report.search_seconds,
+        }
+    out = {"phase": "fig5", **fig5, "offload_launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return {"launches": launches, "results": results}
+
+
+def phase_offload_full(torch, results: dict, n: int = 2048) -> dict:
+    """The committed libcall applications at the paper's 2048 x 2048."""
+    import numpy as np
+
+    from repro_torch.apps import fourier, matrix
+    from repro_torch.kernels import ops, ref
+
+    t_phase = time.perf_counter()
+
+    def wall(fn, reps: int = 3) -> float:
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    x = fourier.make_input(n)
+    fft_app = results["fourier_app_libcall"].fn
+    y = fft_app(x)
+    want = np.fft.fft2(x)
+    fft_err = float(np.abs(y - want).max() / np.abs(want).max())
+    if y.shape != (n, n) or not np.isfinite(y).all() or fft_err > 1e-4:
+        raise AssertionError(f"fft2d at {n}: relative error {fft_err}")
+    xd = torch.from_numpy(x.astype(np.complex64)).cuda()
+    fft_out = {
+        "app": "fourier_app_libcall", "n": n, "max_err_over_max_ref": fft_err,
+        "app_seconds": wall(lambda: fft_app(x)),
+        "block_on_device_seconds": wall(lambda: ops.fft2d(xd)),
+        "cufft_seconds": wall(lambda: torch.fft.fft2(xd)),
+    }
+
+    a = matrix.make_input(n)
+    lu_app = results["matrix_app_libcall"].fn
+    det = float(lu_app(a))
+    ad = torch.from_numpy(a.astype(np.float32)).cuda()
+    lu, indx, d = ops.lu_nr_compat(ad)
+    rec_err = float((ref.lu_reconstruct(lu, indx) - ad).abs().max())
+    # f32 rounding over 2048 pivots of an orthogonal (condition 1) matrix
+    if abs(abs(det) - 1.0) > 1e-3 or rec_err > 1e-3:
+        raise AssertionError(f"LU at {n}: |det| {abs(det)}, reconstruction error {rec_err}")
+    lu_out = {
+        "app": "matrix_app_libcall", "n": n, "abs_det": abs(det),
+        "det_tol": 1e-3, "reconstruction_max_abs_err": rec_err,
+        "app_seconds": wall(lambda: lu_app(a), reps=2),
+        "block_on_device_seconds": wall(lambda: ops.lu_nr_compat(ad), reps=2),
+        "cusolver_seconds": wall(lambda: torch.linalg.lu_factor(ad), reps=2),
+    }
+    out = {"phase": "offload_full", "fft": fft_out, "lu": lu_out,
+           "seconds": time.perf_counter() - t_phase}
     emit(out)
     return out
 
@@ -444,13 +713,17 @@ def main() -> int:
     phase_served_f32(torch)
     main = phase_main_path(torch)
     phase_decode_profile(torch)
+    offload = phase_offload(torch)
+    phase_offload_full(torch, offload["results"])
 
+    # each kernel's launches come from the path that runs it
+    launches = {**main["launches"], **offload["launches"]}
     summary = []
     for name, (source, replaces) in SOURCES.items():
         head = rows[name][0]  # the main path's headline shape
         summary.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": main["launches"][name],
+            "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in rows[name]),
             "ms": head["ms"], "plain_ms": head["plain_ms"],
             "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],

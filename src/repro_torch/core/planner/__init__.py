@@ -1,0 +1,56 @@
+"""Planner — the unified offload-pattern search subsystem (the port of
+``repro/core/planner``).
+
+  SearchSpace   *what* is being searched.  ``SubsetSpace`` is the paper's
+                binary offload-or-not choice per discovered block.
+  SearchStrategy  *how* the space is explored.  ``SingleThenCombine`` is the
+                paper's Step-3 procedure (§4.2); ``GeneticSearch`` is the
+                prior-work GA; ``ExhaustiveSearch`` measures a listed set.
+  Objective     *what "best" means*: ``Latency`` (the paper's
+                wall-seconds), ``PerfPerWatt``, ``WeightedCost``.
+  MeasurementCache  shared memoisation keyed by canonical pattern, so no
+                strategy ever re-measures a visited pattern.
+  PlanStore     persistent JSON plans keyed by name + environment
+                fingerprint.
+
+``Planner`` ties them together: check the store, otherwise search, then
+persist the winner.  Not ported yet: ``BindingSpace`` and
+``declared_pattern`` (the zoo binding path), the HLO cost model with
+``CostGuidedSearch``, the parallel executors and the hardware meters.
+"""
+
+from repro_torch.core.planner.cache import MeasurementCache  # noqa: F401
+from repro_torch.core.planner.objectives import (  # noqa: F401
+    DEFAULT_DEVICE_WATTS,
+    Latency,
+    Objective,
+    PerfPerWatt,
+    PowerMeter,
+    TimeProportionalPower,
+    WeightedCost,
+    resolve_objective,
+)
+from repro_torch.core.planner.planner import (  # noqa: F401
+    Planner,
+    plan_compatible,
+)
+from repro_torch.core.planner.space import (  # noqa: F401
+    Axis,
+    Candidate,
+    SearchSpace,
+    SubsetSpace,
+)
+from repro_torch.core.planner.store import (  # noqa: F401
+    Plan,
+    PlanStore,
+    environment_fingerprint,
+)
+from repro_torch.core.planner.strategies import (  # noqa: F401
+    ExhaustiveSearch,
+    GeneticSearch,
+    PlanReport,
+    PlanTrial,
+    SearchStrategy,
+    SingleThenCombine,
+    to_verification_report,
+)

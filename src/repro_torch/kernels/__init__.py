@@ -10,14 +10,19 @@ Pallas kernel on a TPU.  Nothing is built at import: the CUDA library is
 compiled at the first kernel launch (:mod:`repro_torch.kernels.build`).
 """
 
+import functools
+
 from repro_torch.core import blocks
-from repro_torch.kernels import attention, paged_attention, ref, rmsnorm
+from repro_torch.kernels import attention, fft, matmul, ops, paged_attention, ref, rmsnorm
 
 #: the wrappers whose ``launches`` counters show a run went through them
 KERNELS = {
     "rmsnorm": rmsnorm.rmsnorm,
     "paged_attention": paged_attention.paged_attention,
     "flash_attention": attention.flash_attention,
+    "matmul": matmul.matmul,
+    "schur_update": matmul.schur_update,
+    "complex_matmul": fft.complex_matmul,
 }
 
 
@@ -36,6 +41,22 @@ def _register_all() -> None:
          "page gather + dense masked softmax"),
         ("paged_attention", "cuda", paged_attention.paged_attention,
          "csrc/paged_attention.cu"),
+        # the offload pipeline's shelf: cuBLAS / cuFFT / cuSOLVER analogues
+        ("matmul", "ref", ref.matmul_ref, "torch.matmul oracle"),
+        ("matmul", "torch", functools.partial(ops.matmul, backend="torch"),
+         "plain torch"),
+        ("matmul", "cuda", functools.partial(ops.matmul, backend="cuda"),
+         "csrc/matmul.cu"),
+        ("fft2d", "ref", functools.partial(ops.fft2d, backend="ref"),
+         "torch.fft.fft2 oracle"),
+        ("fft2d", "torch", functools.partial(ops.fft2d, backend="torch"),
+         "matmul-DFT stages, plain complex matmul"),
+        ("fft2d", "cuda", functools.partial(ops.fft2d, backend="cuda"),
+         "matmul-DFT stages, csrc/complex_matmul.cu"),
+        ("lu", "torch", functools.partial(ops.lu, backend="torch"),
+         "blocked LU, plain trailing update"),
+        ("lu", "cuda", functools.partial(ops.lu, backend="cuda"),
+         "blocked LU, csrc/matmul.cu Schur update"),
     ]:
         r.register(block, target, fn, note)
 

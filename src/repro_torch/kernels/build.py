@@ -46,6 +46,12 @@ ENTRY_POINTS = {
     "repro_paged_attention": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
     # q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, dtype, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
+    # a, b, out, M, N, K, stream
+    "repro_matmul": [_P] * 3 + [_I] * 3 + [_P],
+    # c, a, b, out, M, N, K, stream
+    "repro_schur_update": [_P] * 4 + [_I] * 3 + [_P],
+    # ar, ai, br, bi, out_r, out_i, M, N, K, stream
+    "repro_complex_matmul": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 #: dtype code the C entry points take
@@ -174,3 +180,10 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: every operand must be on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def check_float32(name: str, *tensors: torch.Tensor) -> None:
+    """Raise unless every tensor is float32 (the GEMM kernels' one type)."""
+    for t in tensors:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name}: the CUDA kernel takes float32, got {t.dtype}")

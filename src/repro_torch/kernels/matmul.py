@@ -1,0 +1,106 @@
+"""Blocked matmul and the fused LU trailing update: the CUDA kernels'
+wrappers (``csrc/matmul.cu``, the port of ``repro/kernels/matmul.py``'s
+``matmul_pallas`` and ``schur_update_pallas``) and their plain versions.
+
+``block_m/block_n/block_k`` keep the reference's tiling contract: shapes
+that do not divide by them raise ``ValueError``, on every device, and the
+interface adapter pads first.  The CUDA kernel tiles the output by its own
+128 x 128 (K in steps of 8) and masks the ragged edge, so any block sizes
+that pass the contract run.  The kernel takes float32 only.
+
+A wrapper runs the plain version only for CPU tensors; a CUDA tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+from repro_torch.kernels.ref import matmul_ref, schur_update_ref
+
+
+# the plain versions are the oracles themselves, as the reference registers
+# ref.matmul_ref for both its "ref" and "xla" targets; they take (and
+# ignore) the block sizes so callers can swap them for the wrappers
+def matmul_torch(a: torch.Tensor, b: torch.Tensor, **_blocks: int) -> torch.Tensor:
+    return matmul_ref(a, b)
+
+
+def schur_update_torch(c: torch.Tensor, a: torch.Tensor, b: torch.Tensor, **_blocks: int) -> torch.Tensor:
+    return schur_update_ref(c, a, b)
+
+
+def check_tiles(m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> None:
+    if m % block_m or n % block_n or k % block_k:
+        raise ValueError(
+            f"shapes ({m},{k})x({k},{n}) must tile by "
+            f"({block_m},{block_n},{block_k}); pad first (interface adapter "
+            "handles this)"
+        )
+
+
+def matmul(
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """(M, K) @ (K, N) -> (M, N), f32 accumulation."""
+    m, k = a.shape
+    k2, n = b.shape
+    if k != k2:
+        raise ValueError(f"contraction mismatch {k} vs {k2}")
+    check_tiles(m, n, k, block_m, block_n, block_k)
+    if a.device.type == "cpu":
+        return matmul_torch(a, b)
+    build.check_cuda("matmul", a, b)
+    build.check_float32("matmul", a, b)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    if m and n:
+        build.launch(
+            "repro_matmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+            build.stream_of(a),
+        )
+        matmul.launches += 1
+    return out
+
+
+def schur_update(
+    c: torch.Tensor,
+    a: torch.Tensor,
+    b: torch.Tensor,
+    *,
+    block_m: int = 128,
+    block_n: int = 128,
+    block_k: int = 128,
+) -> torch.Tensor:
+    """Fused C - A @ B: C is read once into the accumulators and the result
+    written once (the HBM round trip of C that matmul-then-subtract pays)."""
+    m, k = a.shape
+    k2, n = b.shape
+    if c.shape != (m, n):
+        raise ValueError(f"c shape {tuple(c.shape)} != ({m},{n})")
+    if k != k2:
+        raise ValueError(f"contraction mismatch {k} vs {k2}")
+    if m % block_m or n % block_n or k % block_k:
+        raise ValueError("shapes must tile by the block sizes; pad first")
+    if c.device.type == "cpu":
+        return schur_update_torch(c, a, b)
+    build.check_cuda("schur_update", c, a, b)
+    build.check_float32("schur_update", c, a, b)
+    out = torch.empty_like(c)
+    if m and n:
+        build.launch(
+            "repro_schur_update", c.data_ptr(), a.data_ptr(), b.data_ptr(),
+            out.data_ptr(), m, n, k, build.stream_of(c),
+        )
+        schur_update.launches += 1
+    return out
+
+
+matmul.launches = 0
+schur_update.launches = 0

@@ -6,12 +6,16 @@ per-slot knobs — ``temperature`` and ``top_k`` — are (B,) tensors, so a
 batch mixes greedy and top-k requests in one call.  Greedy is
 ``temperature == 0``; ``top_k == 0`` disables the top-k filter.
 
-Random draws are Gumbel-max over a counter-based integer hash of (request
-seed, token index, vocab id), written in plain torch ops: a draw depends on
-nothing else — not the slot, the engine step or the other requests in the
+Random draws are the reference's ``jax.random`` draws, bit for bit: the
+key of a slot is ``fold_in(fold_in(PRNGKey(0), seed), step)`` and the
+token is ``categorical`` over ``logits / temperature``, i.e. the argmax of
+the logits plus Gumbel noise made from threefry2x32 random bits (JAX's
+default ``threefry_partitionable`` layout).  The generator is written in
+int64 tensor ops masked to 32 bits, on the logits' device, with no loop
+over the vocabulary.  A draw depends only on (request seed, token index,
+vocab id) — not the slot, the engine step or the other requests in the
 batch — so a request replayed under another batch composition samples the
-identical tokens.  The bits differ from the reference's ``jax.random``
-draws; greedy decoding is identical.
+identical tokens, and a sampled trace matches the JAX engine's.
 """
 
 from __future__ import annotations
@@ -82,25 +86,49 @@ class Sampler:
         return (float(self.temperature), int(self.top_k))
 
 
-def _mix32(x: torch.Tensor) -> torch.Tensor:
-    """murmur3's 32-bit finaliser on int64 tensors holding 32-bit values
-    (products wrap in int64; the mask keeps the exact low 32 bits)."""
-    x = x ^ (x >> 16)
-    x = (x * 0x85EBCA6B) & _M32
-    x = x ^ (x >> 13)
-    x = (x * 0xC2B2AE35) & _M32
-    return x ^ (x >> 16)
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return ((x << r) | (x >> (32 - r))) & _M32
+
+
+def threefry2x32(k0, k1, x0, x1) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 (20 rounds), as ``jax.random``'s default PRNG
+    implements it, on int64 tensors holding 32-bit words (broadcast
+    together).  Sums wrap through the ``& _M32`` mask."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def slot_keys(seeds: torch.Tensor, steps: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(B,) key words of ``fold_in(fold_in(PRNGKey(0), seed), step)``;
+    ``fold_in(key, d)`` hashes the counter pair (0, d) under ``key``."""
+    zero = torch.zeros_like(seeds, dtype=torch.int64)
+    k0, k1 = threefry2x32(zero, zero, zero, seeds.long() & _M32)
+    return threefry2x32(k0, k1, zero, steps.long() & _M32)
 
 
 def gumbel_noise(seeds: torch.Tensor, steps: torch.Tensor, vocab: int) -> torch.Tensor:
-    """(B, vocab) standard Gumbel noise, a pure function of
-    (seed, step, vocab id) per element."""
-    dev = seeds.device
-    key = _mix32((seeds.long() & _M32) ^ 0x9E3779B9)
-    key = _mix32((key + (steps.long() & _M32) * 0x632BE5AB) & _M32)  # (B,)
-    ids = torch.arange(vocab, dtype=torch.int64, device=dev)
-    bits = _mix32((key[:, None] + ids[None, :] * 0x9E3779B1) & _M32)
-    u = ((bits >> 8).float() + 0.5) * (1.0 / (1 << 24))  # in (0, 1)
+    """(B, vocab) standard Gumbel noise, ``jax.random.gumbel`` under each
+    slot's key: random bits over the counters (0, vocab id), a float in
+    [1, 2) from their top 23 bits, shifted into [tiny, 1), then
+    ``-log(-log(u))``."""
+    k0, k1 = slot_keys(seeds, steps)
+    ids = torch.arange(vocab, dtype=torch.int64, device=seeds.device)[None, :]
+    b0, b1 = threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(ids), ids)
+    bits = ((b0 ^ b1) >> 9) | 0x3F800000
+    u = bits.to(torch.int32).view(torch.float32) - 1.0
+    tiny = torch.finfo(torch.float32).tiny
+    u = torch.clamp(u * (1.0 - tiny) + tiny, min=tiny)
     return -torch.log(-torch.log(u))
 
 

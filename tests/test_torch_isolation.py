@@ -38,7 +38,9 @@ def test_importing_the_port_loads_no_jax():
     code = (
         "import sys\n"
         "import repro_torch, repro_torch.bridge, repro_torch.serve, "
-        "repro_torch.launch.serve, repro_torch.kernels.build\n"
+        "repro_torch.launch.serve, repro_torch.kernels.build, repro_torch.kernels.ops, "
+        "repro_torch.apps, repro_torch.core, repro_torch.offload, repro_torch.metering\n"
+        "repro_torch.core.pattern_db.default_db()\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "assert not bad, bad\n"
     )
