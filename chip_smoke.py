@@ -34,10 +34,22 @@ JSON line, and any failure raises (exit code != 0):
    each re-timed as the median of ``FIG5_REPEATS`` calls);
 7. offload_full: the committed libcall applications at the paper's
    2048 x 2048, checked against ``np.fft.fft2`` and |det| = 1, timed beside
-   cuFFT (``torch.fft.fft2``) and cuSOLVER (``torch.linalg.lu_factor``).
+   cuFFT (``torch.fft.fft2``) and cuSOLVER (``torch.linalg.lu_factor``);
+8. served f32 trace, SSM: full-width mamba2-2.7b cut to 2 layers, kernels
+   against plain versions, as phase 3;
+9. the SSM main path: full-width, full-depth mamba2-2.7b (64 layers)
+   served from contiguous slots (8 slots, the same 16 requests), with the
+   ``rmsnorm`` and ``ssd_chunks`` launch counts (each > 0), then a decode
+   profile at 8 busy slots as phase 5;
+10. hybrid: zamba2-7b at full width cut to 12 layers (``mmmmmsmmmmms``)
+   served from the paged cache (page_size 16, 8 slots, the same trace),
+   with the ``rmsnorm``, ``ssd_chunks``, ``paged_attention`` and
+   ``flash_attention`` launch counts (each > 0).
 
 The offload kernels (complex matmul, Schur update, matmul) are held
-against their plain versions in phase 2 at the paper's scale (2048^2 f32).
+against their plain versions in phase 2 at the paper's scale (2048^2 f32);
+the SSD chunk kernel at mamba2's and zamba2's prefill shapes, and paged and
+flash attention at zamba2's head dim 112 too.
 
 The last lines are the card as ``nvidia-smi`` reports it, the kernels'
 summary and ``{"ok": true, "device": {...}}``.  Needs CUDA and the rest of
@@ -68,6 +80,19 @@ TOL = {"float32": (1e-4, 1e-4), "bfloat16": (2e-2, 2e-2)}  # (atol, rtol)
 # the same products in another order, each off by ~K * 2^-24 * |a||b|
 # (~1.2e-4 at K = 2048) per output, with outputs up to ~2e2 in size
 GEMM_TOL = (1e-3, 1e-4)
+# SSD chunk terms, each of the four f32 outputs held on its own (both
+# versions upcast bf16 inputs exactly).  y sums L <= 128 terms G[i, j] *
+# decay * dt * x, where each G is itself an f32 sum of N <= 128 products of
+# unit-scale values (|G| up to ~50), dt <= 0.1; summed in another order,
+# each output is off by ~L * N * 2^-24 * |terms| (~1e-4 here, with |y| up
+# to ~20).  A state sums L products B * dt * exp(a_tot - a_cum) * x
+# (|state| up to ~1): the two a_cum, cumulative sums of up to ~200 in size
+# taken in another order, may differ by a few f32 ulps (~1e-5 each), which
+# moves a decay by ~1e-4 relative.  cumdecay and totals are one f32 exp of
+# those cumulative sums: mostly relative, the atol only covers values that
+# underflow toward 0 (exp of -50 and below).
+SSD_TOL = {"y": (1e-3, 1e-4), "states": (1e-4, 1e-3),
+           "cumdecay": (1e-7, 1e-4), "totals": (1e-7, 1e-4)}
 
 SOURCES = {
     "rmsnorm": ("src/repro_torch/kernels/csrc/rmsnorm.cu", "src/repro/kernels/rmsnorm.py:47"),
@@ -85,11 +110,17 @@ SOURCES = {
         "src/repro_torch/kernels/csrc/complex_matmul.cu",
         "src/repro/kernels/fft.py:90",
     ),
+    "ssd_chunks": ("src/repro_torch/kernels/csrc/ssd_chunks.cu", "src/repro/kernels/ssd.py:92"),
 }
 
 
 #: the serving path's kernels (phase 4); the offload shelf's run in phase 6
 SERVE_KERNELS = ("rmsnorm", "paged_attention", "flash_attention")
+#: the SSM path's kernels (phase 9) and the hybrid's (phase 10)
+SSM_KERNELS = ("rmsnorm", "ssd_chunks")
+HYBRID_KERNELS = ("rmsnorm", "ssd_chunks", "paged_attention", "flash_attention")
+#: zamba2-7b at full width, cut to 12 layers (two shared-attention sites)
+ZAMBA2_PATTERN = "mmmmmsmmmmms"
 
 #: calls per version when Fig. 5's cpu / loop / block are re-timed (median)
 FIG5_REPEATS = 5
@@ -206,7 +237,13 @@ def phase_device(torch) -> dict:
 
 def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbytes, flops,
           tol=None):
-    err = compare(torch, got, want, dtype, tol)
+    """``got`` and ``want`` are one tensor, or dicts of named outputs that
+    are each held to ``tol[name]``."""
+    if isinstance(got, dict):
+        errs = {k: compare(torch, got[k], want[k], dtype, tol[k]) for k in got}
+        err = max(errs.values())
+    else:
+        errs, err = None, compare(torch, got, want, dtype, tol)
     bound, by = bound_ms(nbytes, flops, dtype)
     row = {
         "phase": "kernel", "name": name, "dtype": dtype, "shape": shape,
@@ -215,6 +252,8 @@ def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbyt
         "bound_ms": bound, "bound_by": by,
         "library_ms": timer.ms(library) if library is not None else None,
     }
+    if errs:
+        row["max_abs_err_by_output"] = errs
     emit(row)
     return row
 
@@ -314,7 +353,67 @@ def phase_kernels(torch) -> dict:
             nbytes=e * (2 * q.numel() + k.numel() + v.numel()),
             flops=4 * dh * h * s * (s + 1) // 2,
         ))
+
+    # zamba2-7b's shared attention block: H = KH = 32, head dim 112
+    zh, zd = 32, 112
+    rows["paged_attention"].append(paged_case(
+        8, zh, zh, 1, zd, zd, [512, 600, 480, 520, 530, 400, 511, 450], torch.bfloat16))
+    q, k, v = (randn(1, zh, 512, zd, dtype=torch.bfloat16) for _ in range(3))
+    rows["flash_attention"].append(_case(
+        torch, "flash_attention", "bfloat16", [1, zh, zh, 512, zd],
+        flash_attention(q, k, v), flash_attention_torch(q, k, v), timer,
+        lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        nbytes=2 * 4 * q.numel(), flops=4 * zd * zh * 512 * 513 // 2,
+    ))
+    rows["ssd_chunks"] = _ssd_cases(torch, timer, randn, gen)
     rows.update(_offload_kernel_cases(torch, timer, randn))
+    return rows
+
+
+def _ssd_cases(torch, timer, randn, gen) -> list:
+    """The SSD chunk kernel at mamba2-2.7b's prefill of a 512-token prompt
+    (H=80, P=64, N=128, L=128), a ragged 97-token prompt (one chunk of
+    L=97) and zamba2-7b's (H=112, N=64): x, B and C in bf16 as the main
+    path gives them, dt in the models' initial range [1e-3, 0.1], a from
+    -U[1, 16).  A fourth case takes mamba2's shape with slow decay (dt in
+    [1e-3, 2e-3], a from -U[1, 1.1)), so that cumdecay and totals stay of
+    order 1 across the chunk.  Each of the four outputs is compared on its
+    own.  The bound counts the TPU kernel's work (C B^T per head) at the
+    inputs' type."""
+    from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_torch
+
+    names = ("y", "states", "cumdecay", "totals")
+    rows = []
+    b, p = 1, 64
+    fast = ((1e-3, 0.1), (1.0, 16.0))  # (dt range, -a range)
+    slow = ((1e-3, 2e-3), (1.0, 1.1))
+    for s, h, n, chunk, ((dt0, dt1), (a0, a1)) in (
+        (512, 80, 128, 128, fast), (97, 80, 128, 97, fast), (512, 112, 64, 128, fast),
+        (512, 80, 128, 128, slow),
+    ):
+        x = randn(b, s, h, p, dtype=torch.bfloat16)
+        bm = randn(b, s, n, dtype=torch.bfloat16)
+        cm = randn(b, s, n, dtype=torch.bfloat16)
+        dt = dt0 + (dt1 - dt0) * torch.rand((b, s, h), generator=gen, device="cuda")
+        a = -(a0 + (a1 - a0) * torch.rand((h,), generator=gen, device="cuda"))
+        args = (x, dt, a, bm, cm)
+        nc = s // chunk
+        # inputs read once (bf16 x/B/C, f32 dt and a), the four f32 outputs
+        # written once; flops: C B^T, W x and the state product per head
+        nbytes = (2 * (x.numel() + bm.numel() + cm.numel()) + 4 * (dt.numel() + h)
+                  + 4 * (x.numel() + b * nc * h * n * p + dt.numel() + b * nc * h))
+        flops = b * nc * h * (2 * chunk * chunk * n + 2 * chunk * chunk * p + 2 * chunk * n * p)
+        shape = {"B": b, "S": s, "H": h, "P": p, "N": n, "L": chunk,
+                 "dt": [dt0, dt1], "minus_a": [a0, a1]}
+        rows.append(_case(
+            torch, "ssd_chunks", "bfloat16", shape,
+            dict(zip(names, ssd_chunks(*args, chunk=chunk))),
+            dict(zip(names, ssd_chunks_torch(*args, chunk=chunk))),
+            timer, lambda: ssd_chunks(*args, chunk=chunk),
+            lambda: ssd_chunks_torch(*args, chunk=chunk), None,
+            nbytes=nbytes, flops=flops, tol=SSD_TOL,
+        ))
     return rows
 
 
@@ -364,8 +463,10 @@ def _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw):
     return [engine.completions[i].tokens for i in ids]
 
 
-def phase_served_f32(torch) -> None:
-    """Full-width llama3.2-1b cut to 2 layers in f32: kernels vs plain."""
+def phase_served_f32(torch, arch: str = "llama3.2-1b", lens=(37, 100, 16, 70),
+                     gens=(12, 6, 10, 8), **kw) -> None:
+    """Full-width ``arch`` cut to 2 layers in f32: kernels vs plain, on
+    prompts of ``lens`` tokens that generate ``gens`` tokens each."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -373,34 +474,49 @@ def phase_served_f32(torch) -> None:
     from repro_torch.models import lm
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), n_layers=2, compute_dtype="float32")
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
+    cfg = dataclasses.replace(cfg, n_layers=2, block_pattern=cfg.pattern()[:2] if cfg.block_pattern else None)
     params = lm.init_params(cfg, seed=1, device="cuda")
     rng = np.random.default_rng(1)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in (37, 100, 16, 70)]
-    gens = [12, 6, 10, 8]
-    kw = dict(n_slots=2, max_len=128, page_size=16)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
+    kw = dict(dict(n_slots=2, max_len=128, page_size=16), **kw)
+    plain = {"rmsnorm": "torch", "attention": "torch", "paged_attention": "torch",
+             "ssd_scan": "torch"}
     t0 = time.perf_counter()
     kernels = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw)
-    with blocks.bind({"rmsnorm": "torch", "attention": "torch", "paged_attention": "torch"}):
-        plain = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw)
-    if kernels != plain:
-        raise AssertionError(f"f32 served trace differs: kernels {kernels} vs plain {plain}")
-    emit({"phase": "served_f32", "layers": 2, "requests": len(prompts),
+    with blocks.bind(plain):
+        plain_tokens = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw)
+    if kernels != plain_tokens:
+        raise AssertionError(
+            f"f32 served trace differs: kernels {kernels} vs plain {plain_tokens}")
+    emit({"phase": "served_f32", "arch": cfg.name, "layers": 2, "requests": len(prompts),
           "identical": True, "tokens": [list(t) for t in kernels],
           "seconds": round(time.perf_counter() - t0, 3)})
 
 
-def phase_main_path(torch) -> dict:
-    """Full-width llama3.2-1b served from the paged KV cache."""
+def _serve_config(arch: str):
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if arch == "zamba2-7b":  # full width, depth cut to two shared sites
+        cfg = dataclasses.replace(cfg, n_layers=len(ZAMBA2_PATTERN), block_pattern=ZAMBA2_PATTERN)
+    return cfg
+
+
+def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
+                    phase: str = "main_path", **engine_kw) -> dict:
+    """Full-width ``arch`` served by ``ServeEngine`` (default: llama3.2-1b
+    from the paged KV cache); every kernel in ``expect`` must launch."""
     import numpy as np
 
     import repro_torch.kernels as kernels
-    from repro_torch.configs import get_config
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config("llama3.2-1b")
+    cfg = _serve_config(arch)
+    engine_kw = dict(dict(n_slots=8, max_len=1024, page_size=16), **engine_kw)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    engine = ServeEngine(cfg, n_slots=8, max_len=1024, page_size=16, seed=0, device="cuda")
+    engine = ServeEngine(cfg, seed=0, device="cuda", **engine_kw)
     torch.cuda.synchronize()
     setup = time.perf_counter() - t0
     rng = np.random.default_rng(0)
@@ -414,7 +530,7 @@ def phase_main_path(torch) -> dict:
     completions = engine.run_until_idle(max_steps=10_000)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: n for k, n in kernels.launch_counts().items() if k in SERVE_KERNELS}
+    launches = {k: n for k, n in kernels.launch_counts().items() if k in expect}
 
     if len(completions) != n_req:
         raise AssertionError(f"{len(completions)}/{n_req} requests completed")
@@ -422,17 +538,20 @@ def phase_main_path(torch) -> dict:
         toks = engine.completions[i].tokens
         if len(toks) != gen or not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {i}: bad tokens {toks}")
-    missing = [k for k, n in launches.items() if n <= 0]
+    missing = [k for k in expect if launches.get(k, 0) <= 0]
     if missing:
-        raise AssertionError(f"main path never launched {missing}: {launches}")
+        raise AssertionError(f"{phase}: {arch} never launched {missing}: {launches}")
 
     stats = engine.stats
     pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
     ttft = [c.ttft * 1e3 for c in completions]
     lat = [c.latency * 1e3 for c in completions]
     out = {
-        "phase": "main_path", "arch": cfg.name, "layers": cfg.n_layers,
-        "slots": 8, "max_len": 1024, "page_size": 16, "requests": n_req,
+        "phase": phase, "arch": cfg.name, "layers": cfg.n_layers,
+        "pattern": cfg.pattern() if cfg.block_pattern else None,
+        "slots": engine.n_slots, "max_len": engine.max_len,
+        "page_size": engine.kv.pool.page_size if engine.paged else None,
+        "requests": n_req,
         "prompt_tokens": sum(len(p) for p in prompts), "generated_tokens": n_req * gen,
         "setup_seconds": setup, "wall_seconds": wall,
         "tok_per_s": n_req * gen / wall,
@@ -450,7 +569,8 @@ def phase_main_path(torch) -> dict:
     return out
 
 
-def phase_decode_profile(torch) -> dict:
+def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
+                         phase: str = "decode_profile", **engine_kw) -> dict:
     """Where a full-width decode step's time goes, at 8 busy slots with
     ~512-token contexts: wall time per step unprofiled, then device time
     per step by kernel from ``torch.profiler`` over the same number of
@@ -458,11 +578,11 @@ def phase_decode_profile(torch) -> dict:
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.configs import get_config
     from repro_torch.serve import Request, ServeEngine
 
-    cfg = get_config("llama3.2-1b")
-    engine = ServeEngine(cfg, n_slots=8, max_len=1024, page_size=16, seed=0, device="cuda")
+    cfg = _serve_config(arch)
+    engine_kw = dict(dict(n_slots=8, max_len=1024, page_size=16), **engine_kw)
+    engine = ServeEngine(cfg, seed=0, device="cuda", **engine_kw)
     rng = np.random.default_rng(2)
     for _ in range(8):
         engine.submit(Request(rng.integers(0, cfg.vocab_size, 512).tolist(), max_new_tokens=64))
@@ -481,23 +601,35 @@ def phase_decode_profile(torch) -> dict:
         for _ in range(n):
             engine.step()
         torch.cuda.synchronize()
-    device = {}
-    for ev in prof.key_averages():
-        us = getattr(ev, "self_device_time_total", 0) or 0
-        if us > 0:
-            device[ev.key] = device.get(ev.key, 0.0) + us / 1e3 / n
-    total = sum(device.values())
+    device, kernels = _device_events(prof)
+    total = sum(device.values()) / n
     top = sorted(device.items(), key=lambda kv: -kv[1])[:10]
     out = {
-        "phase": "decode_profile", "slots": 8, "context": 512, "steps": n,
+        "phase": phase, "arch": cfg.name, "slots": 8, "context": 512, "steps": n,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": total if device else None,
         "device_busy_share": total / wall_ms if device else None,
-        "top_device_ms_per_step": {k[:80]: v for k, v in top},
-        "sampled": _sampler_cost(torch, cfg.vocab_size, wall_ms),
+        "device_events_per_step": kernels / n,
+        "top_device_ms_per_step": {k[:80]: v / n for k, v in top},
     }
+    if sampled:
+        out["sampled"] = _sampler_cost(torch, cfg.vocab_size, wall_ms)
     emit(out)
     return out
+
+
+def _device_events(prof) -> tuple[dict, int]:
+    """Device time (ms) by kernel or copy name, and the number of such
+    events, from the profiler's device events alone: the CPU ops that
+    launched them are not counted again."""
+    from torch.autograd import DeviceType
+
+    device, count = {}, 0
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CUDA:
+            count += 1
+            device[ev.name] = device.get(ev.name, 0.0) + ev.time_range.elapsed_us() / 1e3
+    return device, count
 
 
 def _sampler_cost(torch, vocab: int, step_ms: float, b: int = 8, n: int = 20) -> dict:
@@ -533,8 +665,7 @@ def _sampler_cost(torch, vocab: int, step_ms: float, b: int = 8, n: int = 20) ->
         for _ in range(n):
             call()
         torch.cuda.synchronize()
-    device_ms = sum(getattr(ev, "self_device_time_total", 0) or 0
-                    for ev in prof.key_averages()) / 1e3 / n
+    device_ms = sum(_device_events(prof)[0].values()) / n
     return {"B": b, "V": vocab, "temperature": 0.8, "top_k": 40,
             "host_ms": host_ms, "device_ms": device_ms or None,
             "host_share_of_greedy_step": host_ms / step_ms}
@@ -715,9 +846,19 @@ def main() -> int:
     phase_decode_profile(torch)
     offload = phase_offload(torch)
     phase_offload_full(torch, offload["results"])
+    # the SSM path (contiguous slots: its state has no sequence axis) and
+    # the hybrid (paged K/V at the shared-attention sites)
+    # a 300-token prompt pads to 384 and runs three chunks with their carry
+    phase_served_f32(torch, "mamba2-2.7b", (37, 100, 16, 70, 300), (12, 6, 10, 8, 8),
+                     page_size=None, max_len=320)
+    ssm = phase_main_path(torch, "mamba2-2.7b", SSM_KERNELS, "main_path_ssm", page_size=None)
+    phase_decode_profile(torch, "mamba2-2.7b", sampled=False, phase="decode_profile_ssm",
+                         page_size=None)
+    phase_main_path(torch, "zamba2-7b", HYBRID_KERNELS, "hybrid")
 
     # each kernel's launches come from the path that runs it
-    launches = {**main["launches"], **offload["launches"]}
+    launches = {**main["launches"], **offload["launches"],
+                "ssd_chunks": ssm["launches"]["ssd_chunks"]}
     summary = []
     for name, (source, replaces) in SOURCES.items():
         head = rows[name][0]  # the main path's headline shape

@@ -9,13 +9,14 @@ from repro_torch.configs.base import ArchConfig  # noqa: F401
 
 _MODULES = {
     "llama3.2-1b": "repro_torch.configs.llama3_2_1b",
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 #: the reference's architectures whose mixers the port has not reached yet
 _NOT_PORTED = (
     "stablelm-1.6b", "command-r-35b", "granite-3-8b", "arctic-480b",
-    "deepseek-v2-236b", "mamba2-2.7b", "pixtral-12b", "musicgen-large",
-    "zamba2-7b",
+    "deepseek-v2-236b", "pixtral-12b", "musicgen-large",
 )
 
 ARCH_NAMES = tuple(_MODULES)

@@ -34,6 +34,15 @@ class SSMConfig:
     expand: int = 2
     chunk: int = 128
 
+    def d_inner(self, d_model: int) -> int:
+        return self.expand * d_model
+
+    def n_heads(self, d_model: int) -> int:
+        return self.d_inner(d_model) // self.head_dim
+
+    def conv_dim(self, d_model: int) -> int:
+        return self.d_inner(d_model) + 2 * self.d_state
+
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:

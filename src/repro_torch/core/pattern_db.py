@@ -8,9 +8,9 @@ code used by the similarity detector.  Here the DB is a JSON-persistable
 registry whose "executables" are dotted import paths into this package (the
 CUDA shelf lives in ``repro_torch.kernels``), so entries survive
 serialisation the same way executable paths did in MySQL.  The entries are
-the reference's, with implementations in this package and ``cuda`` targets;
-``ssd_scan``'s implementation arrives with the port of the SSM path, and
-until then resolving that one entry raises.
+the reference's, with implementations in this package and ``cuda`` targets
+(``ssd_scan`` resolves to ``repro_torch.kernels.ops.ssd_scan``, the chunked
+scan over the SSD chunk kernel).
 """
 
 from __future__ import annotations

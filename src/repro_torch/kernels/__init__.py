@@ -13,7 +13,7 @@ compiled at the first kernel launch (:mod:`repro_torch.kernels.build`).
 import functools
 
 from repro_torch.core import blocks
-from repro_torch.kernels import attention, fft, matmul, ops, paged_attention, ref, rmsnorm
+from repro_torch.kernels import attention, fft, matmul, ops, paged_attention, ref, rmsnorm, ssd
 
 #: the wrappers whose ``launches`` counters show a run went through them
 KERNELS = {
@@ -23,6 +23,7 @@ KERNELS = {
     "matmul": matmul.matmul,
     "schur_update": matmul.schur_update,
     "complex_matmul": fft.complex_matmul,
+    "ssd_chunks": ssd.ssd_chunks,
 }
 
 
@@ -41,6 +42,12 @@ def _register_all() -> None:
          "page gather + dense masked softmax"),
         ("paged_attention", "cuda", paged_attention.paged_attention,
          "csrc/paged_attention.cu"),
+        ("ssd_scan", "ref", functools.partial(ops.ssd_scan, backend="ref"),
+         "sequential recurrence oracle"),
+        ("ssd_scan", "torch", functools.partial(ops.ssd_scan, backend="torch"),
+         "chunked SSD, plain chunk terms"),
+        ("ssd_scan", "cuda", functools.partial(ops.ssd_scan, backend="cuda"),
+         "chunked SSD, csrc/ssd_chunks.cu"),
         # the offload pipeline's shelf: cuBLAS / cuFFT / cuSOLVER analogues
         ("matmul", "ref", ref.matmul_ref, "torch.matmul oracle"),
         ("matmul", "torch", functools.partial(ops.matmul, backend="torch"),

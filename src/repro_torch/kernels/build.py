@@ -35,6 +35,7 @@ COMPILE_FLAGS = ARCH_FLAGS + (
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 
 #: C entry point -> argtypes.  Pointers and the stream are ``c_void_p`` so
 #: ctypes never truncates them to 32 bits.
@@ -52,6 +53,10 @@ ENTRY_POINTS = {
     "repro_schur_update": [_P] * 4 + [_I] * 3 + [_P],
     # ar, ai, br, bi, out_r, out_i, M, N, K, stream
     "repro_complex_matmul": [_P] * 6 + [_I] * 3 + [_P],
+    # x, dt, a, bmat, cmat, y, states, cumdecay, totals,
+    # x/bmat/cmat batch and sequence strides, B, S, H, P, N, L,
+    # heads per CTA, dtype, stream
+    "repro_ssd_chunks": [_P] * 9 + [_L] * 6 + [_I] * 8 + [_P],
 }
 
 #: dtype code the C entry points take

@@ -1,6 +1,7 @@
-"""Public wrappers for the offload pipeline's kernel shelf, with device
-dispatch (the port of ``repro/kernels/ops.py``: ``matmul``,
-``schur_update``, ``fft2d``, ``lu`` and ``lu_nr_compat``).
+"""Public wrappers for the kernel shelf, with device dispatch (the port of
+``repro/kernels/ops.py``: the offload pipeline's ``matmul``,
+``schur_update``, ``fft2d``, ``lu`` and ``lu_nr_compat``, and the SSM
+path's ``ssd_scan``).
 
 Every wrapper takes tensors or array-likes.  Array-likes (the host
 program's numpy arrays) move to ``device`` — the CUDA card unless the
@@ -21,6 +22,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fft import complex_matmul, complex_matmul_torch, dft_matrix, fft2d_dft
@@ -28,6 +30,7 @@ from repro_torch.kernels.lu import lu_blocked
 from repro_torch.kernels.matmul import matmul as _matmul_kernel
 from repro_torch.kernels.matmul import matmul_torch, schur_update as _schur_kernel
 from repro_torch.kernels.matmul import schur_update_torch
+from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_torch
 
 BACKENDS = ("ref", "torch", "cuda")
 
@@ -182,3 +185,50 @@ def lu_nr_compat(a, *, backend: str | None = None, device=None):
     swaps = int((piv != torch.arange(n, dtype=piv.dtype, device=piv.device)).sum())
     d = torch.tensor(1.0 if swaps % 2 == 0 else -1.0, dtype=torch.float32, device=piv.device)
     return lu_p, piv.to(torch.int32), d
+
+
+# -- Mamba-2 SSD scan ------------------------------------------------------------
+
+
+def _ssd_combine(y_intra, states, cumdecay, totals, cmat, h0, chunk: int):
+    """The O(S / L) scan across chunks: the state entering each chunk
+    (a Python loop in place of the reference's ``lax.scan``), its read-out
+    ``C h`` decayed by ``cumdecay``, added to the intra-chunk output."""
+    b, nc, h, n, p = states.shape
+    s = nc * chunk
+    hprev = (
+        torch.zeros((b, h, n, p), dtype=torch.float32, device=states.device)
+        if h0 is None else h0.float()
+    )
+    henter = []
+    for c in range(nc):
+        henter.append(hprev)
+        hprev = hprev * totals[:, c, :, None, None] + states[:, c]
+    c_chunks = cmat.float().reshape(b, nc, chunk, n)
+    y_inter = torch.einsum("bcln,bchnp->bclhp", c_chunks, torch.stack(henter, dim=1))
+    y_inter = y_inter * cumdecay.reshape(b, nc, chunk, h)[..., None]
+    return y_intra + y_inter.reshape(b, s, h, p), hprev
+
+
+def ssd_scan(x, dt, a, bmat, cmat, *, chunk: int = 128, h0=None, backend: str | None = None):
+    """Chunked SSD selective scan.  Returns (y (B, S, H, P), final state
+    (B, H, N, P)), both f32.  ``backend``: ``cuda`` (the chunk kernel),
+    ``torch`` (its plain version), ``ref`` (the sequential oracle)."""
+    be = _backend(backend, x)
+    s = x.shape[1]
+    chunk = min(chunk, s)
+    if s % chunk:
+        # pad with dt=0 steps: decay exp(0)=1 and update dt*B*x=0, so the
+        # final state is untouched; padded outputs are sliced away.
+        pad = chunk - s % chunk
+        y, hfin = ssd_scan(
+            F.pad(x, (0, 0, 0, 0, 0, pad)), F.pad(dt, (0, 0, 0, pad)), a,
+            F.pad(bmat, (0, 0, 0, pad)), F.pad(cmat, (0, 0, 0, pad)),
+            chunk=chunk, h0=h0, backend=backend,
+        )
+        return y[:, :s], hfin
+    if be == "ref":
+        return _ref.ssd_ref(x, dt, a, bmat, cmat, h0=h0)
+    chunks = ssd_chunks if be == "cuda" else ssd_chunks_torch
+    y_i, states, cumdecay, totals = chunks(x, dt, a, bmat, cmat, chunk=chunk)
+    return _ssd_combine(y_i, states, cumdecay, totals, cmat, h0, chunk)

@@ -1,6 +1,6 @@
 """Plain-torch oracles (the port of ``repro/kernels/ref.py``: the serving
-path's blocks and the offload pipeline's matmul, Schur update, 2-D FFT and
-LU check)."""
+path's blocks, the sequential SSD scan, and the offload pipeline's matmul,
+Schur update, 2-D FFT and LU check)."""
 
 from __future__ import annotations
 
@@ -56,3 +56,32 @@ def attention_ref(
         s = torch.where(qi >= ki, s, torch.full_like(s, -1e30))
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p, vq.float()).to(q.dtype)
+
+
+def ssd_ref(
+    x: torch.Tensor,  # (B, S, H, P)
+    dt: torch.Tensor,  # (B, S, H)
+    a: torch.Tensor,  # (H,) negative
+    bmat: torch.Tensor,  # (B, S, N)
+    cmat: torch.Tensor,  # (B, S, N)
+    h0: torch.Tensor | None = None,  # (B, H, N, P)
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sequential selective-scan oracle:
+    h_t = exp(A dt_t) h_{t-1} + dt_t B_t x_t ;  y_t = C_t h_t.
+    Returns (y (B, S, H, P) f32, final state (B, H, N, P) f32)."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    xf, dtf, af = x.float(), dt.float(), a.float()
+    bf, cf = bmat.float(), cmat.float()
+    hprev = (
+        torch.zeros((b, h, n, p), dtype=torch.float32, device=x.device)
+        if h0 is None else h0.float()
+    )
+    ys = []
+    for t in range(s):
+        decay = torch.exp(af[None, :] * dtf[:, t])  # (B, H)
+        upd = torch.einsum("bh,bn,bhp->bhnp", dtf[:, t], bf[:, t], xf[:, t])
+        hprev = hprev * decay[..., None, None] + upd
+        ys.append(torch.einsum("bn,bhnp->bhp", cf[:, t], hprev))
+    y = torch.stack(ys, dim=1) if ys else xf.new_zeros((b, 0, h, p))
+    return y, hprev

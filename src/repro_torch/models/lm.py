@@ -1,11 +1,16 @@
-"""Decoder LM over a block pattern — the port of ``repro/models/lm.py`` for
-the dense ``'a'`` pattern (attention + SwiGLU MLP per layer).
+"""Decoder LM over a block pattern — the port of ``repro/models/lm.py``.
+One char per layer:
+
+    'a'  attention + SwiGLU MLP
+    'm'  Mamba-2 SSD block
+    's'  shared-parameter attention + MLP block (Zamba2): one param set,
+         applied at every 's' site; each site keeps its own KV cache
 
 Consecutive identical pattern chars form a *group* whose parameters and
 caches are stacked with a leading layer axis, keyed exactly as the
-reference keys them (``blocks/g0_a/attn/wq``, ``g0_a/k``, ...); a Python
-loop runs the layers.  MoE, SSM and shared blocks are not ported yet and
-raise.
+reference keys them (``blocks/g0_a/attn/wq``, ``g0_a/k``, ``g0_m/ssm``,
+...); the shared block is one unstacked set (``shared_block``).  A Python
+loop runs the layers.  MoE and MLA are not ported yet and raise.
 
 Modes: ``prefill`` (fill the cache, logits), ``decode`` (one token per row
 against the cache) and ``extend`` (an S-token chunk per row, causal within
@@ -40,6 +45,7 @@ from repro_torch.models.layers import (
     rmsnorm,
 )
 from repro_torch.models.params import ParamMeta, torch_dtype
+from repro_torch.models.ssm import ssm_forward, ssm_metas, ssm_state_metas
 
 
 # -- pattern grouping ------------------------------------------------------------
@@ -69,13 +75,11 @@ def groups_of(cfg: ArchConfig) -> list[Group]:
     return out
 
 
-def _require_dense(cfg: ArchConfig) -> None:
-    if cfg.moe is not None or set(cfg.pattern()) != {"a"}:
-        raise NotImplementedError(
-            f"{cfg.name}: pattern {cfg.pattern()!r} "
-            f"({'MoE' if cfg.moe else 'SSM/shared'} blocks) is not ported yet; "
-            "only the dense 'a' pattern is"
-        )
+def _require_ported(cfg: ArchConfig) -> None:
+    if cfg.moe is not None:
+        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
+    if cfg.mla is not None:
+        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported yet")
 
 
 # -- parameter metas ------------------------------------------------------------------
@@ -88,9 +92,14 @@ def _stack(metas: Any, n: int) -> Any:
     )
 
 
-def _block_metas(cfg: ArchConfig) -> dict:
+def _block_metas(cfg: ArchConfig, kind: str) -> dict:
     d = cfg.d_model
     dt = cfg.param_dtype
+    if kind == "m":
+        return {
+            "ln": ParamMeta((d,), (None,), dt, init="ones"),
+            "mixer": ssm_metas(cfg),
+        }
     return {
         "ln1": ParamMeta((d,), (None,), dt, init="ones"),
         "attn": attn_metas(cfg),
@@ -100,12 +109,16 @@ def _block_metas(cfg: ArchConfig) -> dict:
 
 
 def build_metas(cfg: ArchConfig) -> dict:
-    _require_dense(cfg)
-    return {
-        "embed": embed_metas(cfg),
-        "blocks": {g.key: _stack(_block_metas(cfg), g.count) for g in groups_of(cfg)},
-        "final_norm": ParamMeta((cfg.d_model,), (None,), cfg.param_dtype, init="ones"),
+    _require_ported(cfg)
+    groups = groups_of(cfg)
+    metas: dict = {"embed": embed_metas(cfg)}
+    if any(g.kind == "s" for g in groups):
+        metas["shared_block"] = _block_metas(cfg, "s")
+    metas["blocks"] = {
+        g.key: _stack(_block_metas(cfg, g.kind), g.count) for g in groups if g.kind != "s"
     }
+    metas["final_norm"] = ParamMeta((cfg.d_model,), (None,), cfg.param_dtype, init="ones")
+    return metas
 
 
 def cache_metas_tree(
@@ -118,13 +131,16 @@ def cache_metas_tree(
 ) -> dict:
     """Contiguous (default) or block-paged cache layout.  Paged: every
     attention leaf is a pool of ``n_pages`` pages plus the null page at
-    index ``n_pages``."""
-    _require_dense(cfg)
+    index ``n_pages``; SSM state leaves stay per-slot (a recurrent state has
+    no sequence axis to page)."""
+    _require_ported(cfg)
     if page_size is not None and n_pages is None:
         raise ValueError("paged cache needs both page_size and n_pages")
     caches: dict = {}
     for g in groups_of(cfg):
-        if page_size is not None:
+        if g.kind == "m":
+            caches[g.key] = _stack(ssm_state_metas(cfg, batch), g.count)
+        elif page_size is not None:
             caches[g.key] = _stack(cache_metas_paged(cfg, n_pages + 1, page_size), g.count)
         else:
             caches[g.key] = _stack(cache_metas(cfg, batch, max_len), g.count)
@@ -153,7 +169,9 @@ def cast_for_compute(params: Any, cfg: ArchConfig) -> Any:
     """Cast every matrix (ndim >= 2 per layer: projections, embedding) to the
     compute dtype once; norm weights keep their parameter dtype.  The
     reference casts at every use inside its jitted programs; the values are
-    the same, and the model's own ``.to(cd)`` calls become no-ops."""
+    the same, and the model's own ``.to(cd)`` calls become no-ops.  The
+    SSM vectors (``a_log``, ``d_skip``, ``dt_bias``, ``norm``) are norm-like
+    and keep theirs."""
     cd = torch_dtype(cfg.compute_dtype)
 
     def cast(tree: Any, stacked: bool) -> Any:
@@ -186,12 +204,25 @@ def _apply_attn_block(lp, x, cfg, positions, cache, index, mode, pages=None):
     return x + mlp_forward(lp["mlp"], ff_in, cd).to(x.dtype)
 
 
+def _apply_mamba_block(lp, x, cfg, cache, mode):
+    if mode == "extend":
+        raise ValueError(
+            "chunked prefill (extend mode) is unsupported for SSM blocks: "
+            "resuming the scan needs the conv window stitched across chunk "
+            "boundaries"
+        )
+    cd = torch_dtype(cfg.compute_dtype)
+    h_in = rmsnorm(lp["ln"], x, cfg.norm_eps).to(cd)
+    out, _ = ssm_forward(lp["mixer"], h_in, cfg, cache, mode)
+    return x + out.to(x.dtype)
+
+
 # -- forward / serve ----------------------------------------------------------------------
 
 
 def backbone(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cache: Any = None):
     """All blocks, no head.  Returns (hidden (B, S, D), cache)."""
-    _require_dense(cfg)
+    _require_ported(cfg)
     cd = torch_dtype(cfg.compute_dtype)
     x = embed_lookup(params["embed"], batch["tokens"], cd)
     b, s = x.shape[0], x.shape[1]
@@ -209,13 +240,15 @@ def backbone(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cac
         positions = steps[None, :].expand(b, s)
 
     for g in groups_of(cfg):
-        gparams = params["blocks"][g.key]
         gcache = cache[g.key] if cache is not None else None
         for i in range(g.count):
             lcache = _layer(gcache, i) if gcache is not None else None
-            x = _apply_attn_block(
-                _layer(gparams, i), x, cfg, positions, lcache, index, mode, pages
-            )
+            # each 's' site applies the one shared set to its own cache
+            lp = params["shared_block"] if g.kind == "s" else _layer(params["blocks"][g.key], i)
+            if g.kind == "m":
+                x = _apply_mamba_block(lp, x, cfg, lcache, mode)
+            else:
+                x = _apply_attn_block(lp, x, cfg, positions, lcache, index, mode, pages)
     return x, cache
 
 

@@ -9,6 +9,7 @@ same tree materialises parameters (:func:`init_params`) and caches.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable
 
 import torch
@@ -29,7 +30,7 @@ class ParamMeta:
     shape: tuple[int, ...]
     axes: tuple[str | None, ...]  # logical axis names, len == len(shape)
     dtype: str = "float32"
-    init: str = "normal"  # "normal" | "zeros" | "ones"
+    init: str = "normal"  # "normal" | "zeros" | "ones" | "ssm_a" | "dt_bias"
     scale: float = 0.02
 
     def __post_init__(self):
@@ -45,7 +46,7 @@ def tree_map_metas(fn: Callable[[ParamMeta], Any], tree: Any) -> Any:
 def init_params(
     metas: Any, seed: int = 0, device: "torch.device | str" = "cpu"
 ) -> Any:
-    """Materialise a meta tree on ``device``; normal leaves draw from one
+    """Materialise a meta tree on ``device``; random leaves draw from one
     ``torch.Generator`` seeded with ``seed`` on that device, in sorted-key
     leaf order (the order ``jax.tree`` flattens dicts).  The draws differ
     from ``jax.random``'s: the tests carry the reference's weights across
@@ -58,6 +59,14 @@ def init_params(
             return torch.zeros(m.shape, dtype=dt, device=device)
         if m.init == "ones":
             return torch.ones(m.shape, dtype=dt, device=device)
+        if m.init == "ssm_a":  # A_log: log of uniform [1, 16)
+            u = torch.rand(m.shape, generator=gen, dtype=torch.float32, device=device)
+            return torch.log(1.0 + 15.0 * u).to(dt)
+        if m.init == "dt_bias":  # softplus^-1 of a log-uniform dt in [1e-3, 1e-1]
+            u = torch.rand(m.shape, generator=gen, dtype=torch.float32, device=device)
+            lo, hi = math.log(1e-3), math.log(1e-1)
+            dtv = torch.exp(u * (hi - lo) + lo)
+            return (dtv + torch.log(-torch.expm1(-dtv))).to(dt)
         if m.init != "normal":
             raise NotImplementedError(f"init '{m.init}' is not ported yet")
         x = torch.randn(m.shape, generator=gen, dtype=torch.float32, device=device)

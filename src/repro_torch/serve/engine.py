@@ -18,6 +18,10 @@ streaming :class:`Token` events and a final :class:`Completion` per request.
   resumes token-identically.
 * **Sampling on the device** — logits never leave the card; the per-step
   host transfer is the (B,) token ids.
+* **SSM and hybrid models** — Mamba-2 ('m') layers carry a recurrent state
+  per slot with no sequence axis, so it stays slot-indexed in the paged
+  layout too; a preempted request's state is rebuilt by re-prefilling its
+  prompt and generated tokens.
 
 Caches are updated in place (the reference donates them to its jitted
 programs).  Weights are cast to the compute dtype once, at construction.
@@ -106,7 +110,7 @@ class EngineStats:
 
 
 class ServeEngine:
-    """Request-level serving engine over the dense LM.
+    """Request-level serving engine over the LM (dense, SSM or hybrid).
 
     ``cfg`` is an :class:`ArchConfig` or an arch name.  ``params`` (the
     port's parameter tree, e.g. from :mod:`repro_torch.bridge`) defaults to
@@ -116,7 +120,8 @@ class ServeEngine:
     smaller pool over-commits, and preemption reclaims pages when it fills.
     ``prefill_bucket`` pads prompts up to a multiple of the bucket (the
     padded K/V rows are never attended: each decode step overwrites
-    position ``index`` before the mask admits it).
+    position ``index`` before the mask admits it); a pattern with SSM
+    layers refuses it, since padding would run through the recurrence.
     """
 
     def __init__(
@@ -151,6 +156,12 @@ class ServeEngine:
             )
         if isinstance(cfg, str):
             cfg = get_config(cfg)
+        if prefill_bucket is not None and "m" in cfg.pattern():
+            raise ValueError(
+                "prefill_bucket pads prompts, which corrupts recurrent SSM "
+                f"state — unsupported for '{cfg.name}' "
+                f"(pattern {cfg.pattern()!r})"
+            )
         if n_pages is not None and page_size is None:
             raise ValueError("n_pages given without page_size")
         self.device = resolve_device(device)
@@ -173,10 +184,11 @@ class ServeEngine:
                 n_slots, max_pages, PagePool(n_pages, page_size)
             )
             self._slot_len = max_pages * page_size
-            self._seq_axes = cache_seq_axes(cfg)
+            self._seq_axes = cache_seq_axes(cfg)  # read for attention groups only
         else:
             self.kv = None
             self._slot_len = max_len
+        self._group_kinds = {g.key: g.kind for g in lm.groups_of(cfg)}
         self.cache = lm.init_cache(
             cfg, n_slots, max_len, page_size=page_size, n_pages=n_pages,
             device=self.device,
@@ -259,12 +271,12 @@ class ServeEngine:
 
     def _insert(self, b1_cache: Any, slot: int) -> None:
         """Write a prefilled batch-1 cache into ``slot``: the slot row of the
-        contiguous cache, or the slot's pages of the pool (entries past the
-        allocation land in the null page)."""
+        contiguous cache (and of every SSM state), or the slot's pages of
+        the pool (entries past the allocation land in the null page)."""
         for key, value in self.cache.items():
             if key == "index":
                 value[slot] = b1_cache[key][0]
-            elif self.paged:
+            elif self.paged and self._group_kinds[key] != "m":
                 page_ids = self._tensor(self.kv.array()[slot])
                 for leaf in value:
                     insert_pages(value[leaf], b1_cache[key][leaf], page_ids, self._seq_axes[leaf])

@@ -141,7 +141,7 @@ def test_bridge_round_trip_and_checks(jparams):
 
 def test_unported_architectures_raise():
     with pytest.raises(KeyError, match="not ported yet"):
-        tget("mamba2-2.7b")
+        tget("deepseek-v2-236b")
     with pytest.raises(NotImplementedError, match="MLA"):
         tlm.build_metas(dataclasses.replace(TCFG, mla=object()))
     assert tget("llama3_2_1b") == tget("llama3.2-1b")
