@@ -47,9 +47,10 @@ JSON line, and any failure raises (exit code != 0):
    ``flash_attention`` launch counts (each > 0).
 
 The offload kernels (complex matmul, Schur update, matmul) are held
-against their plain versions in phase 2 at the paper's scale (2048^2 f32);
-the SSD chunk kernel at mamba2's and zamba2's prefill shapes, and paged and
-flash attention at zamba2's head dim 112 too.
+against their plain versions in phase 2 at the paper's scale (2048^2 f32),
+and matmul at a ragged (96, 160, 96) at blocks of 32; the SSD chunk kernel
+at mamba2's and zamba2's prefill shapes, and paged and flash attention at
+zamba2's head dim 112 too (flash also at B=2 and a ragged S=300).
 
 The last lines are the card as ``nvidia-smi`` reports it, the kernels'
 summary and ``{"ok": true, "device": {...}}``.  Needs CUDA and the rest of
@@ -69,8 +70,9 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; flop/s by type
+# ("float32" on the CUDA cores, "tf32" on the tensor cores)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 # kernel vs plain version on the same inputs: f32 differs only by the order
 # of f32 sums; bf16 outputs are rounded once from f32 by both, so they may
@@ -187,9 +189,9 @@ class Timer:
         return self._graph_ms(body) - self._flush_ms
 
 
-def bound_ms(nbytes: float, flops: float, dtype: str) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float, peak: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / PEAK_FLOPS[peak] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -216,10 +218,16 @@ def phase_device(torch) -> dict:
     t0 = time.perf_counter()
     build.library()
     seconds = time.perf_counter() - t0
-    ptxas = [
-        line.strip() for line in build.build_info.get("log", "").splitlines()
-        if "registers" in line or "spill" in line
-    ]
+    # per kernel: registers, shared memory and spills; and ptxas's warnings
+    # that wgmma was serialized (C7515)
+    ptxas, fn = [], "?"
+    for line in build.build_info.get("log", "").splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1][:90]
+        elif "ptxas info    : Used" in line or "spill stores" in line:
+            ptxas.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
+        elif "C7515" in line:
+            ptxas.append(line.strip()[:200])
     info = {
         "phase": "device",
         "kind": torch.cuda.get_device_name(0),
@@ -236,15 +244,16 @@ def phase_device(torch) -> dict:
 
 
 def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbytes, flops,
-          tol=None):
+          tol=None, peak=None, extra=None):
     """``got`` and ``want`` are one tensor, or dicts of named outputs that
-    are each held to ``tol[name]``."""
+    are each held to ``tol[name]``.  The bound takes the peak of ``peak``
+    (default: the inputs' type); ``extra`` adds keys to the printed row."""
     if isinstance(got, dict):
         errs = {k: compare(torch, got[k], want[k], dtype, tol[k]) for k in got}
         err = max(errs.values())
     else:
         errs, err = None, compare(torch, got, want, dtype, tol)
-    bound, by = bound_ms(nbytes, flops, dtype)
+    bound, by = bound_ms(nbytes, flops, peak or dtype)
     row = {
         "phase": "kernel", "name": name, "dtype": dtype, "shape": shape,
         "max_abs_err": err, "tol": tol or TOL[dtype],
@@ -254,6 +263,7 @@ def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbyt
     }
     if errs:
         row["max_abs_err_by_output"] = errs
+    row.update(extra or {})
     emit(row)
     return row
 
@@ -366,6 +376,16 @@ def phase_kernels(torch) -> dict:
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
         nbytes=2 * 4 * q.numel(), flops=4 * zd * zh * 512 * 513 // 2,
     ))
+    # B=2 at a ragged S: the sequence edge at a (b, h) boundary, D=112 in two
+    # column boxes
+    q, k, v = (randn(2, zh, 300, zd, dtype=torch.bfloat16) for _ in range(3))
+    rows["flash_attention"].append(_case(
+        torch, "flash_attention", "bfloat16", [2, zh, zh, 300, zd],
+        flash_attention(q, k, v), flash_attention_torch(q, k, v), timer,
+        lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+        nbytes=2 * 4 * q.numel(), flops=2 * 4 * zd * zh * 300 * 301 // 2,
+    ))
     rows["ssd_chunks"] = _ssd_cases(torch, timer, randn, gen)
     rows.update(_offload_kernel_cases(torch, timer, randn))
     return rows
@@ -447,12 +467,17 @@ def _offload_kernel_cases(torch, timer, randn) -> dict:
             lambda: torch.addmm(c, a, b, alpha=-1),
             nbytes=4 * (2 * m * m + 2 * m * k), flops=2 * m * m * k, tol=GEMM_TOL,
         ))
-    a, b = randn(n, n, dtype=f32), randn(n, n, dtype=f32)
-    rows["matmul"].append(_case(
-        torch, "matmul", "float32", [n, n, n], matmul(a, b), matmul_torch(a, b), timer,
-        lambda: matmul(a, b), lambda: matmul_torch(a, b), lambda: torch.matmul(a, b),
-        nbytes=4 * 3 * n * n, flops=2 * n ** 3, tol=GEMM_TOL,
-    ))
+    # matmul runs 3xTF32 on the tensor cores: its bound counts the product
+    # once at the TF32 peak, and the row shows the three passes' floor too
+    for (m, nn, k), blk in (((n, n, n), 128), ((96, 160, 96), 32)):
+        a, b = randn(m, k, dtype=f32), randn(k, nn, dtype=f32)
+        kw = dict(block_m=blk, block_n=blk, block_k=blk)
+        rows["matmul"].append(_case(
+            torch, "matmul", "float32", [m, nn, k], matmul(a, b, **kw), matmul_torch(a, b), timer,
+            lambda: matmul(a, b, **kw), lambda: matmul_torch(a, b), lambda: torch.matmul(a, b),
+            nbytes=4 * (m * k + k * nn + m * nn), flops=2 * m * nn * k, tol=GEMM_TOL, peak="tf32",
+            extra={"floor_3xtf32_ms": 3 * 2 * m * nn * k / PEAK_FLOPS["tf32"] * 1e3},
+        ))
     return rows
 
 

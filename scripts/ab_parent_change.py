@@ -1,0 +1,83 @@
+#!/usr/bin/env python3
+"""Parent against change on one H100, in turns parent, change, change,
+parent, each in a process of its own:
+
+- ``main_path``: chip_smoke.py's phase 4 (llama3.2-1b served from the paged
+  KV cache, 16 requests), twice per process (the second run is warm);
+- ``prefill``: one 512-token llama3.2-1b prefill (paged, batch 1, one new
+  token) served by ``ServeEngine``: host wall ms (median of 7, after 3
+  warm-up requests) and device ms by kernel from ``torch.profiler``.
+
+    git archive <parent commit> | tar -x -C build/parent
+    python3 scripts/ab_parent_change.py main_path|prefill [build/parent]
+
+Prints one JSON line per measurement with its version.  Compare versions
+only within one call: the host's speed varies between machines.
+"""
+
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+MAIN_PATH = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke as c; "
+             "torch.backends.cuda.matmul.allow_tf32 = False; c.phase_device(torch); "
+             "c.phase_main_path(torch); c.phase_main_path(torch)")
+PREFILL = r'''
+import json, statistics, sys, time, torch
+sys.path.insert(0, "src")
+import numpy as np
+import chip_smoke as c
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.serve import Request, ServeEngine
+torch.backends.cuda.matmul.allow_tf32 = False
+cfg = c._serve_config("llama3.2-1b")
+engine = ServeEngine(cfg, seed=0, device="cuda", n_slots=8, max_len=1024, page_size=16)
+prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 512).tolist()
+def one():
+    engine.submit(Request(prompt, max_new_tokens=1))
+    torch.cuda.synchronize(); t0 = time.perf_counter()
+    engine.run_until_idle(max_steps=100); torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+for _ in range(3): one()
+walls = [one() for _ in range(7)]
+with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    one()
+dev, n = c._device_events(prof)
+flash = sum(v for k, v in dev.items() if "flash" in k)
+print(json.dumps({"phase": "prefill", "wall_ms_median": statistics.median(walls),
+                  "wall_ms": walls, "device_ms": sum(dev.values()), "device_events": n,
+                  "flash_device_ms": flash,
+                  "top": {k[:60]: v for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:6]}}))
+'''
+MAIN_PATH_KEYS = ("tok_per_s", "prefill_tok_per_s", "decode_tok_per_s", "decode_median_ms",
+                  "ttft_p50_ms", "ttft_p99_ms", "wall_seconds", "launches")
+
+
+def main() -> int:
+    what = sys.argv[1] if len(sys.argv) > 1 else ""
+    if what not in ("main_path", "prefill"):
+        print(__doc__, file=sys.stderr)
+        return 2
+    roots = {"parent": Path(sys.argv[2] if len(sys.argv) > 2 else ROOT / "build" / "parent"),
+             "change": ROOT}
+    for tag in ("parent", "change", "change", "parent"):
+        out = subprocess.run([sys.executable, "-c", MAIN_PATH if what == "main_path" else PREFILL],
+                             cwd=roots[tag], capture_output=True, text=True, timeout=400)
+        for line in out.stdout.splitlines():
+            if not line.startswith("{"):
+                continue
+            row = json.loads(line)
+            if what == "main_path" and row.get("phase") == "main_path":
+                print(json.dumps({"version": tag, **{k: row[k] for k in MAIN_PATH_KEYS}}), flush=True)
+            elif what == "prefill":
+                print(json.dumps({"version": tag, **row}), flush=True)
+        if out.returncode:
+            print(tag, "failed", out.stderr[-3000:])
+            return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -55,6 +55,11 @@ def flash_attention(
         raise TypeError("flash_attention: q, k and v must share one dtype")
     if d > 128:
         raise ValueError(f"flash_attention: head dim {d} exceeds 128")
+    if q.dtype == torch.bfloat16 and (d % 8 or any(t.data_ptr() % 16 for t in (q, k, v))):
+        raise ValueError(
+            f"flash_attention: the bf16 kernel loads by TMA, which needs a head "
+            f"dim that is a multiple of 8 (got {d}) and 16-byte aligned operands"
+        )
     out = torch.empty_like(q)
     if out.numel() == 0 or skv == 0:
         return out

@@ -4,7 +4,7 @@
 // (_flash_kernel).
 //
 // Semantics: q (B, H, Sq, D), k/v (B, KH, Skv, D); query head h reads kv
-// head h / (H / KH).  Scores (q * scale) . k with scale = 1/sqrt(D), the
+// head h / (H / KH).  Scores (q . k) * scale with scale = 1/sqrt(D), the
 // causal mask aligned at the start (key j visible to query i iff j <= i,
 // as in the TPU kernel), softmax in f32, out = p . v in q's dtype.  Unlike
 // the TPU kernel, ragged edges are masked here, so any Sq / Skv works.
@@ -13,24 +13,51 @@
 // Causal attention does ~2 * Sq * Skv * D * H flops (half of the dense
 // 4 * Sq * Skv * D * H) on 2 * (2 * H * Sq + 2 * KH * Skv) * D bytes in
 // bf16; with llama3.2-1b's heads (H = 32, KH = 8, D = 64) the two bounds
-// meet at Sq = Skv ~ 740.  This first kernel does its products on the
-// CUDA cores in f32 (67 TFLOP/s peak), not on the tensor cores
-// (989 TFLOP/s bf16), so it stays far above either bound; wgmma tiles and
-// TMA loads are later work.
+// meet at Sq = Skv ~ 740 on the bf16 tensor cores (989 TFLOP/s).
 //
-// Design: one CTA of 4 warps per (b, h, 32-row query tile); each warp owns
-// 8 query rows and keeps their running max, sum and f32 accumulator in
-// registers (each lane holds 1/32 of the head dims).  The CTA loops over
-// 32-key K/V tiles up to the diagonal, staging each tile in shared memory
-// as f32 (K rows padded by one float so lane j reads key j without bank
-// conflicts); lane j scores key j against the row, the warp reduces max
-// and sum, and p is broadcast by shuffle for the P.V update.  The q tile
-// is staged once, pre-scaled.
+// Two routes, chosen by dtype in repro_flash_attention:
+//
+// bf16 (the serving path's): an FA3-shaped kernel on the tensor cores.
+// One CTA per (query tile of 64 rows, head, batch): one consumer warpgroup
+// and one producer warp.  The producer loads the q tile once and keeps TMA
+// loads of the K and V tiles in flight through two shared-memory stages,
+// each completing on an mbarrier (the consumer frees a stage on another).
+// The consumer computes S = Q K^T with bf16 wgmma (Q and K K-major, f32
+// accumulators), scales S after the product, takes the online softmax on
+// the accumulator fragment in registers, converts P to bf16 in registers
+// as the A operand of O += P V (V read MN-major, as stored), and writes
+// O / l once.  Loads use 3-D tensor maps (D, S, B * heads): a ragged
+// sequence edge is out of bounds, zero-filled, and masked, never the next
+// head's rows.  Head dims are loaded in column boxes of 64 (128 bytes,
+// the swizzle's row): D <= 64 takes one box and 128-key tiles, 64 < D <=
+// 128 (zamba2's 112) two boxes and 64-key tiles, so both keep 96 f32
+// accumulator registers a thread; dims past D are zero-filled, so Q K^T
+// runs ceil(D / 16) k16 steps and P V an N of 64 or 128.  Key tiles above
+// the diagonal are skipped, and only the diagonal tile and the ragged edge
+// are masked.  The grid runs the heaviest (last) query tiles first.  The
+// KV head's G = H / KH query heads are not packed into one CTA: each CTA
+// reads its KV head's tiles, which the G heads' CTAs find in L2.  Head
+// dims must be multiples of 8 (TMA's 16-byte strides).
+//
+// f32: a CUDA-core kernel, which chip_smoke's f32 served traces hold
+// token for token against the plain version.  One CTA of 4 warps per
+// (b, h, 32-row query tile); each warp owns 8 query rows and keeps their
+// running max, sum and f32 accumulator in registers (each lane holds 1/32
+// of the head dims).  The CTA loops over 32-key K/V tiles up to the
+// diagonal, staging each in shared memory (K rows padded by one float so
+// lane j reads key j without bank conflicts); lane j scores key j against
+// the row, the warp reduces max and sum, and p is broadcast by shuffle for
+// the P.V update.  The q tile is staged once, pre-scaled.
 #include <algorithm>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
+
+// -- f32: CUDA cores ------------------------------------------------------------
+
+namespace cc {
 
 constexpr int kBQ = 32;   // query rows per CTA
 constexpr int kBKV = 32;  // keys per tile: one per lane
@@ -39,10 +66,9 @@ constexpr int kRowsPerWarp = kBQ / kWarps;
 constexpr int kMaxDimPerLane = 4;  // head dims up to 128
 constexpr float kNeg = -1e30f;
 
-template <typename T>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
+flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out, int H,
                        int KH, int Sq, int Skv, int D, int causal,
                        float scale) {
   extern __shared__ float smem[];
@@ -53,10 +79,10 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / KH);
-  const T* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
-  const T* kb = k + (static_cast<size_t>(b) * KH + kh) * Skv * D;
-  const T* vb = v + (static_cast<size_t>(b) * KH + kh) * Skv * D;
-  T* ob = out + (static_cast<size_t>(b) * H + h) * Sq * D;
+  const float* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
+  const float* kb = k + (static_cast<size_t>(b) * KH + kh) * Skv * D;
+  const float* vb = v + (static_cast<size_t>(b) * KH + kh) * Skv * D;
+  float* ob = out + (static_cast<size_t>(b) * H + h) * Sq * D;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -64,7 +90,7 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int i = tid; i < kBQ * D; i += kWarps * 32) {
     const int r = i / D;
     qs[i] = q0 + r < Sq
-                ? repro::to_float(qb[static_cast<size_t>(q0 + r) * D + i % D]) * scale
+                ? qb[static_cast<size_t>(q0 + r) * D + i % D] * scale
                 : 0.f;
   }
 
@@ -88,8 +114,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int d = i % D;
       const bool in = k0 + j < Skv;
       const size_t off = static_cast<size_t>(k0 + j) * D + d;
-      ks[j * (D + 1) + d] = in ? repro::to_float(kb[off]) : 0.f;
-      vs[j * D + d] = in ? repro::to_float(vb[off]) : 0.f;
+      ks[j * (D + 1) + d] = in ? kb[off] : 0.f;
+      vs[j * D + d] = in ? vb[off] : 0.f;
     }
     __syncthreads();
     const int kv = k0 + lane;  // this lane's key
@@ -132,13 +158,12 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < kMaxDimPerLane; ++i) {
       const int d = lane + 32 * i;
       if (d < D) {
-        ob[static_cast<size_t>(qi) * D + d] = repro::from_float<T>(acc[rr][i] / lv);
+        ob[static_cast<size_t>(qi) * D + d] = acc[rr][i] / lv;
       }
     }
   }
 }
 
-template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int H, int KH, int Sq, int Skv, int D, int causal,
                    float scale, cudaStream_t stream) {
@@ -146,17 +171,257 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
       sizeof(float) * (kBQ * D + kBKV * (D + 1) + kBKV * D);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+        flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<T><<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KH, Sq, Skv, D,
-      causal, scale);
+  flash_attention_kernel<<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), H, KH, Sq, Skv,
+      D, causal, scale);
   return cudaSuccess;
 }
+
+}  // namespace cc
+
+// -- bf16: wgmma + TMA -------------------------------------------------------------
+
+namespace tc {
+
+using namespace repro::hopper;
+
+constexpr int kBM = 64;  // query rows per CTA: one consumer warpgroup
+constexpr int kConsumers = 128;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kStages = 2;
+constexpr int kRow = 128;  // bytes of a swizzled row: 64 bf16 head dims
+constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+
+// NB column boxes of 64 head dims, BKV keys per tile
+template <int NB>
+struct Cfg {
+  static constexpr int kBKV = 128 / NB;
+  static constexpr int kQBytes = NB * kBM * kRow;
+  static constexpr int kTileBytes = NB * kBKV * kRow;  // a K or V tile
+  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
+  static constexpr int kSmem = kBarOffset + (2 * kStages + 1) * 8 + 1024;
+  static constexpr int kS = kBKV / 2;  // score registers a thread
+  static constexpr int kO = 32 * NB;   // output registers a thread
+};
+
+// S = Q K^T (N = keys) and O += P V (N = head dims) at the tile widths
+__device__ __forceinline__ void mma_qk(float (&d)[64], uint64_t a, uint64_t b, int acc) {
+  mma_bf16_ss_n128(d, a, b, acc);
+}
+__device__ __forceinline__ void mma_qk(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  mma_bf16_ss_n64(d, a, b, acc);
+}
+__device__ __forceinline__ void mma_pv(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  mma_bf16_rs_n64(d, a, b, 1);
+}
+__device__ __forceinline__ void mma_pv(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  mma_bf16_rs_n128(d, a, b, 1);
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo -> low half
+  return *reinterpret_cast<const uint32_t*>(&p);
+}
+
+template <int NB>
+__global__ void __launch_bounds__(kThreads)
+flash_kernel(const __grid_constant__ CUtensorMap q_map,
+             const __grid_constant__ CUtensorMap k_map,
+             const __grid_constant__ CUtensorMap v_map,
+             __nv_bfloat16* __restrict__ out, int H, int KH, int Sq, int Skv,
+             int D, int causal, float scale_log2) {
+  using C = Cfg<NB>;
+  constexpr int kBKV = C::kBKV;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;
+  uint8_t* kv = smem + C::kQBytes;  // stage s: K at s * kStageBytes, V after
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;  // heaviest tiles first
+  const int kh = h / (H / KH);
+  const int q_last = min(q0 + kBM, Sq) - 1;
+  const int n_all = (Skv + kBKV - 1) / kBKV;
+  const int n_kv = causal ? min(n_all, q_last / kBKV + 1) : n_all;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // producer warp: one thread issues the loads
+    if (tid == kConsumers) {
+      mbar_expect_tx(q_full, C::kQBytes);
+#pragma unroll
+      for (int c = 0; c < NB; ++c) {
+        tma_load_3d(qs + c * kBM * kRow, &q_map, q_full, 64 * c, q0, b * H + h);
+      }
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % kStages;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::kStageBytes);
+        uint8_t* ks = kv + s * C::kStageBytes;
+#pragma unroll
+        for (int c = 0; c < NB; ++c) {
+          tma_load_3d(ks + c * kBKV * kRow, &k_map, &full[s], 64 * c, t * kBKV, b * KH + kh);
+          tma_load_3d(ks + C::kTileBytes + c * kBKV * kRow, &v_map, &full[s], 64 * c,
+                      t * kBKV, b * KH + kh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = q0 + 16 * warp + lane / 4;  // this thread's rows: r0, r0 + 8
+  const int ksteps = (D + 15) / 16;
+  float o[C::kO];
+#pragma unroll
+  for (int i = 0; i < C::kO; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int s = t % kStages;
+    const uint8_t* ks = kv + s * C::kStageBytes;
+    const uint8_t* vs = ks + C::kTileBytes;
+    mbar_wait(&full[s], (t / kStages) & 1);
+
+    float sc[C::kS];
+#pragma unroll
+    for (int i = 0; i < C::kS; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4 * NB; ++kk) {  // k16 steps: 32 bytes of a row each
+      if (kk < ksteps) {
+        const int c = kk / 4, off = (kk % 4) * 32;
+        mma_qk(sc, desc_sw128(qs + c * kBM * kRow + off),
+               desc_sw128(ks + c * kBKV * kRow + off), kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax on the fragment: register i holds row r0 + 8 * ((i / 2)
+    // % 2), key k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2
+    const int k0 = t * kBKV;
+    const bool edge = (causal && k0 + kBKV - 1 > q0) || k0 + kBKV > Skv;
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < C::kS; ++i) {
+      float x = sc[i] * scale_log2;  // log2 domain: exp(s) = exp2(s * log2 e)
+      if (edge) {
+        const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const int row = r0 + 8 * ((i / 2) % 2);
+        if (key >= Skv || (causal && key > row)) x = kNeg;
+      }
+      sc[i] = x;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], x);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+      alpha[r] = exp2f(m[r] - mx[r]);
+      m[r] = mx[r];
+    }
+    // every row sees key 0 in tile 0, so m is finite and masked p are 0
+#pragma unroll
+    for (int i = 0; i < C::kS; ++i) {
+      const float p = exp2f(sc[i] - m[(i / 2) % 2]);
+      sc[i] = p;
+      sum[(i / 2) % 2] += p;
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];
+#pragma unroll
+    for (int i = 0; i < C::kO; ++i) o[i] *= alpha[(i / 2) % 2];
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBKV / 16; ++kk) {
+      // the A fragment of keys 16 kk .. 16 kk + 15 is the S fragment's
+      // registers 8 kk .. 8 kk + 7, packed in pairs
+      const uint32_t a[4] = {
+          pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]), pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
+          pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]), pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
+      mma_pv(o, a, desc_sw128(vs + kk * 16 * kRow, kBKV * kRow));
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&empty[s]);
+  }
+
+  __nv_bfloat16* ob = out + (static_cast<size_t>(b) * H + h) * Sq * D;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    if (l[r] == 0.f) l[r] = 1.f;
+  }
+#pragma unroll
+  for (int i = 0; i < C::kO; i += 2) {
+    const int row = r0 + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    if (row < Sq && col < D) {  // D % 8 == 0, so col + 1 < D too
+      const float lv = l[(i / 2) % 2];
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(row) * D + col) =
+          __floats2bfloat162_rn(o[i] / lv, o[i + 1] / lv);
+    }
+  }
+}
+
+// 3-D map (D, S, B * heads) over a (B, heads, S, D) bf16 tensor
+cudaError_t map_3d(CUtensorMap* map, const void* base, int D, int S, int BH,
+                   int box_rows) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(BH)};
+  const uint64_t strides[2] = {2ull * D, 2ull * D * S};
+  const uint32_t box[3] = {64, static_cast<uint32_t>(box_rows), 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides,
+                  box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+template <int NB>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int H, int KH, int Sq, int Skv, int D, int causal,
+                   float scale, cudaStream_t stream) {
+  using C = Cfg<NB>;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t err = map_3d(&q_map, q, D, Sq, B * H, kBM);
+  if (err == cudaSuccess) err = map_3d(&k_map, k, D, Skv, B * KH, C::kBKV);
+  if (err == cudaSuccess) err = map_3d(&v_map, v, D, Skv, B * KH, C::kBKV);
+  if (err != cudaSuccess) return err;
+  static const cudaError_t smem_err = allow_smem(flash_kernel<NB>, C::kSmem);
+  if (smem_err != cudaSuccess) return smem_err;
+  const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
+  flash_kernel<NB><<<grid, kThreads, C::kSmem, stream>>>(
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), H, KH, Sq, Skv,
+      D, causal, scale * kLog2e);
+  return cudaSuccess;
+}
+
+}  // namespace tc
 
 }  // namespace
 
@@ -166,16 +431,17 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int causal, float scale, int dtype,
                                      void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0 ||
-      D <= 0 || D > 32 * kMaxDimPerLane) {
+      D <= 0 || D > 128) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == repro::kFloat32) {
-    err = launch<float>(q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, s);
-  } else if (dtype == repro::kBFloat16) {
-    err = launch<__nv_bfloat16>(q, k, v, out, B, H, KH, Sq, Skv, D, causal,
-                                scale, s);
+    err = cc::launch(q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, s);
+  } else if (dtype == repro::kBFloat16 && D % 8 == 0) {
+    err = D <= 64
+              ? tc::launch<1>(q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, s)
+              : tc::launch<2>(q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, s);
   } else {
     return cudaErrorInvalidValue;
   }

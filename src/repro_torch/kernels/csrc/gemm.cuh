@@ -1,5 +1,5 @@
-// One tiled f32 GEMM body on CUDA cores, shared by the matmul, Schur-update
-// and complex-matmul kernels (csrc/matmul.cu, csrc/complex_matmul.cu).
+// One tiled f32 GEMM body on CUDA cores, shared by the Schur-update and
+// complex-matmul kernels (csrc/matmul.cu, csrc/complex_matmul.cu).
 //
 // The TPU kernels these replace (repro/kernels/matmul.py, fft.py) walk a
 // sequential (M/bm, N/bn, K/bk) grid and keep an f32 accumulator tile in
@@ -15,8 +15,7 @@
 // enforce the reference's tiling contract on top.
 //
 // Products are f32 FMAs on CUDA cores: no tensor cores, so no TF32
-// rounding.  The H100's f32 peak outside the tensor cores is 67 TFLOP/s;
-// wgmma/TMA pipelines are later work.
+// rounding.  The H100's f32 peak outside the tensor cores is 67 TFLOP/s.
 #pragma once
 
 #include "common.cuh"

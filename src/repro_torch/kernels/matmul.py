@@ -4,9 +4,11 @@ wrappers (``csrc/matmul.cu``, the port of ``repro/kernels/matmul.py``'s
 
 ``block_m/block_n/block_k`` keep the reference's tiling contract: shapes
 that do not divide by them raise ``ValueError``, on every device, and the
-interface adapter pads first.  The CUDA kernel tiles the output by its own
-128 x 128 (K in steps of 8) and masks the ragged edge, so any block sizes
-that pass the contract run.  The kernel takes float32 only.
+interface adapter pads first.  The CUDA kernels tile the output by their
+own 128 x 128 and mask the ragged edge, so any block sizes that pass the
+contract run.  The kernels take float32 only; the matmul kernel (3xTF32 on
+the tensor cores, loaded by TMA) also needs N and K that are multiples of
+4, and raises on others.
 
 A wrapper runs the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
@@ -59,6 +61,11 @@ def matmul(
         return matmul_torch(a, b)
     build.check_cuda("matmul", a, b)
     build.check_float32("matmul", a, b)
+    if n % 4 or k % 4 or a.data_ptr() % 16 or b.data_ptr() % 16:
+        raise ValueError(
+            f"matmul: the kernel loads by TMA, which needs N and K that are "
+            f"multiples of 4 (got N={n}, K={k}) and 16-byte aligned operands"
+        )
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     if m and n:
         build.launch(

@@ -14,6 +14,8 @@ outputs one bf16 rounding step apart (2^-8 relative), since both sides
 compute in f32 and round once.
 """
 
+import shutil
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -231,6 +233,50 @@ def test_flash_attention_matches_attention_ref_at_ragged_lengths(s, rng):
     )
 
 
+def _flash_bf16_kernel_arithmetic(q, k, v, causal=True):
+    """The bf16 CUDA kernel's arithmetic (``csrc/flash_attention.cu``, the
+    wgmma route) in torch: key tiles of 128 (64 when D > 64), the scale
+    taken after the product in f32, the online softmax in f32, P rounded to
+    bf16 before P.V (sums in f32), the output rounded once to bf16."""
+    b, h, sq, d = q.shape
+    _, kh, skv, _ = k.shape
+    g = h // kh
+    bkv = 128 if d <= 64 else 64
+    qf = q.float().reshape(b, kh, g, sq, d)
+    m = torch.full((b, kh, g, sq, 1), -1e30)
+    l = torch.zeros((b, kh, g, sq, 1))
+    o = torch.zeros((b, kh, g, sq, d))
+    qi = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, bkv):
+        kt, vt = k[:, :, k0:k0 + bkv].float(), v[:, :, k0:k0 + bkv].float()
+        s = torch.einsum("bkgqd,bktd->bkgqt", qf, kt) * (1.0 / d ** 0.5)
+        if causal:
+            s = torch.where(qi >= torch.arange(k0, k0 + kt.shape[2])[None, :], s, -1e30)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(-1, keepdim=True)
+        o = o * alpha + torch.einsum("bkgqt,bktd->bkgqd", p.bfloat16().float(), vt)
+        m = m_new
+    return (o / torch.where(l == 0, 1.0, l)).reshape(b, h, sq, d).bfloat16()
+
+
+@pytest.mark.parametrize("h,kh,s,d", [(4, 2, 300, 64), (2, 2, 300, 112), (4, 1, 77, 112), (4, 2, 129, 64)])
+def test_flash_bf16_kernel_arithmetic_meets_bf16_tol(h, kh, s, d, rng):
+    """P rounded to bf16 and the scale after the product stay within
+    chip_smoke's bf16 TOL (2e-2 abs + 2e-2 rel) of the f32 plain version and
+    of the Pallas kernel in interpret mode, at llama's and zamba2's head
+    dims and ragged lengths (one Pallas block of S rows)."""
+    q, k, v = (rng.standard_normal((1, n, s, d)).astype(np.float32) for n in (h, kh, kh))
+    tq, tk, tv = (_t(a).bfloat16() for a in (q, k, v))
+    got = _flash_bf16_kernel_arithmetic(tq, tk, tv).float().numpy()
+    plain = tatt.flash_attention_torch(tq.float(), tk.float(), tv.float()).numpy()
+    np.testing.assert_allclose(got, plain, rtol=2e-2, atol=2e-2)
+    jq, jk, jv = (jnp.asarray(a).astype(jnp.bfloat16) for a in (q, k, v))
+    want = flash_attention_pallas(jq, jk, jv, block_q=s, block_kv=s, interpret=True)
+    np.testing.assert_allclose(got, _np(want), rtol=2e-2, atol=2e-2)
+
+
 # -- the shelf and the build -------------------------------------------------------------
 
 
@@ -259,11 +305,21 @@ def test_build_raises_without_nvcc(monkeypatch):
         build._nvcc()
 
 
-def test_kernel_sources_carry_their_notes_and_hash():
-    names = {p.name for p in build.sources()}
-    assert {"rmsnorm.cu", "paged_attention.cu", "flash_attention.cu"} <= names
-    for name in ("rmsnorm.cu", "paged_attention.cu", "flash_attention.cu"):
+def test_kernel_sources_carry_their_notes_and_hash(tmp_path, monkeypatch):
+    kernel_sources = {p.name for p in build.sources() if "__global__" in p.read_text()}
+    assert kernel_sources == {
+        "rmsnorm.cu", "paged_attention.cu", "flash_attention.cu", "matmul.cu",
+        "complex_matmul.cu", "ssd_chunks.cu",
+    }
+    for name in kernel_sources:
         text = (build.CSRC / name).read_text()
-        assert "Replaces: repro/kernels/" in text and "Bound on the H100" in text
+        assert "Replaces: repro/kernels/" in text and "Bound on the H100" in text, name
     assert build.source_hash() == build.source_hash()
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
+    # a header the kernels include (the Hopper primitives) is part of the hash
+    copy = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, copy)
+    monkeypatch.setattr(build, "CSRC", copy)
+    before = build.source_hash()
+    (copy / "hopper.cuh").write_text((copy / "hopper.cuh").read_text() + "\n// edited\n")
+    assert build.source_hash() != before

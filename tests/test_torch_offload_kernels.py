@@ -16,6 +16,9 @@ within 1e-4 (the same f32 eliminations; dot products in the triangular
 solve summed in another order).
 """
 
+import importlib.util
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +34,15 @@ from repro_torch.kernels import launch_counts, ops as tops, ref as tref
 from repro_torch.kernels import matmul as tmm
 
 SHAPES = [(128, 128, 128), (256, 128, 128), (128, 384, 256), (256, 256, 512)]
+
+
+def _chip_smoke():
+    """chip_smoke.py at the repository root (its tolerances), loaded by path."""
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _t(a):
@@ -171,3 +183,45 @@ def test_ops_default_to_cuda_and_raise_without_it():
     for fn in (tops.fft2d, tops.lu, tops.lu_nr_compat):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             fn(x)
+
+
+# -- the matmul kernel's 3xTF32 arithmetic ------------------------------------------------
+
+
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """Round f32 to TF32 (10 mantissa bits) to nearest, ties away from zero,
+    as ``cvt.rna.tf32.f32`` does: on the bit pattern, add half of the 13
+    dropped bits' unit to the magnitude and clear them."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_rounding_keeps_ten_mantissa_bits():
+    x = torch.tensor([1.0, 1.0 + 2.0 ** -11, 1.0 + 3 * 2.0 ** -12, -(1.0 + 2.0 ** -11), 3.0e-3])
+    got = _tf32(x)
+    assert got[0] == 1.0
+    assert got[1] == 1.0 + 2.0 ** -10  # a tie rounds away from zero
+    assert got[2] == 1.0 + 2.0 ** -10
+    assert got[3] == -(1.0 + 2.0 ** -10)
+    assert (got.view(torch.int32) & 0x1FFF == 0).all()
+    assert float((got[4] - x[4]).abs() / x[4]) <= 2.0 ** -11
+
+
+def test_3xtf32_split_meets_gemm_tol_where_one_pass_does_not(rng):
+    """The matmul kernel's design (``csrc/matmul.cu``): x = hi + lo with
+    hi = tf32(x), lo = tf32(x - hi), and A_lo B_hi + A_hi B_lo + A_hi B_hi
+    summed in f32 holds chip_smoke's GEMM_TOL against an f64 product at
+    K = 2048; one TF32 pass (tf32(A) tf32(B)) does not."""
+    atol, rtol = _chip_smoke().GEMM_TOL
+    a = rng.standard_normal((64, 2048)).astype(np.float32)
+    b = rng.standard_normal((2048, 64)).astype(np.float32)
+    want = torch.from_numpy(a.astype(np.float64) @ b.astype(np.float64))
+    ta, tb = _t(a), _t(b)
+    a_hi, b_hi = _tf32(ta), _tf32(tb)
+    a_lo, b_lo = _tf32(ta - a_hi), _tf32(tb - b_hi)
+    three = (a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi).double()
+    one = (a_hi @ b_hi).double()
+    limit = atol + rtol * want.abs()
+    assert bool(((three - want).abs() <= limit).all())
+    assert not bool(((one - want).abs() <= limit).all())
+    assert float((one - want).abs().max()) > 10 * float((three - want).abs().max())
