@@ -48,7 +48,9 @@ JSON line, and any failure raises (exit code != 0):
 
 The offload kernels (complex matmul, Schur update, matmul) are held
 against their plain versions in phase 2 at the paper's scale (2048^2 f32),
-and matmul at a ragged (96, 160, 96) at blocks of 32; the SSD chunk kernel
+matmul also at (96, 160, 96) at blocks of 32, and each at a ragged shape
+whose N or K is not a multiple of 4 (matmul and complex matmul at 99^3,
+the Schur update at (100, 100, 30)); the SSD chunk kernel
 at mamba2's and zamba2's prefill shapes, and paged and flash attention at
 zamba2's head dim 112 too (flash also at B=2 and a ragged S=300).
 
@@ -440,43 +442,57 @@ def _ssd_cases(torch, timer, randn, gen) -> list:
 def _offload_kernel_cases(torch, timer, randn) -> dict:
     """The offload shelf at the paper's scale (2048^2, f32): one DFT stage
     of fft2d, the LU's first trailing update at n=2048, nb=128 (and one of
-    n=192, nb=32), and a 2048^3 matmul."""
+    n=192, nb=32), and a 2048^3 matmul; then ragged shapes whose N or K is
+    not a multiple of 4, which the wrappers pad for TMA.  The three kernels
+    run 3xTF32 on the tensor cores: each bound counts the product once at
+    the TF32 peak, and each row shows the three passes' floor too."""
     from repro_torch.kernels.fft import complex_matmul, complex_matmul_torch
     from repro_torch.kernels.matmul import matmul, matmul_torch, schur_update, schur_update_torch
 
     f32 = torch.float32
     rows: dict[str, list] = {"complex_matmul": [], "schur_update": [], "matmul": []}
-    n = 2048
-    ar, ai, br, bi = (randn(n, n, dtype=f32) for _ in range(4))
-    ac, bc = torch.complex(ar, ai), torch.complex(br, bi)
-    rows["complex_matmul"].append(_case(
-        torch, "complex_matmul", "float32", [n, n, n],
-        torch.cat(complex_matmul(ar, ai, br, bi)), torch.cat(complex_matmul_torch(ar, ai, br, bi)),
-        timer, lambda: complex_matmul(ar, ai, br, bi), lambda: complex_matmul_torch(ar, ai, br, bi),
-        lambda: torch.matmul(ac, bc),
-        nbytes=4 * 6 * n * n, flops=8 * n ** 3, tol=GEMM_TOL,
-    ))
-    # the trailing update A22 -= L21 @ U12 right after the first panel
-    for m, k in ((1920, 128), (160, 32)):
-        c, a, b = randn(m, m, dtype=f32), randn(m, k, dtype=f32), randn(k, m, dtype=f32)
-        blk = dict(block_m=k, block_n=k, block_k=k)
+
+    def floor(flops):
+        return {"floor_3xtf32_ms": 3 * flops / PEAK_FLOPS["tf32"] * 1e3}
+
+    for m, nn, k in ((2048, 2048, 2048), (99, 99, 99)):
+        ar, ai = randn(m, k, dtype=f32), randn(m, k, dtype=f32)
+        br, bi = randn(k, nn, dtype=f32), randn(k, nn, dtype=f32)
+        ac, bc = torch.complex(ar, ai), torch.complex(br, bi)
+        kw = dict(block_m=min(m, 128), block_n=min(nn, 128), block_k=min(k, 128))
+        flops = 8 * m * nn * k
+        rows["complex_matmul"].append(_case(
+            torch, "complex_matmul", "float32", [m, nn, k],
+            torch.cat(complex_matmul(ar, ai, br, bi, **kw)), torch.cat(complex_matmul_torch(ar, ai, br, bi)),
+            timer, lambda: complex_matmul(ar, ai, br, bi, **kw), lambda: complex_matmul_torch(ar, ai, br, bi),
+            lambda: torch.matmul(ac, bc),
+            nbytes=4 * (2 * m * k + 2 * k * nn + 2 * m * nn), flops=flops, tol=GEMM_TOL,
+            peak="tf32", extra=floor(flops),
+        ))
+    # the trailing update A22 -= L21 @ U12 right after the first panel, and
+    # a ragged one
+    for (m, nn, k), (bm, bn) in (((1920, 1920, 128), (128, 128)), ((160, 160, 32), (32, 32)),
+                                  ((100, 100, 30), (100, 100))):
+        c, a, b = randn(m, nn, dtype=f32), randn(m, k, dtype=f32), randn(k, nn, dtype=f32)
+        blk = dict(block_m=bm, block_n=bn, block_k=k)
+        flops = 2 * m * nn * k
         rows["schur_update"].append(_case(
-            torch, "schur_update", "float32", [m, m, k],
+            torch, "schur_update", "float32", [m, nn, k],
             schur_update(c, a, b, **blk), schur_update_torch(c, a, b), timer,
             lambda: schur_update(c, a, b, **blk), lambda: schur_update_torch(c, a, b),
             lambda: torch.addmm(c, a, b, alpha=-1),
-            nbytes=4 * (2 * m * m + 2 * m * k), flops=2 * m * m * k, tol=GEMM_TOL,
+            nbytes=4 * (2 * m * nn + m * k + k * nn), flops=flops, tol=GEMM_TOL,
+            peak="tf32", extra=floor(flops),
         ))
-    # matmul runs 3xTF32 on the tensor cores: its bound counts the product
-    # once at the TF32 peak, and the row shows the three passes' floor too
-    for (m, nn, k), blk in (((n, n, n), 128), ((96, 160, 96), 32)):
+    for (m, nn, k), blk in (((2048, 2048, 2048), 128), ((96, 160, 96), 32), ((99, 99, 99), 99)):
         a, b = randn(m, k, dtype=f32), randn(k, nn, dtype=f32)
         kw = dict(block_m=blk, block_n=blk, block_k=blk)
+        flops = 2 * m * nn * k
         rows["matmul"].append(_case(
             torch, "matmul", "float32", [m, nn, k], matmul(a, b, **kw), matmul_torch(a, b), timer,
             lambda: matmul(a, b, **kw), lambda: matmul_torch(a, b), lambda: torch.matmul(a, b),
-            nbytes=4 * (m * k + k * nn + m * nn), flops=2 * m * nn * k, tol=GEMM_TOL, peak="tf32",
-            extra={"floor_3xtf32_ms": 3 * 2 * m * nn * k / PEAK_FLOPS["tf32"] * 1e3},
+            nbytes=4 * (m * k + k * nn + m * nn), flops=flops, tol=GEMM_TOL, peak="tf32",
+            extra=floor(flops),
         ))
     return rows
 

@@ -6,10 +6,13 @@ parent, each in a process of its own:
   KV cache, 16 requests), twice per process (the second run is warm);
 - ``prefill``: one 512-token llama3.2-1b prefill (paged, batch 1, one new
   token) served by ``ServeEngine``: host wall ms (median of 7, after 3
-  warm-up requests) and device ms by kernel from ``torch.profiler``.
+  warm-up requests) and device ms by kernel from ``torch.profiler``;
+- ``offload_kernels``: chip_smoke.py's phase-2 cases of the offload GEMM
+  kernels (complex matmul, Schur update, matmul; CUDA graphs, cold L2),
+  each kernel's ms beside its PyTorch call's.
 
     git archive <parent commit> | tar -x -C build/parent
-    python3 scripts/ab_parent_change.py main_path|prefill [build/parent]
+    python3 scripts/ab_parent_change.py main_path|prefill|offload_kernels [build/parent]
 
 Prints one JSON line per measurement with its version.  Compare versions
 only within one call: the host's speed varies between machines.
@@ -51,19 +54,26 @@ print(json.dumps({"phase": "prefill", "wall_ms_median": statistics.median(walls)
                   "flash_device_ms": flash,
                   "top": {k[:60]: v for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:6]}}))
 '''
+OFFLOAD_KERNELS = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke as c; "
+                   "torch.backends.cuda.matmul.allow_tf32 = False; "
+                   "g = torch.Generator(device='cuda').manual_seed(0); "
+                   "c._offload_kernel_cases(torch, c.Timer(torch), lambda *shape, dtype: "
+                   "torch.randn(shape, generator=g, device='cuda').to(dtype))")
+CODE = {"main_path": MAIN_PATH, "prefill": PREFILL, "offload_kernels": OFFLOAD_KERNELS}
+KERNEL_KEYS = ("name", "shape", "ms", "library_ms", "max_abs_err")
 MAIN_PATH_KEYS = ("tok_per_s", "prefill_tok_per_s", "decode_tok_per_s", "decode_median_ms",
                   "ttft_p50_ms", "ttft_p99_ms", "wall_seconds", "launches")
 
 
 def main() -> int:
     what = sys.argv[1] if len(sys.argv) > 1 else ""
-    if what not in ("main_path", "prefill"):
+    if what not in CODE:
         print(__doc__, file=sys.stderr)
         return 2
     roots = {"parent": Path(sys.argv[2] if len(sys.argv) > 2 else ROOT / "build" / "parent"),
              "change": ROOT}
     for tag in ("parent", "change", "change", "parent"):
-        out = subprocess.run([sys.executable, "-c", MAIN_PATH if what == "main_path" else PREFILL],
+        out = subprocess.run([sys.executable, "-c", CODE[what]],
                              cwd=roots[tag], capture_output=True, text=True, timeout=400)
         for line in out.stdout.splitlines():
             if not line.startswith("{"):
@@ -73,6 +83,8 @@ def main() -> int:
                 print(json.dumps({"version": tag, **{k: row[k] for k in MAIN_PATH_KEYS}}), flush=True)
             elif what == "prefill":
                 print(json.dumps({"version": tag, **row}), flush=True)
+            elif what == "offload_kernels" and row.get("phase") == "kernel":
+                print(json.dumps({"version": tag, **{k: row[k] for k in KERNEL_KEYS}}), flush=True)
         if out.returncode:
             print(tag, "failed", out.stderr[-3000:])
             return 1

@@ -1,11 +1,15 @@
 #!/usr/bin/env python3
 """Quick check of the tensor-core kernels on one H100: build the library,
-print ptxas's lines for flash_attention.cu and matmul.cu, hold the bf16 and
-f32 flash kernels and the 3xTF32 matmul against their plain versions
-(chip_smoke.py's tolerances) at the serving and offload shapes and a few
-edges, and time the large cases with CUDA events (warm L2, 20 calls)
-beside SDPA and ``torch.matmul``.  Matmul errors are also taken against an
-f64 product, for the kernel and for cuBLAS.
+print ptxas's lines for flash_attention.cu and the three GEMM kernels
+(matmul.cu: matmul and the Schur update; complex_matmul.cu), hold the bf16
+and f32 flash kernels and the three 3xTF32 GEMM kernels against their
+plain versions (chip_smoke.py's tolerances) at the serving and offload
+shapes, ragged shapes whose N or K is not a multiple of 4 and a misaligned
+operand view (both padded or copied by the wrappers for TMA), and time
+the large cases with CUDA events (warm L2, 20 calls) beside SDPA and the
+PyTorch call for the same function (``torch.matmul``, complex64
+``torch.matmul``, ``torch.addmm(alpha=-1)``).  GEMM errors are also taken
+against an f64 (complex128) product, for the kernel and for that call.
 
     python3 scripts/check_tc_kernels.py
 
@@ -29,9 +33,15 @@ FLASH_CASES = [  # B, H, KH, S, D, dtype, causal
     (2, 32, 32, 300, 112, torch.bfloat16, True), (1, 32, 32, 512, 112, torch.bfloat16, True),
     (1, 8, 8, 200, 64, torch.bfloat16, False), (1, 32, 8, 300, 64, torch.float32, True),
 ]
-MATMUL_CASES = [  # M, N, K, block size
-    (96, 160, 96, 32), (100, 128, 64, 4), (128, 128, 2048, 128), (2048, 2048, 2048, 128),
-    (1024, 1024, 1024, 128),
+GEMM_CASES = [  # kernel, (M, N, K), (block_m, block_n, block_k), misaligned A view
+    ("matmul", (96, 160, 96), (32, 32, 32), False), ("matmul", (100, 128, 64), (4, 128, 64), False),
+    ("matmul", (128, 128, 2048), (128, 128, 128), False), ("matmul", (99, 99, 99), (99, 99, 99), False),
+    ("matmul", (128, 128, 128), (128, 128, 128), True), ("matmul", (2048, 2048, 2048), (128, 128, 128), False),
+    ("schur_update", (160, 160, 32), (32, 32, 32), False), ("schur_update", (100, 100, 30), (100, 100, 30), False),
+    ("schur_update", (128, 256, 64), (128, 128, 64), True),
+    ("schur_update", (1920, 1920, 128), (128, 128, 128), False),
+    ("complex_matmul", (99, 99, 99), (99, 99, 99), False), ("complex_matmul", (256, 128, 64), (128, 128, 64), True),
+    ("complex_matmul", (2048, 2048, 2048), (128, 128, 128), False),
 ]
 
 
@@ -54,17 +64,18 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.kernels import build
     from repro_torch.kernels.attention import flash_attention, flash_attention_torch
-    from repro_torch.kernels.matmul import matmul, matmul_torch
+    from repro_torch.kernels import fft, matmul
 
     t0 = time.perf_counter()
     build.library()
     print("build seconds", time.perf_counter() - t0)
     for section in build.build_info["log"].split("== "):
-        if section.startswith(("flash_attention", "matmul")):
+        if section.startswith(("flash_attention", "matmul", "complex_matmul")):
             print("== " + "\n".join(
                 line for line in section.splitlines()
-                if "registers" in line or "spill" in line or "C7515" in line
-                or line.startswith(("flash", "matmul"))))
+                if "Used" in line or "spill" in line or "C7515" in line
+                or "Compiling entry function" in line
+                or line.startswith(("flash", "matmul", "complex_matmul"))))
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
@@ -90,22 +101,42 @@ def main() -> int:
         except Exception:
             ok = False
             traceback.print_exc()
-    for m, n, k, blk in MATMUL_CASES:
+    for name, (m, n, k), (bm, bn, bk), misaligned in GEMM_CASES:
         try:
-            a, b = randn(m, k), randn(k, n)
-            got = matmul(a, b, block_m=blk if m % blk == 0 else 4, block_n=blk, block_k=blk)
+            kw = dict(block_m=bm, block_n=bn, block_k=bk)
+            a, b, a2, b2, c = randn(m, k), randn(k, n), randn(m, k), randn(k, n), randn(m, n)
+            if misaligned:  # a contiguous view 4 bytes past a 16-byte boundary
+                a = torch.cat([torch.zeros(1, device="cuda"), a.flatten()])[1:].view(m, k)
+            if name == "matmul":
+                run = lambda: matmul.matmul(a, b, **kw)  # noqa: E731
+                want, lib = matmul.matmul_torch(a, b), lambda: torch.matmul(a, b)  # noqa: E731
+                f64 = a.double() @ b.double()
+            elif name == "schur_update":
+                run = lambda: matmul.schur_update(c, a, b, **kw)  # noqa: E731
+                want, lib = matmul.schur_update_torch(c, a, b), lambda: torch.addmm(c, a, b, alpha=-1)  # noqa: E731
+                f64 = c.double() - a.double() @ b.double()
+            else:
+                ac, bc = torch.complex(a, a2), torch.complex(b, b2)
+                run = lambda: torch.cat(fft.complex_matmul(a, a2, b, b2, **kw))  # noqa: E731
+                want = torch.cat(fft.complex_matmul_torch(a, a2, b, b2))
+                lib = lambda: torch.matmul(ac, bc)  # noqa: E731
+                z = ac.to(torch.complex128) @ bc.to(torch.complex128)
+                f64 = torch.cat([z.real, z.imag])
+            got = run()
             torch.cuda.synchronize()
-            want = matmul_torch(a, b)
+            libout = lib()
+            if libout.is_complex():
+                libout = torch.cat([libout.real, libout.imag])
             err = (got - want).abs()
             bad = bool((err > 1e-3 + 1e-4 * want.abs()).any()) or not bool(torch.isfinite(got).all())
             ok &= not bad
-            f64 = a.double() @ b.double()
-            row = {"case": [m, n, k, blk], "max_err": float(err.max()),
+            row = {"kernel": name, "case": [m, n, k], "blocks": [bm, bn, bk], "misaligned": misaligned,
+                   "max_err": float(err.max()),
                    "err_vs_f64": float((got.double() - f64).abs().max()),
-                   "cublas_err_vs_f64": float((want.double() - f64).abs().max()), "bad": bad}
+                   "library_err_vs_f64": float((libout.double() - f64).abs().max()), "bad": bad}
             if m >= 1024:
-                row["ms"] = events_ms(lambda: matmul(a, b))
-                row["torch_ms"] = events_ms(lambda: torch.matmul(a, b))
+                row["ms"] = events_ms(run)
+                row["library_ms"] = events_ms(lib)
             print(json.dumps(row), flush=True)
         except Exception:
             ok = False

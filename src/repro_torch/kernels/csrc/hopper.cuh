@@ -1,7 +1,8 @@
 // Hopper primitives shared by the tensor-core kernels (flash_attention.cu,
-// matmul.cu), as inline PTX for sm_90a: TMA tensor maps and bulk tensor
-// loads, mbarriers, wgmma shared-memory descriptors and the wgmma shapes
-// the kernels issue.
+// and matmul.cu and complex_matmul.cu through tf32_gemm.cuh), as inline
+// PTX for sm_90a: TMA tensor maps and bulk tensor loads, L2 prefetches,
+// mbarriers, wgmma shared-memory descriptors and the wgmma shapes the
+// kernels issue.
 //
 // Tensor maps are encoded on the host with the driver's
 // cuTensorMapEncodeTiled, fetched through cudaGetDriverEntryPoint, so the
@@ -129,6 +130,11 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
+}
+
+// start the 128-byte line holding `p` on its way into L2
+__device__ __forceinline__ void prefetch_l2(const void* p) {
+  asm volatile("prefetch.global.L2 [%0];\n" :: "l"(p));
 }
 
 // generic-proxy shared-memory writes -> visible to wgmma's async proxy

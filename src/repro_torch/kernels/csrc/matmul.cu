@@ -1,298 +1,95 @@
-// f32 matmul (out = A @ B) in 3xTF32 on the tensor cores, and the fused LU
-// trailing update (out = C - A @ B) on the CUDA-core GEMM body (gemm.cuh).
+// f32 matmul (out = A @ B) and the fused LU trailing update (out = C - A @
+// B), both in 3xTF32 on the tensor cores: the shared body of tf32_gemm.cuh
+// (TMA ring, A split in registers, B split and transposed in shared
+// memory, m64n128k8 wgmma, each K step promoted into an f32 sum on the
+// CUDA cores), walking one leg A @ B.
 //
 // Replaces: repro/kernels/matmul.py, matmul_pallas (_matmul_kernel) and
 // schur_update_pallas (_schur_kernel).
 //
-// Bound on the H100: operations.  A 2048^3 product is 17.2 GFLOP against
-// 50 MB of operands: 0.035 ms at the 495 TFLOP/s dense TF32 peak, 0.26 ms
-// at the 67 TFLOP/s f32 peak outside the tensor cores, 15 us at 3.35 TB/s.
-//
-// Matmul design.  The tensor cores take f32 only as TF32 (10 mantissa
-// bits): one pass errs by a few 1e-2 at K = 2048, far outside f32's
-// accuracy.  So each operand is split, x = hi + lo with hi = tf32(x) and
-// lo = tf32(x - hi), and every K step accumulates A_lo B_hi + A_hi B_lo +
-// A_hi B_hi in f32 (small terms first; A_lo B_lo, ~2^-22 relative, is
-// dropped): f32 accuracy at three TF32 products, a floor of 0.104 ms at
-// 2048^3.  One CTA owns a 128 x 128 output tile: a producer warpgroup keeps TMA
-// loads of the raw f32 A (128 x 32, 128-byte swizzled) and B (32 x 128)
-// tiles in flight through a ring of three stages, each completing on an
-// mbarrier, and gives its registers to the consumers (setmaxnreg).  Two consumer warpgroups, 64 output rows each, issue m64n128k8
-// tf32 wgmmas: A from registers (each thread loads its fragment of the raw
-// tile and splits it there), B from shared memory.  tf32 wgmma takes B
-// K-major only, so B is transposed as it is split, into hi/lo planes in a
-// double-buffered pair of tiles.  The next stage's split (B's planes, A's
-// fragments in a second set of registers) overlaps the products of the
-// current one (wgmma is asynchronous).  Shared memory
-// bandwidth is what the split costs: A kept in registers saves its planes'
-// writes and the wgmmas' reads of them.  The tensor cores accumulate with
-// truncation, which biases a long sum: each K step's products go to a
-// fresh accumulator that is then added, in f32 on the CUDA cores, to the
-// running one.  TMA zero-fills the ragged edges, and the
-// epilogue masks them, so any M works; N and K must be multiples of 4
-// (16-byte global strides for TMA).
-//
-// The Schur update runs on gemm.cuh's CUDA-core body: 128 x 128 tiles of
-// 8 x 8 f32 FMAs per thread, reading C once into the accumulators and
-// writing the result once (the HBM round trip of C the fused TPU kernel
-// saves too).  The LU's trailing updates (K = nb = 128) do 2 * 128 flops
-// per 12 bytes of C moved, above the f32 ridge.
-#include "gemm.cuh"
-#include "hopper.cuh"
+// Bound on the H100: operations for the matmul.  A 2048^3 product is 17.2
+// GFLOP against 50 MB of operands: 0.035 ms at the 495 TFLOP/s dense TF32
+// peak (0.104 ms for the three passes), 15 us at 3.35 TB/s.  The Schur
+// update at the LU's K = nb = 128 is bound by bytes: C, A and B read once
+// and the result written once, 2 * 128 flops per 8 bytes of C moved, far
+// below the TF32 ridge (~150 flops a byte).  Its epilogue reads C with
+// guarded loads in the accumulator's fragment layout and writes C - A @ B,
+// so C crosses HBM once each way, the round trip the fused TPU kernel saves
+// over matmul-then-subtract; the CTA starts its C tile toward L2 as it
+// begins, so that read overlaps the K walk.
+#include "tf32_gemm.cuh"
 
 namespace {
 
-// -- matmul: 3xTF32 on wgmma ---------------------------------------------------
-
-namespace tc {
-
-using namespace repro::hopper;
-
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;  // 32 f32 = one 128-byte swizzled row
-constexpr int kStages = 3;
-constexpr int kConsumers = 256;  // two warpgroups, 64 output rows each
-constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
-constexpr int kTile = kBM * kBK * 4;  // bytes of an A (or B) tile
-constexpr int kSplitOffset = kStages * 2 * kTile;  // raw A, B per stage
-constexpr int kBarOffset = kSplitOffset + 2 * 2 * kTile;  // 2 x B hi/lo
-constexpr int kSmem = kBarOffset + 2 * kStages * 8 + 1024;  // + alignment
-
-__device__ __forceinline__ void split4(float4 x, float4& hi, float4& lo) {
-  hi = make_float4(to_tf32(x.x), to_tf32(x.y), to_tf32(x.z), to_tf32(x.w));
-  lo = make_float4(to_tf32(x.x - hi.x), to_tf32(x.y - hi.y),
-                   to_tf32(x.z - hi.z), to_tf32(x.w - hi.w));
-}
-
-// A stage's raw B (32 k x 128 n, row-major) -> hi and lo planes of 128
-// rows of 32 k (K-major, 128-byte swizzled as TMA would have)
-__device__ __forceinline__ void split_b(const float* raw_b, float* out, int tid) {
-  float* b_hi = out;
-  float* b_lo = out + kBN * kBK;
-#pragma unroll
-  for (int i = 0; i < kBN * kBK / 4 / kConsumers; ++i) {
-    const int u = tid + i * kConsumers;
-    const int n = u % kBN, q = u / kBN;  // column n, k = 4q .. 4q + 3
-    const float4 x = make_float4(raw_b[(4 * q) * kBN + n], raw_b[(4 * q + 1) * kBN + n],
-                                 raw_b[(4 * q + 2) * kBN + n], raw_b[(4 * q + 3) * kBN + n]);
-    const int off = n * kBK + 4 * (q ^ (n & 7));
-    float4 hi, lo;
-    split4(x, hi, lo);
-    *reinterpret_cast<float4*>(b_hi + off) = hi;
-    *reinterpret_cast<float4*>(b_lo + off) = lo;
-  }
-}
-
-// This thread's A fragments of a stage (rows `row`, `row` + 8 of the
-// swizzled 128 x 32 raw tile; 4 k8 steps of 4 registers), split into tf32
-// hi and lo.  Fragment register j of step kk: row + 8 * (j % 2), column
-// 8 * kk + lane % 4 + 4 * (j / 2), as wgmma's m64k8 tf32 A operand.
-__device__ __forceinline__ void split_a(const float* raw_a, int row, int lane,
-                                        uint32_t (&hi)[16], uint32_t (&lo)[16]) {
-#pragma unroll
-  for (int kk = 0; kk < kBK / 8; ++kk) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int r = row + 8 * (j % 2);
-      const int chunk = (2 * kk + j / 2) ^ (r & 7);
-      const float x = raw_a[r * kBK + 4 * chunk + lane % 4];
-      const float h = to_tf32(x);
-      hi[4 * kk + j] = __float_as_uint(h);
-      lo[4 * kk + j] = __float_as_uint(to_tf32(x - h));
-    }
-  }
-}
+using namespace repro::tf32_gemm;
 
 __global__ void __launch_bounds__(kThreads, 1)
 matmul_kernel(const __grid_constant__ CUtensorMap a_map,
               const __grid_constant__ CUtensorMap b_map,
               float* __restrict__ out, int M, int N, int K) {
-  extern __shared__ uint8_t smem_raw[];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kBarOffset);
-  uint64_t* empty = full + kStages;
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int nk = (K + kBK - 1) / kBK;
-  const int tid = threadIdx.x;
-  if (tid == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], kConsumers);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-
-  if (tid >= kConsumers) {  // producer: one thread issues the loads
-    regs_dealloc<40>();
-    if (tid == kConsumers) {
-      for (int t = 0; t < nk; ++t) {
-        const int s = t % kStages;
-        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * kTile);
-        uint8_t* raw = smem + s * 2 * kTile;
-        tma_load_2d(raw, &a_map, &full[s], t * kBK, m0);
-        tma_load_2d(raw + kTile, &b_map, &full[s], n0, t * kBK);
-      }
-    }
-    return;
-  }
-
-  regs_alloc<232>();  // 64 + 64 accumulators, 2 x 32 A fragment registers
-  const int wg = tid / 128, lane = tid % 32;
-  const int row0 = wg * 64 + 16 * ((tid % 128) / 32) + lane / 4;
-  float acc[64], part[64];
-#pragma unroll
-  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-  auto raw = [&](int t) { return reinterpret_cast<const float*>(smem + (t % kStages) * 2 * kTile); };
-  auto planes = [&](int t) { return reinterpret_cast<float*>(smem + kSplitOffset + (t & 1) * 2 * kTile); };
-  // stage t: B split into planes t & 1, this thread's A fragments into
-  // registers; then the raw stage is free
-  auto split = [&](int t, uint32_t (&a_hi)[16], uint32_t (&a_lo)[16]) {
-    mbar_wait(&full[t % kStages], (t / kStages) & 1);
-    split_b(raw(t) + kBM * kBK, planes(t), tid);
-    split_a(raw(t), row0, lane, a_hi, a_lo);
-    mbar_arrive(&empty[t % kStages]);
-    fence_async_smem();
-  };
-  // the products of stage t from `a_hi`, `a_lo` (split in the step before),
-  // while stage t + 1 is split into `next_hi`, `next_lo`
-  auto step = [&](int t, uint32_t (&a_hi)[16], uint32_t (&a_lo)[16],
-                  uint32_t (&next_hi)[16], uint32_t (&next_lo)[16]) {
-    const float* b_hi = planes(t);
-    const float* b_lo = b_hi + kBN * kBK;
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 8; ++kk) {  // 8 tf32 = 32 bytes per step
-      const uint32_t hi[4] = {a_hi[4 * kk], a_hi[4 * kk + 1], a_hi[4 * kk + 2], a_hi[4 * kk + 3]};
-      const uint32_t lo[4] = {a_lo[4 * kk], a_lo[4 * kk + 1], a_lo[4 * kk + 2], a_lo[4 * kk + 3]};
-      mma_tf32_rs_n128(part, lo, desc_sw128(b_hi + 8 * kk), kk > 0);
-      mma_tf32_rs_n128(part, hi, desc_sw128(b_lo + 8 * kk), 1);
-      mma_tf32_rs_n128(part, hi, desc_sw128(b_hi + 8 * kk), 1);
-    }
-    wgmma_commit();
-    if (t + 1 < nk) split(t + 1, next_hi, next_lo);
-    wgmma_wait<0>();
-    fence_regs(part);
-    fence_regs(a_hi);
-    fence_regs(a_lo);
-    // The tensor cores' f32 sums truncate; over K = 2048 the bias of 768
-    // truncated additions reaches ~3e-3.  Each K step's partial sum (12
-    // products) is added here, rounded to nearest, instead.
-#pragma unroll
-    for (int i = 0; i < 64; ++i) acc[i] += part[i];
-    named_sync(1, kConsumers);  // planes t read by both, planes t + 1 written
-  };
-  uint32_t a0_hi[16], a0_lo[16], a1_hi[16], a1_lo[16];  // two steps' fragments
-  split(0, a0_hi, a0_lo);
-  named_sync(1, kConsumers);
-  for (int t = 0; t < nk; t += 2) {
-    step(t, a0_hi, a0_lo, a1_hi, a1_lo);
-    if (t + 1 < nk) step(t + 1, a1_hi, a1_lo, a0_hi, a0_lo);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 64; i += 2) {
-    const int row = m0 + row0 + 8 * ((i / 2) % 2);
-    const int col = n0 + 8 * (i / 4) + 2 * (lane % 4);
-    if (row < M && col < N) {  // N % 4 == 0, so col + 1 < N too
-      *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * N + col) =
-          make_float2(acc[i], acc[i + 1]);
-    }
-  }
-}
-
-int launch(const void* a, const void* b, void* out, int M, int N, int K,
-           cudaStream_t stream) {
-  if (K == 0) {
-    cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(M) * N, stream);
-    return cudaGetLastError();
-  }
-  CUtensorMap a_map, b_map;
-  const uint64_t a_dims[2] = {static_cast<uint64_t>(K), static_cast<uint64_t>(M)};
-  const uint64_t a_strides[1] = {sizeof(float) * static_cast<uint64_t>(K)};
-  const uint32_t a_box[2] = {kBK, kBM};
-  const uint64_t b_dims[2] = {static_cast<uint64_t>(N), static_cast<uint64_t>(K)};
-  const uint64_t b_strides[1] = {sizeof(float) * static_cast<uint64_t>(N)};
-  const uint32_t b_box[2] = {kBN, kBK};
-  cudaError_t err = make_map(&a_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, a,
-                             a_dims, a_strides, a_box, CU_TENSOR_MAP_SWIZZLE_128B);
-  if (err != cudaSuccess) return err;
-  err = make_map(&b_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, b, b_dims,
-                 b_strides, b_box, CU_TENSOR_MAP_SWIZZLE_NONE);
-  if (err != cudaSuccess) return err;
-  static const cudaError_t smem_err = allow_smem(matmul_kernel, kSmem);
-  if (smem_err != cudaSuccess) return smem_err;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  matmul_kernel<<<grid, kThreads, kSmem, stream>>>(
-      a_map, b_map, static_cast<float*>(out), M, N, K);
-  return cudaGetLastError();
-}
-
-}  // namespace tc
-
-// -- Schur update: CUDA-core GEMM body ---------------------------------------------
-
-using namespace repro::gemm;
-
-__global__ void __launch_bounds__(kThreads)
-schur_kernel(Operands<1> op, const float* __restrict__ c, float* __restrict__ out) {
-  __shared__ __align__(16) Stage<1> st[2];
-  const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[8][8];
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + tile_index(ty, i);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + tile_index(tx, j);
-      acc[i][j] = (gm < op.M && gn < op.N) ? c[static_cast<size_t>(gm) * op.N + gn] : 0.f;
-    }
-  }
-  k_loop<1>(op, st, m0, n0, [&](Stage<1>& s, int k, int ty_, int tx_) {
-    float a[8], b[8];
-    frag(s.a[0][k], ty_, a);
-    frag(s.b[0][k], tx_, b);
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(-a[i], b[j], acc[i][j]);
+  const Leg legs[1] = {{&a_map, &b_map, 1.f}};
+  gemm_tile(legs, M, N, K, [=](int row, int col, float x, float y) {
+    *reinterpret_cast<float2*>(out + static_cast<size_t>(row) * N + col) = make_float2(x, y);
   });
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int gm = m0 + tile_index(ty, i);
-    if (gm >= op.M) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int gn = n0 + tile_index(tx, j);
-      if (gn < op.N) out[static_cast<size_t>(gm) * op.N + gn] = acc[i][j];
-    }
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+schur_kernel(const __grid_constant__ CUtensorMap a_map,
+             const __grid_constant__ CUtensorMap b_map,
+             const float* __restrict__ c, float* __restrict__ out, int M, int N,
+             int K) {
+  // C is read by the epilogue alone: its tile is started toward L2 now, so
+  // that read overlaps the K walk (4 lines of 128 bytes per row)
+  for (int l = threadIdx.x; l < kBM * 4; l += kThreads) {
+    const int row = blockIdx.y * kBM + l / 4, col = blockIdx.x * kBN + 32 * (l % 4);
+    if (row < M && col < N) prefetch_l2(c + static_cast<size_t>(row) * N + col);
   }
+  const Leg legs[1] = {{&a_map, &b_map, 1.f}};
+  gemm_tile(legs, M, N, K, [=](int row, int col, float x, float y) {
+    const size_t o = static_cast<size_t>(row) * N + col;
+    const float2 cv = __ldg(reinterpret_cast<const float2*>(c + o));
+    *reinterpret_cast<float2*>(out + o) = make_float2(cv.x - x, cv.y - y);
+  });
 }
 
 }  // namespace
 
 extern "C" int repro_matmul(const void* a, const void* b, void* out, int M,
                             int N, int K, void* stream) {
-  if (M <= 0 || N <= 0 || K < 0 || N % 4 || K % 4) return cudaErrorInvalidValue;
-  return tc::launch(a, b, out, M, N, K, static_cast<cudaStream_t>(stream));
+  if (!valid(M, N, K, {a, b, out})) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K == 0) {
+    cudaMemsetAsync(out, 0, sizeof(float) * static_cast<size_t>(M) * N, s);
+    return cudaGetLastError();
+  }
+  CUtensorMap a_map, b_map;
+  cudaError_t err = make_a_map(&a_map, a, M, K);
+  if (err == cudaSuccess) err = make_b_map(&b_map, b, K, N);
+  if (err != cudaSuccess) return err;
+  static const cudaError_t smem_err = allow_smem(matmul_kernel, kSmem);
+  if (smem_err != cudaSuccess) return smem_err;
+  matmul_kernel<<<grid(M, N), kThreads, kSmem, s>>>(
+      a_map, b_map, static_cast<float*>(out), M, N, K);
+  return cudaGetLastError();
 }
 
 extern "C" int repro_schur_update(const void* c, const void* a, const void* b,
                                   void* out, int M, int N, int K,
                                   void* stream) {
-  if (M <= 0 || N <= 0 || K < 0) return cudaErrorInvalidValue;
-  Operands<1> op;
-  op.a[0] = static_cast<const float*>(a);
-  op.b[0] = static_cast<const float*>(b);
-  op.M = M;
-  op.N = N;
-  op.K = K;
-  const dim3 grid((N + kBN - 1) / kBN, (M + kBM - 1) / kBM);
-  schur_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      op, static_cast<const float*>(c), static_cast<float*>(out));
+  if (!valid(M, N, K, {c, a, b, out})) return cudaErrorInvalidValue;
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (K == 0) {
+    cudaMemcpyAsync(out, c, sizeof(float) * static_cast<size_t>(M) * N,
+                    cudaMemcpyDeviceToDevice, s);
+    return cudaGetLastError();
+  }
+  CUtensorMap a_map, b_map;
+  cudaError_t err = make_a_map(&a_map, a, M, K);
+  if (err == cudaSuccess) err = make_b_map(&b_map, b, K, N);
+  if (err != cudaSuccess) return err;
+  static const cudaError_t smem_err = allow_smem(schur_kernel, kSmem);
+  if (smem_err != cudaSuccess) return smem_err;
+  schur_kernel<<<grid(M, N), kThreads, kSmem, s>>>(
+      a_map, b_map, static_cast<const float*>(c), static_cast<float*>(out), M, N, K);
   return cudaGetLastError();
 }

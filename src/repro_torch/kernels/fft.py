@@ -1,7 +1,9 @@
 """Matmul-DFT 2-D FFT: the complex-matmul CUDA kernel's wrapper
 (``csrc/complex_matmul.cu``, the port of ``repro/kernels/fft.py``'s
-``complex_matmul_pallas``), its plain version, and the two-stage
-``fft2d_dft`` that chains it as ``fft2d_pallas`` does:
+``complex_matmul_pallas``: 3xTF32 on the tensor cores, on the GEMM body
+the matmul kernels share, each CTA one tile of one output plane), its
+plain version, and the two-stage ``fft2d_dft`` that chains it as
+``fft2d_pallas`` does:
 
     2-D FFT:  Y = X @ F_m (rows), then Z = (Y^T @ F_n)^T (columns)
 
@@ -20,7 +22,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.matmul import check_tiles
+from repro_torch.kernels.matmul import check_tiles, tma_operands
 
 
 def dft_matrix(n: int, sign: float = -1.0) -> tuple[np.ndarray, np.ndarray]:
@@ -66,15 +68,19 @@ def complex_matmul(
         return complex_matmul_torch(ar, ai, br, bi)
     build.check_cuda("complex_matmul", ar, ai, br, bi)
     build.check_float32("complex_matmul", ar, ai, br, bi)
-    out_r = torch.empty((m, n), dtype=torch.float32, device=ar.device)
+    (ar, ai), (br, bi), _ = tma_operands([ar, ai], [br, bi])
+    k4, n4 = br.shape
+    out_r = torch.empty((m, n4), dtype=torch.float32, device=ar.device)
     out_i = torch.empty_like(out_r)
     if m and n:
         build.launch(
             "repro_complex_matmul", ar.data_ptr(), ai.data_ptr(), br.data_ptr(),
-            bi.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), m, n, k,
+            bi.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), m, n4, k4,
             build.stream_of(ar),
         )
         complex_matmul.launches += 1
+    if n4 != n:
+        out_r, out_i = out_r[:, :n].contiguous(), out_i[:, :n].contiguous()
     return out_r, out_i
 
 

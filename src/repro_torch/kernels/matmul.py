@@ -1,14 +1,18 @@
 """Blocked matmul and the fused LU trailing update: the CUDA kernels'
 wrappers (``csrc/matmul.cu``, the port of ``repro/kernels/matmul.py``'s
-``matmul_pallas`` and ``schur_update_pallas``) and their plain versions.
+``matmul_pallas`` and ``schur_update_pallas``), their plain versions, and
+the operand padding of the three TMA GEMM kernels (these two and
+``fft.complex_matmul``).
 
 ``block_m/block_n/block_k`` keep the reference's tiling contract: shapes
 that do not divide by them raise ``ValueError``, on every device, and the
-interface adapter pads first.  The CUDA kernels tile the output by their
-own 128 x 128 and mask the ragged edge, so any block sizes that pass the
-contract run.  The kernels take float32 only; the matmul kernel (3xTF32 on
-the tensor cores, loaded by TMA) also needs N and K that are multiples of
-4, and raises on others.
+interface adapter pads first.  The CUDA kernels (3xTF32 on the tensor
+cores, loaded by TMA, one body in ``csrc/tf32_gemm.cuh``) tile the output
+by their own 128 x 128 and mask the ragged edge, so any block sizes that
+pass the contract run.  They take float32 only.  TMA also needs N and K
+that are multiples of 4 and 16-byte aligned operands: ``tma_operands``
+zero-pads and copies what is not, and the wrapper slices the padded
+columns off the output.
 
 A wrapper runs the plain version only for CPU tensors; a CUDA tensor
 launches the kernel or raises.
@@ -43,6 +47,35 @@ def check_tiles(m: int, n: int, k: int, block_m: int, block_n: int, block_k: int
         )
 
 
+def tma_operands(
+    a_planes: list[torch.Tensor],
+    b_planes: list[torch.Tensor],
+    c: torch.Tensor | None = None,
+) -> tuple[list[torch.Tensor], list[torch.Tensor], torch.Tensor | None]:
+    """The A planes (M, K), B planes (K, N) and C (M, N) of a TMA GEMM
+    kernel, with K and N zero-padded to multiples of 4 (TMA's 16-byte row
+    strides) and each operand copied if it is not 16-byte aligned.  The
+    zero columns of A and rows of B add nothing to the product; the caller
+    slices the padded columns off the output.  An operand that needs
+    neither comes back as the same tensor: the aligned shapes pay nothing."""
+    m, k = a_planes[0].shape
+    n = b_planes[0].shape[1]
+    k4, n4 = -(-k // 4) * 4, -(-n // 4) * 4
+
+    def fit(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
+        if x.shape == (rows, cols) and x.data_ptr() % 16 == 0:
+            return x
+        out = x.new_zeros((rows, cols))
+        out[: x.shape[0], : x.shape[1]] = x
+        return out
+
+    return (
+        [fit(a, m, k4) for a in a_planes],
+        [fit(b, k4, n4) for b in b_planes],
+        None if c is None else fit(c, m, n4),
+    )
+
+
 def matmul(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -61,19 +94,16 @@ def matmul(
         return matmul_torch(a, b)
     build.check_cuda("matmul", a, b)
     build.check_float32("matmul", a, b)
-    if n % 4 or k % 4 or a.data_ptr() % 16 or b.data_ptr() % 16:
-        raise ValueError(
-            f"matmul: the kernel loads by TMA, which needs N and K that are "
-            f"multiples of 4 (got N={n}, K={k}) and 16-byte aligned operands"
-        )
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    (a,), (b,), _ = tma_operands([a], [b])
+    k4, n4 = b.shape
+    out = torch.empty((m, n4), dtype=torch.float32, device=a.device)
     if m and n:
         build.launch(
-            "repro_matmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+            "repro_matmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n4, k4,
             build.stream_of(a),
         )
         matmul.launches += 1
-    return out
+    return out if n4 == n else out[:, :n].contiguous()
 
 
 def schur_update(
@@ -85,7 +115,7 @@ def schur_update(
     block_n: int = 128,
     block_k: int = 128,
 ) -> torch.Tensor:
-    """Fused C - A @ B: C is read once into the accumulators and the result
+    """Fused C - A @ B: C is read once, in the epilogue, and the result
     written once (the HBM round trip of C that matmul-then-subtract pays)."""
     m, k = a.shape
     k2, n = b.shape
@@ -99,14 +129,16 @@ def schur_update(
         return schur_update_torch(c, a, b)
     build.check_cuda("schur_update", c, a, b)
     build.check_float32("schur_update", c, a, b)
+    (a,), (b,), c = tma_operands([a], [b], c)
+    k4, n4 = b.shape
     out = torch.empty_like(c)
     if m and n:
         build.launch(
             "repro_schur_update", c.data_ptr(), a.data_ptr(), b.data_ptr(),
-            out.data_ptr(), m, n, k, build.stream_of(c),
+            out.data_ptr(), m, n4, k4, build.stream_of(c),
         )
         schur_update.launches += 1
-    return out
+    return out if n4 == n else out[:, :n].contiguous()
 
 
 matmul.launches = 0

@@ -225,3 +225,110 @@ def test_3xtf32_split_meets_gemm_tol_where_one_pass_does_not(rng):
     assert bool(((three - want).abs() <= limit).all())
     assert not bool(((one - want).abs() <= limit).all())
     assert float((one - want).abs().max()) > 10 * float((three - want).abs().max())
+
+
+# -- the TMA GEMM body shared by matmul, Schur update and complex matmul ---------------------
+
+
+def _tc_product(legs) -> torch.Tensor:
+    """The arithmetic of ``csrc/tf32_gemm.cuh``: the legs (A, B, sign) are
+    walked in order in K steps of 32; each step's B is negated (when the
+    sign is -1) before it is split, its three TF32 products A_lo B_hi +
+    A_hi B_lo + A_hi B_hi form a fresh f32 partial, and the partial is
+    added in f32 to the running sum."""
+    acc = torch.zeros((legs[0][0].shape[0], legs[0][1].shape[1]))
+    for a, b, sign in legs:
+        for k0 in range(0, a.shape[1], 32):
+            ak, bk = a[:, k0:k0 + 32], sign * b[k0:k0 + 32]
+            a_hi, b_hi = _tf32(ak), _tf32(bk)
+            a_lo, b_lo = _tf32(ak - a_hi), _tf32(bk - b_hi)
+            acc = acc + (a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi)
+    return acc
+
+
+def _tc_complex(ar, ai, br, bi):
+    """The complex kernel's block form: the real plane walks (Ar, Br) then
+    (Ai, -Bi), the imaginary plane (Ar, Bi) then (Ai, Br)."""
+    return (_tc_product([(ar, br, 1.0), (ai, bi, -1.0)]),
+            _tc_product([(ar, bi, 1.0), (ai, br, 1.0)]))
+
+
+def _within(got: torch.Tensor, want, atol: float, rtol: float) -> bool:
+    want = torch.as_tensor(np.asarray(want, dtype=np.float64))
+    return bool(((got.double() - want).abs() <= atol + rtol * want.abs()).all())
+
+
+def test_negated_split_is_the_split_negated(rng):
+    """Negating B before the split costs nothing: tf32 rounds to nearest
+    with ties away from zero, symmetric in the sign, so the hi and lo of
+    -x are exactly -hi and -lo."""
+    x = _t(rng.standard_normal(4096).astype(np.float32))
+    hi = _tf32(x)
+    assert torch.equal(_tf32(-x), -hi)
+    assert torch.equal(_tf32(-x - _tf32(-x)), -_tf32(x - hi))
+
+
+def test_complex_tc_arithmetic_meets_gemm_tol(rng):
+    """The complex kernel's arithmetic (block form, leg order, negated Bi
+    split, 3xTF32 per 32-wide step promoted in f32) holds chip_smoke's
+    GEMM_TOL (1e-3 + 1e-4 relative) against an f64 complex product at
+    K = 2048, and against the Pallas kernel in interpret mode at 128^3."""
+    atol, rtol = _chip_smoke().GEMM_TOL
+    ar, ai = (rng.standard_normal((32, 2048)).astype(np.float32) for _ in range(2))
+    br, bi = (rng.standard_normal((2048, 32)).astype(np.float32) for _ in range(2))
+    want = (ar + 1j * ai).astype(np.complex128) @ (br + 1j * bi).astype(np.complex128)
+    yr, yi = _tc_complex(*map(_t, (ar, ai, br, bi)))
+    assert _within(yr, want.real, atol, rtol) and _within(yi, want.imag, atol, rtol)
+
+    planes = [rng.standard_normal((128, 128)).astype(np.float32) for _ in range(4)]
+    wr, wi = complex_matmul_pallas(*map(jnp.asarray, planes), interpret=True)
+    yr, yi = _tc_complex(*map(_t, planes))
+    assert _within(yr, wr, atol, rtol) and _within(yi, wi, atol, rtol)
+
+
+@pytest.mark.parametrize("m,n,k", [(32, 32, 2048), (128, 128, 128), (160, 160, 32)])
+def test_schur_tc_arithmetic_meets_gemm_tol(m, n, k, rng):
+    """The Schur kernel's arithmetic, C minus the 3xTF32 sum of A @ B in
+    promoted 32-wide steps (subtracted in the epilogue), holds GEMM_TOL
+    against f64 at K up to 2048 and against the Pallas kernel in
+    interpret mode."""
+    atol, rtol = _chip_smoke().GEMM_TOL
+    c = rng.standard_normal((m, n)).astype(np.float32)
+    a = rng.standard_normal((m, k)).astype(np.float32)
+    b = rng.standard_normal((k, n)).astype(np.float32)
+    got = _t(c) - _tc_product([(_t(a), _t(b), 1.0)])
+    want = c.astype(np.float64) - a.astype(np.float64) @ b.astype(np.float64)
+    assert _within(got, want, atol, rtol)
+    blk = dict(block_m=m, block_n=n, block_k=min(k, 128))
+    pallas = schur_update_pallas(jnp.asarray(c), jnp.asarray(a), jnp.asarray(b), interpret=True, **blk)
+    assert _within(got, pallas, atol, rtol)
+
+
+def test_tma_operands_pad_ragged_copy_misaligned_pass_aligned(rng):
+    """The TMA kernels' operand helper: K and N padded to multiples of 4
+    with zeros (integer-valued operands make every product and sum exact
+    in f32, so the padded product must equal the plain one bit for bit),
+    a misaligned view copied unchanged, aligned operands passed as the
+    same tensors."""
+    def ints(*shape):
+        return torch.from_numpy(rng.integers(-8, 9, shape).astype(np.float32)).clone()
+
+    a, b, c = ints(7, 9), ints(9, 6), ints(7, 6)
+    (ap,), (bp,), cp = tmm.tma_operands([a], [b], c)
+    assert (ap.shape, bp.shape, cp.shape) == ((7, 12), (12, 8), (7, 8))
+    assert all(x.data_ptr() % 16 == 0 for x in (ap, bp, cp))
+    assert torch.equal((ap @ bp)[:, :6], a @ b)
+    assert torch.equal((cp - ap @ bp)[:, :6], c - a @ b)
+    (ar, ai), (br, bi), _ = tmm.tma_operands([a, c[:, :5].contiguous()], [b, b])
+    assert ar.shape == ai.shape == (7, 12) and br.shape == bi.shape == (12, 8)
+
+    base = torch.zeros(1 + 8 * 8)
+    view = base[1:].view(8, 8)
+    view.copy_(ints(8, 8))
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    (va,), _, _ = tmm.tma_operands([view], [ints(8, 12)])
+    assert va is not view and va.data_ptr() % 16 == 0 and torch.equal(va, view)
+
+    x, y, z = ints(8, 12), ints(12, 16), ints(8, 16)
+    (xa,), (ya,), za = tmm.tma_operands([x], [y], z)
+    assert xa is x and ya is y and za is z
