@@ -51,8 +51,11 @@ against their plain versions in phase 2 at the paper's scale (2048^2 f32),
 matmul also at (96, 160, 96) at blocks of 32, and each at a ragged shape
 whose N or K is not a multiple of 4 (matmul and complex matmul at 99^3,
 the Schur update at (100, 100, 30)); the SSD chunk kernel
-at mamba2's and zamba2's prefill shapes, and paged and flash attention at
-zamba2's head dim 112 too (flash also at B=2 and a ragged S=300).
+at mamba2's and zamba2's prefill shapes, at chunk 256 (bf16 and f32) and
+at N = 256 with P = 128; paged and flash attention at zamba2's head dim
+112 too (flash also at B=2 and a ragged S=300, and on its CUDA-core route
+at qk 48 / v 32, deepseek-v2's qk 192 / v 128 and a bf16 D = 100).  Each
+flash and SSD row names the route it ran.
 
 The last lines are the card as ``nvidia-smi`` reports it, the kernels'
 summary and ``{"ok": true, "device": {...}}``.  Needs CUDA and the rest of
@@ -270,6 +273,15 @@ def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbyt
     return row
 
 
+def flash_routed(fa, q, k, v) -> tuple:
+    """``fa(q, k, v)`` and the route its launch took, read from the
+    wrapper's per-route counts."""
+    before = dict(fa.routes)
+    out = fa(q, k, v)
+    (route,) = [r for r, n in fa.routes.items() if n > before[r]]
+    return out, {"route": route}
+
+
 def phase_kernels(torch) -> dict:
     """Each kernel vs its plain version at the main path's shapes."""
     import torch.nn.functional as F
@@ -357,13 +369,14 @@ def phase_kernels(torch) -> dict:
         k = randn(1, kh, s, dh, dtype=dtype)
         v = randn(1, kh, s, dh, dtype=dtype)
         e = q.element_size()
+        got, route = flash_routed(flash_attention, q, k, v)
         rows["flash_attention"].append(_case(
             torch, "flash_attention", str(dtype).split(".")[1], [1, h, kh, s, dh],
-            flash_attention(q, k, v), flash_attention_torch(q, k, v), timer,
+            got, flash_attention_torch(q, k, v), timer,
             lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
             nbytes=e * (2 * q.numel() + k.numel() + v.numel()),
-            flops=4 * dh * h * s * (s + 1) // 2,
+            flops=4 * dh * h * s * (s + 1) // 2, extra=route,
         ))
 
     # zamba2-7b's shared attention block: H = KH = 32, head dim 112
@@ -371,23 +384,46 @@ def phase_kernels(torch) -> dict:
     rows["paged_attention"].append(paged_case(
         8, zh, zh, 1, zd, zd, [512, 600, 480, 520, 530, 400, 511, 450], torch.bfloat16))
     q, k, v = (randn(1, zh, 512, zd, dtype=torch.bfloat16) for _ in range(3))
+    got, route = flash_routed(flash_attention, q, k, v)
     rows["flash_attention"].append(_case(
         torch, "flash_attention", "bfloat16", [1, zh, zh, 512, zd],
-        flash_attention(q, k, v), flash_attention_torch(q, k, v), timer,
+        got, flash_attention_torch(q, k, v), timer,
         lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        nbytes=2 * 4 * q.numel(), flops=4 * zd * zh * 512 * 513 // 2,
+        nbytes=2 * 4 * q.numel(), flops=4 * zd * zh * 512 * 513 // 2, extra=route,
     ))
     # B=2 at a ragged S: the sequence edge at a (b, h) boundary, D=112 in two
     # column boxes
     q, k, v = (randn(2, zh, 300, zd, dtype=torch.bfloat16) for _ in range(3))
+    got, route = flash_routed(flash_attention, q, k, v)
     rows["flash_attention"].append(_case(
         torch, "flash_attention", "bfloat16", [2, zh, zh, 300, zd],
-        flash_attention(q, k, v), flash_attention_torch(q, k, v), timer,
+        got, flash_attention_torch(q, k, v), timer,
         lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        nbytes=2 * 4 * q.numel(), flops=2 * 4 * zd * zh * 300 * 301 // 2,
+        nbytes=2 * 4 * q.numel(), flops=2 * 4 * zd * zh * 300 * 301 // 2, extra=route,
     ))
+    # the shapes the wgmma route does not take, on the CUDA-core route: v's
+    # head dim apart from q's (the reference test's qk 48 / v 32, in f32
+    # and bf16; deepseek-v2's MLA prefill, H = KH = 128, qk 192 / v 128),
+    # and a bf16 head dim that is not a multiple of 8
+    for (hh, s, dqk, dv), dtype in (((4, 128, 48, 32), torch.float32),
+                                    ((4, 128, 48, 32), torch.bfloat16),
+                                    ((128, 512, 192, 128), torch.bfloat16),
+                                    ((8, 300, 100, 100), torch.bfloat16)):
+        q, k = randn(1, hh, s, dqk, dtype=dtype), randn(1, hh, s, dqk, dtype=dtype)
+        v = randn(1, hh, s, dv, dtype=dtype)
+        e = q.element_size()
+        got, route = flash_routed(flash_attention, q, k, v)
+        rows["flash_attention"].append(_case(
+            torch, "flash_attention", str(dtype).split(".")[1],
+            {"B": 1, "H": hh, "KH": hh, "S": s, "Dqk": dqk, "Dv": dv},
+            got, flash_attention_torch(q, k, v), timer,
+            lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            nbytes=e * (q.numel() + k.numel() + 2 * v.numel()),
+            flops=2 * (dqk + dv) * hh * s * (s + 1) // 2, extra=route,
+        ))
     rows["ssd_chunks"] = _ssd_cases(torch, timer, randn, gen)
     rows.update(_offload_kernel_cases(torch, timer, randn))
     return rows
@@ -400,41 +436,54 @@ def _ssd_cases(torch, timer, randn, gen) -> list:
     path gives them, dt in the models' initial range [1e-3, 0.1], a from
     -U[1, 16).  A fourth case takes mamba2's shape with slow decay (dt in
     [1e-3, 2e-3], a from -U[1, 1.1)), so that cumdecay and totals stay of
-    order 1 across the chunk.  Each of the four outputs is compared on its
-    own.  The bound counts the TPU kernel's work (C B^T per head) at the
-    inputs' type."""
+    order 1 across the chunk.  Then the shapes past the first kernel's
+    limits: mamba2's at chunk 256 (Mamba-2's published default) and N =
+    256 with P = 128 at 8 heads, each in bf16 and in f32 (the f32 route).
+    Each of the four outputs is compared on its own.  The bound counts the
+    function's work once, at the inputs' type: C B^T once per (batch,
+    chunk), its causal lower triangle only, and per head W x (the same
+    triangle) and the state product."""
     from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_torch
 
     names = ("y", "states", "cumdecay", "totals")
     rows = []
-    b, p = 1, 64
+    b = 1
     fast = ((1e-3, 0.1), (1.0, 16.0))  # (dt range, -a range)
     slow = ((1e-3, 2e-3), (1.0, 1.1))
-    for s, h, n, chunk, ((dt0, dt1), (a0, a1)) in (
-        (512, 80, 128, 128, fast), (97, 80, 128, 97, fast), (512, 112, 64, 128, fast),
-        (512, 80, 128, 128, slow),
+    bf16, f32 = torch.bfloat16, torch.float32
+    for s, h, p, n, chunk, ((dt0, dt1), (a0, a1)), dtype in (
+        (512, 80, 64, 128, 128, fast, bf16), (97, 80, 64, 128, 97, fast, bf16),
+        (512, 112, 64, 64, 128, fast, bf16), (512, 80, 64, 128, 128, slow, bf16),
+        (512, 80, 64, 128, 256, fast, bf16), (512, 8, 128, 256, 128, fast, bf16),
+        (512, 80, 64, 128, 256, fast, f32), (512, 8, 128, 256, 128, fast, f32),
     ):
-        x = randn(b, s, h, p, dtype=torch.bfloat16)
-        bm = randn(b, s, n, dtype=torch.bfloat16)
-        cm = randn(b, s, n, dtype=torch.bfloat16)
+        x = randn(b, s, h, p, dtype=dtype)
+        bm = randn(b, s, n, dtype=dtype)
+        cm = randn(b, s, n, dtype=dtype)
         dt = dt0 + (dt1 - dt0) * torch.rand((b, s, h), generator=gen, device="cuda")
         a = -(a0 + (a1 - a0) * torch.rand((h,), generator=gen, device="cuda"))
         args = (x, dt, a, bm, cm)
         nc = s // chunk
-        # inputs read once (bf16 x/B/C, f32 dt and a), the four f32 outputs
-        # written once; flops: C B^T, W x and the state product per head
-        nbytes = (2 * (x.numel() + bm.numel() + cm.numel()) + 4 * (dt.numel() + h)
+        e = x.element_size()
+        # inputs read once (x/B/C, f32 dt and a), the four f32 outputs
+        # written once; flops: the L(L+1)/2 entries of C B^T (N products
+        # each) once per (batch, chunk), and per head those of W x (P each)
+        # and the state product
+        nbytes = (e * (x.numel() + bm.numel() + cm.numel()) + 4 * (dt.numel() + h)
                   + 4 * (x.numel() + b * nc * h * n * p + dt.numel() + b * nc * h))
-        flops = b * nc * h * (2 * chunk * chunk * n + 2 * chunk * chunk * p + 2 * chunk * n * p)
+        tri = chunk * (chunk + 1)  # twice the triangle's entries: 2 flops a product
+        flops = b * nc * (tri * n + h * (tri * p + 2 * chunk * n * p))
         shape = {"B": b, "S": s, "H": h, "P": p, "N": n, "L": chunk,
                  "dt": [dt0, dt1], "minus_a": [a0, a1]}
+        name = str(dtype).split(".")[1]
         rows.append(_case(
-            torch, "ssd_chunks", "bfloat16", shape,
+            torch, "ssd_chunks", name, shape,
             dict(zip(names, ssd_chunks(*args, chunk=chunk))),
             dict(zip(names, ssd_chunks_torch(*args, chunk=chunk))),
             timer, lambda: ssd_chunks(*args, chunk=chunk),
             lambda: ssd_chunks_torch(*args, chunk=chunk), None,
             nbytes=nbytes, flops=flops, tol=SSD_TOL,
+            extra={"route": "wgmma" if dtype == bf16 else "cuda_cores"},
         ))
     return rows
 
@@ -606,6 +655,8 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
         "launches": launches,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
+    if "flash_attention" in expect:  # the routes the prefills' launches took
+        out["flash_routes"] = dict(kernels.KERNELS["flash_attention"].routes)
     emit(out)
     return out
 

@@ -4,15 +4,23 @@ parent, each in a process of its own:
 
 - ``main_path``: chip_smoke.py's phase 4 (llama3.2-1b served from the paged
   KV cache, 16 requests), twice per process (the second run is warm);
+- ``main_path_ssm``: chip_smoke.py's phase 9 (full-depth mamba2-2.7b from
+  contiguous slots, the same 16 requests), twice per process;
 - ``prefill``: one 512-token llama3.2-1b prefill (paged, batch 1, one new
   token) served by ``ServeEngine``: host wall ms (median of 7, after 3
   warm-up requests) and device ms by kernel from ``torch.profiler``;
+- ``prefill_ssm``: the same for full-depth mamba2-2.7b (64 layers) from
+  contiguous slots, with the ``ssd_chunks`` kernels' device ms;
+- ``ssd_kernels``: chip_smoke.py's phase-2 cases of the SSD chunk kernel
+  (CUDA graphs, cold L2), each case's ms beside its plain version's;
+- ``flash_kernels``: the flash kernel at phase 2's main shapes (f32 at
+  S=300, bf16 at S=512 with D 64 and 112; CUDA graphs, cold L2);
 - ``offload_kernels``: chip_smoke.py's phase-2 cases of the offload GEMM
   kernels (complex matmul, Schur update, matmul; CUDA graphs, cold L2),
   each kernel's ms beside its PyTorch call's.
 
     git archive <parent commit> | tar -x -C build/parent
-    python3 scripts/ab_parent_change.py main_path|prefill|offload_kernels [build/parent]
+    python3 scripts/ab_parent_change.py main_path|main_path_ssm|prefill|prefill_ssm|ssd_kernels|flash_kernels|offload_kernels [build/parent]
 
 Prints one JSON line per measurement with its version.  Compare versions
 only within one call: the host's speed varies between machines.
@@ -35,8 +43,8 @@ import chip_smoke as c
 from torch.profiler import ProfilerActivity, profile
 from repro_torch.serve import Request, ServeEngine
 torch.backends.cuda.matmul.allow_tf32 = False
-cfg = c._serve_config("llama3.2-1b")
-engine = ServeEngine(cfg, seed=0, device="cuda", n_slots=8, max_len=1024, page_size=16)
+cfg = c._serve_config("ARCH")
+engine = ServeEngine(cfg, seed=0, device="cuda", n_slots=8, max_len=1024, page_size=PAGE)
 prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 512).tolist()
 def one():
     engine.submit(Request(prompt, max_new_tokens=1))
@@ -49,9 +57,11 @@ with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
     one()
 dev, n = c._device_events(prof)
 flash = sum(v for k, v in dev.items() if "flash" in k)
-print(json.dumps({"phase": "prefill", "wall_ms_median": statistics.median(walls),
+ssd = sum(v for k, v in dev.items() if "ssd" in k)
+print(json.dumps({"phase": "prefill", "arch": cfg.name,
+                  "wall_ms_median": statistics.median(walls),
                   "wall_ms": walls, "device_ms": sum(dev.values()), "device_events": n,
-                  "flash_device_ms": flash,
+                  "flash_device_ms": flash, "ssd_device_ms": ssd,
                   "top": {k[:60]: v for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:6]}}))
 '''
 OFFLOAD_KERNELS = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke as c; "
@@ -59,8 +69,33 @@ OFFLOAD_KERNELS = ("import sys, torch; sys.path.insert(0, 'src'); import chip_sm
                    "g = torch.Generator(device='cuda').manual_seed(0); "
                    "c._offload_kernel_cases(torch, c.Timer(torch), lambda *shape, dtype: "
                    "torch.randn(shape, generator=g, device='cuda').to(dtype))")
-CODE = {"main_path": MAIN_PATH, "prefill": PREFILL, "offload_kernels": OFFLOAD_KERNELS}
-KERNEL_KEYS = ("name", "shape", "ms", "library_ms", "max_abs_err")
+SSD_KERNELS = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke as c; "
+               "g = torch.Generator(device='cuda').manual_seed(0); "
+               "c._ssd_cases(torch, c.Timer(torch), lambda *shape, dtype: "
+               "torch.randn(shape, generator=g, device='cuda').to(dtype), g)")
+FLASH_KERNELS = r'''
+import json, sys, torch
+sys.path.insert(0, "src")
+import chip_smoke as c
+from repro_torch.kernels.attention import flash_attention
+g = torch.Generator(device="cuda").manual_seed(0)
+timer = c.Timer(torch)
+for h, kh, s, d, dtype in ((32, 8, 300, 64, torch.float32), (32, 8, 512, 64, torch.bfloat16),
+                           (32, 32, 512, 112, torch.bfloat16)):
+    q, k, v = (torch.randn((1, n, s, d), generator=g, device="cuda").to(dtype) for n in (h, kh, kh))
+    print(json.dumps({"phase": "kernel", "name": "flash_attention", "shape": [1, h, kh, s, d],
+                      "dtype": str(dtype), "ms": timer.ms(lambda: flash_attention(q, k, v))}))
+'''
+MAIN_PATH_SSM = MAIN_PATH.replace(
+    "c.phase_main_path(torch); c.phase_main_path(torch)",
+    "kw = dict(arch='mamba2-2.7b', expect=c.SSM_KERNELS, phase='main_path_ssm', page_size=None); "
+    "c.phase_main_path(torch, **kw); c.phase_main_path(torch, **kw)")
+CODE = {"main_path": MAIN_PATH, "main_path_ssm": MAIN_PATH_SSM,
+        "prefill": PREFILL.replace("ARCH", "llama3.2-1b").replace("PAGE", "16"),
+        "prefill_ssm": PREFILL.replace("ARCH", "mamba2-2.7b").replace("PAGE", "None"),
+        "ssd_kernels": SSD_KERNELS, "flash_kernels": FLASH_KERNELS,
+        "offload_kernels": OFFLOAD_KERNELS}
+KERNEL_KEYS = ("name", "shape", "ms", "plain_ms", "library_ms", "max_abs_err")
 MAIN_PATH_KEYS = ("tok_per_s", "prefill_tok_per_s", "decode_tok_per_s", "decode_median_ms",
                   "ttft_p50_ms", "ttft_p99_ms", "wall_seconds", "launches")
 
@@ -79,12 +114,13 @@ def main() -> int:
             if not line.startswith("{"):
                 continue
             row = json.loads(line)
-            if what == "main_path" and row.get("phase") == "main_path":
+            if what.startswith("main_path") and row.get("phase") == what:
                 print(json.dumps({"version": tag, **{k: row[k] for k in MAIN_PATH_KEYS}}), flush=True)
-            elif what == "prefill":
+            elif what.startswith("prefill"):
                 print(json.dumps({"version": tag, **row}), flush=True)
-            elif what == "offload_kernels" and row.get("phase") == "kernel":
-                print(json.dumps({"version": tag, **{k: row[k] for k in KERNEL_KEYS}}), flush=True)
+            elif what.endswith("_kernels") and row.get("phase") == "kernel":
+                print(json.dumps({"version": tag, **{k: row.get(k) for k in KERNEL_KEYS},
+                                  "route": row.get("route")}), flush=True)
         if out.returncode:
             print(tag, "failed", out.stderr[-3000:])
             return 1

@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
 """Quick check of the tensor-core kernels on one H100: build the library,
-print ptxas's lines for flash_attention.cu and the three GEMM kernels
-(matmul.cu: matmul and the Schur update; complex_matmul.cu), hold the bf16
-and f32 flash kernels and the three 3xTF32 GEMM kernels against their
+print ptxas's lines for flash_attention.cu, ssd_chunks.cu and the three
+GEMM kernels (matmul.cu: matmul and the Schur update; complex_matmul.cu),
+hold the SSD kernel's two routes against the plain version
+(chip_smoke.SSD_TOL) with each output's error against an f64 computation
+beside the plain version's, the flash kernel's two routes (dv != d, D up
+to 512 and D % 8 != 0 on the CUDA cores) and the three 3xTF32 GEMM kernels against their
 plain versions (chip_smoke.py's tolerances) at the serving and offload
 shapes, ragged shapes whose N or K is not a multiple of 4 and a misaligned
 operand view (both padded or copied by the wrappers for TMA), and time
@@ -24,14 +27,27 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT / "src"))
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-FLASH_CASES = [  # B, H, KH, S, D, dtype, causal
-    (1, 4, 2, 1, 64, torch.bfloat16, True), (1, 4, 1, 65, 32, torch.bfloat16, True),
-    (1, 32, 8, 512, 64, torch.bfloat16, True), (1, 32, 8, 300, 64, torch.bfloat16, True),
-    (2, 32, 32, 300, 112, torch.bfloat16, True), (1, 32, 32, 512, 112, torch.bfloat16, True),
-    (1, 8, 8, 200, 64, torch.bfloat16, False), (1, 32, 8, 300, 64, torch.float32, True),
+FLASH_CASES = [  # B, H, KH, S, D, Dv, dtype, causal
+    (1, 4, 2, 1, 64, 64, torch.bfloat16, True), (1, 4, 1, 65, 32, 32, torch.bfloat16, True),
+    (1, 32, 8, 512, 64, 64, torch.bfloat16, True), (1, 32, 8, 300, 64, 64, torch.bfloat16, True),
+    (2, 32, 32, 300, 112, 112, torch.bfloat16, True), (1, 32, 32, 512, 112, 112, torch.bfloat16, True),
+    (1, 8, 8, 200, 64, 64, torch.bfloat16, False), (1, 32, 8, 300, 64, 64, torch.float32, True),
+    # the CUDA-core route's shapes: dv != d, D past 128, a D not a multiple of 8
+    (1, 4, 4, 128, 48, 32, torch.float32, True), (1, 4, 2, 128, 48, 32, torch.bfloat16, True),
+    (1, 128, 128, 512, 192, 128, torch.bfloat16, True), (1, 8, 8, 300, 100, 100, torch.bfloat16, True),
+    (1, 4, 4, 70, 512, 512, torch.bfloat16, True), (1, 2, 1, 33, 7, 200, torch.float32, False),
+]
+SSD_CASES = [  # B, S, H, P, N, L, dtype
+    (1, 512, 80, 64, 128, 128, torch.bfloat16), (1, 97, 80, 64, 128, 97, torch.bfloat16),
+    (1, 512, 112, 64, 64, 128, torch.bfloat16), (1, 512, 80, 64, 128, 256, torch.bfloat16),
+    (1, 512, 8, 128, 256, 128, torch.bfloat16), (2, 96, 3, 12, 20, 48, torch.bfloat16),
+    (1, 1024, 4, 64, 128, 1024, torch.bfloat16), (1, 512, 80, 64, 128, 256, torch.float32),
+    (1, 97, 80, 64, 128, 97, torch.float32), (2, 96, 3, 12, 20, 48, torch.float32),
+    (1, 512, 8, 128, 256, 128, torch.float32),
 ]
 GEMM_CASES = [  # kernel, (M, N, K), (block_m, block_n, block_k), misaligned A view
     ("matmul", (96, 160, 96), (32, 32, 32), False), ("matmul", (100, 128, 64), (4, 128, 64), False),
@@ -57,6 +73,50 @@ def events_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _ssd_f64(x, dt, a, bm, cm, chunk):
+    """The chunk terms in f64 from the same inputs."""
+    from repro_torch.kernels.ssd import ssd_chunks_torch
+
+    return ssd_chunks_torch(x, dt, a, bm, cm, chunk=chunk, dtype=torch.float64)
+
+
+def check_ssd(randn, gen) -> bool:
+    """The SSD kernel's two routes against the plain version at
+    chip_smoke.SSD_TOL, each output's error against an f64 computation
+    beside the plain version's, and event times of the large cases."""
+    import chip_smoke
+    from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_torch
+
+    ok = True
+    names = ("y", "states", "cumdecay", "totals")
+    for b, s, h, p, n, chunk, dtype in SSD_CASES:
+        try:
+            x, bm, cm = randn(b, s, h, p, dtype=dtype), randn(b, s, n, dtype=dtype), randn(b, s, n, dtype=dtype)
+            dt = 1e-3 + (0.1 - 1e-3) * torch.rand((b, s, h), generator=gen, device="cuda")
+            a = -(1.0 + 15.0 * torch.rand((h,), generator=gen, device="cuda"))
+            got = ssd_chunks(x, dt, a, bm, cm, chunk=chunk)
+            torch.cuda.synchronize()
+            plain = ssd_chunks_torch(x, dt, a, bm, cm, chunk=chunk)
+            f64 = _ssd_f64(x, dt, a, bm, cm, chunk)
+            row = {"ssd": [b, s, h, p, n, chunk, str(dtype)], "err": {}, "plain_err_vs_f64": {}}
+            for name, g, w, r in zip(names, got, plain, f64):
+                atol, rtol = chip_smoke.SSD_TOL[name]
+                bad = not bool(torch.isfinite(g).all()) or g.shape != w.shape or bool(
+                    ((g - w).abs() > atol + rtol * w.abs()).any())
+                ok &= not bad
+                row["err"][name] = [float((g - w).abs().max()), float((g.double() - r).abs().max()),
+                                    "BAD" if bad else "ok"]
+                row["plain_err_vs_f64"][name] = float((w.double() - r).abs().max())
+            if s >= 512 and h >= 80:
+                row["ms"] = events_ms(lambda: ssd_chunks(x, dt, a, bm, cm, chunk=chunk))
+                row["plain_ms"] = events_ms(lambda: ssd_chunks_torch(x, dt, a, bm, cm, chunk=chunk))
+            print(json.dumps(row), flush=True)
+        except Exception:
+            ok = False
+            traceback.print_exc()
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("check_tc_kernels: needs CUDA", file=sys.stderr)
@@ -70,29 +130,33 @@ def main() -> int:
     build.library()
     print("build seconds", time.perf_counter() - t0)
     for section in build.build_info["log"].split("== "):
-        if section.startswith(("flash_attention", "matmul", "complex_matmul")):
+        if section.startswith(("flash_attention", "matmul", "complex_matmul", "ssd_chunks")):
             print("== " + "\n".join(
                 line for line in section.splitlines()
                 if "Used" in line or "spill" in line or "C7515" in line
                 or "Compiling entry function" in line
-                or line.startswith(("flash", "matmul", "complex_matmul"))))
+                or line.startswith(("flash", "matmul", "complex_matmul", "ssd"))))
     gen = torch.Generator(device="cuda").manual_seed(0)
 
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     ok = True
-    for b, h, kh, s, d, dtype, causal in FLASH_CASES:
+    for b, h, kh, s, d, dv, dtype, causal in FLASH_CASES:
         try:
-            q, k, v = randn(b, h, s, d, dtype=dtype), randn(b, kh, s, d, dtype=dtype), randn(b, kh, s, d, dtype=dtype)
+            q, k, v = randn(b, h, s, d, dtype=dtype), randn(b, kh, s, d, dtype=dtype), randn(b, kh, s, dv, dtype=dtype)
+            before = dict(flash_attention.routes)
             got = flash_attention(q, k, v, causal)
             torch.cuda.synchronize()
+            (route,) = [r for r, n in flash_attention.routes.items() if n > before[r]]
             want = flash_attention_torch(q, k, v, causal).float()
             atol, rtol = (2e-2, 2e-2) if dtype == torch.bfloat16 else (1e-4, 1e-4)
             err = (got.float() - want).abs()
             bad = bool((err > atol + rtol * want.abs()).any()) or not bool(torch.isfinite(got.float()).all())
+            bad |= tuple(got.shape) != (b, h, s, dv)
             ok &= not bad
-            row = {"case": [b, h, kh, s, d, str(dtype), causal], "max_err": float(err.max()), "bad": bad}
+            row = {"case": [b, h, kh, s, d, dv, str(dtype), causal], "route": route,
+                   "shape": list(got.shape), "max_err": float(err.max()), "bad": bad}
             if s >= 300:
                 row["ms"] = events_ms(lambda: flash_attention(q, k, v, causal))
                 row["sdpa_ms"] = events_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
@@ -141,6 +205,7 @@ def main() -> int:
         except Exception:
             ok = False
             traceback.print_exc()
+    ok &= check_ssd(randn, gen)
     print("ALL OK" if ok else "SOME FAILED")
     return 0 if ok else 1
 

@@ -74,6 +74,7 @@ _register_all()
 def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+    attention.flash_attention.routes = dict.fromkeys(attention.ROUTES, 0)
 
 
 def launch_counts() -> dict[str, int]:

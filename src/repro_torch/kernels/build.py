@@ -45,8 +45,8 @@ ENTRY_POINTS = {
     # q, k_pool, v_pool, q_rope, kr_pool, pages, index, out,
     # B, H, KH, S, Dk, Dv, Dr, page_size, max_pages, scale, dtype, stream
     "repro_paged_attention": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
-    # q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, dtype, stream
-    "repro_flash_attention": [_P] * 4 + [_I] * 7 + [_F, _I, _P],
+    # q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, dtype, route, stream
+    "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _I, _I, _P],
     # a, b, out, M, N, K, stream
     "repro_matmul": [_P] * 3 + [_I] * 3 + [_P],
     # c, a, b, out, M, N, K, stream
@@ -54,9 +54,8 @@ ENTRY_POINTS = {
     # ar, ai, br, bi, out_r, out_i, M, N, K, stream
     "repro_complex_matmul": [_P] * 6 + [_I] * 3 + [_P],
     # x, dt, a, bmat, cmat, y, states, cumdecay, totals,
-    # x/bmat/cmat batch and sequence strides, B, S, H, P, N, L,
-    # heads per CTA, dtype, stream
-    "repro_ssd_chunks": [_P] * 9 + [_L] * 6 + [_I] * 8 + [_P],
+    # x/bmat/cmat batch and sequence strides, B, S, H, P, N, L, dtype, stream
+    "repro_ssd_chunks": [_P] * 9 + [_L] * 6 + [_I] * 7 + [_P],
 }
 
 #: dtype code the C entry points take
@@ -185,6 +184,28 @@ def check_cuda(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: every operand must be on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: operands must be contiguous")
+
+
+def tma_operand(t: torch.Tensor, shape: tuple[int, ...] | None = None) -> torch.Tensor:
+    """``t`` as a TMA kernel can load it: zero-padded to ``shape`` (by
+    default its last dim rounded up to 16 bytes), and copied unless its
+    base and its strides (but the last, which must be 1) are multiples of
+    16 bytes.  A dim of length 1 is not checked: its stride is never
+    stepped, and the wrapper gives the kernel a valid one.  An operand that
+    needs neither comes back as itself, so aligned shapes pay nothing; the
+    zeros add nothing to a product, and the wrapper slices off what they
+    give."""
+    e = t.element_size()
+    if shape is None:
+        shape = (*t.shape[:-1], -(-t.shape[-1] * e // 16) * 16 // e)
+    strides_ok = t.stride(-1) == 1 and all(
+        st * e % 16 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1
+    )
+    if tuple(t.shape) == tuple(shape) and t.data_ptr() % 16 == 0 and strides_ok:
+        return t
+    out = t.new_zeros(shape)
+    out[tuple(slice(0, n) for n in t.shape)] = t
+    return out
 
 
 def check_float32(name: str, *tensors: torch.Tensor) -> None:

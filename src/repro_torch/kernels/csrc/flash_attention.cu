@@ -3,8 +3,9 @@
 // Replaces: repro/kernels/attention.py, flash_attention_pallas
 // (_flash_kernel).
 //
-// Semantics: q (B, H, Sq, D), k/v (B, KH, Skv, D); query head h reads kv
-// head h / (H / KH).  Scores (q . k) * scale with scale = 1/sqrt(D), the
+// Semantics: q (B, H, Sq, D), k (B, KH, Skv, D), v (B, KH, Skv, Dv), out
+// (B, H, Sq, Dv); query head h reads kv head h / (H / KH).  Scores (q . k)
+// * scale with scale = 1/sqrt(D) (the qk dim, as the TPU kernel), the
 // causal mask aligned at the start (key j visible to query i iff j <= i,
 // as in the TPU kernel), softmax in f32, out = p . v in q's dtype.  Unlike
 // the TPU kernel, ragged edges are masked here, so any Sq / Skv works.
@@ -15,9 +16,12 @@
 // bf16; with llama3.2-1b's heads (H = 32, KH = 8, D = 64) the two bounds
 // meet at Sq = Skv ~ 740 on the bf16 tensor cores (989 TFLOP/s).
 //
-// Two routes, chosen by dtype in repro_flash_attention:
+// Two routes.  The wrapper (kernels/attention.py, flash_route) picks one by
+// dtype, shape and alignment and passes it in; repro_flash_attention
+// refuses a wgmma request that TMA cannot load:
 //
-// bf16 (the serving path's): an FA3-shaped kernel on the tensor cores.
+// bf16 with D == Dv <= 128, D % 8 == 0 and 16-byte aligned operands (every
+// serving config's prefill): an FA3-shaped kernel on the tensor cores.
 // One CTA per (query tile of 64 rows, head, batch): one consumer warpgroup
 // and one producer warp.  The producer loads the q tile once and keeps TMA
 // loads of the K and V tiles in flight through two shared-memory stages,
@@ -39,15 +43,23 @@
 // reads its KV head's tiles, which the G heads' CTAs find in L2.  Head
 // dims must be multiples of 8 (TMA's 16-byte strides).
 //
-// f32: a CUDA-core kernel, which chip_smoke's f32 served traces hold
-// token for token against the plain version.  One CTA of 4 warps per
+// f32, and every other bf16 shape (dv != d as MLA's qk 192 / v 128, D up
+// to 512, any D or alignment): a CUDA-core kernel, templated on the
+// element type and on v's head dims per lane; chip_smoke's f32 served
+// traces hold it token for token against the plain version.  Shared
+// memory grows with D and Dv (~194 KB at 512 / 512), set above 48 KB
+// through cudaFuncAttributeMaxDynamicSharedMemorySize.  One CTA of 4 warps per
 // (b, h, 32-row query tile); each warp owns 8 query rows and keeps their
 // running max, sum and f32 accumulator in registers (each lane holds 1/32
-// of the head dims).  The CTA loops over 32-key K/V tiles up to the
+// of v's head dims).  The CTA loops over 32-key K/V tiles up to the
 // diagonal, staging each in shared memory (K rows padded by one float so
 // lane j reads key j without bank conflicts); lane j scores key j against
 // the row, the warp reduces max and sum, and p is broadcast by shuffle for
-// the P.V update.  The q tile is staged once, pre-scaled.
+// the P.V update.  The q tile is staged once, pre-scaled, and every tile
+// is staged in f32 whatever the element type.  Where D == Dv one flat
+// loop stages K and V together: on the H100 a second loop for V cost the
+// f32 route ~10% at D = 64, and staging a row per warp ~20%
+// (scripts/ab_parent_change.py flash_kernels).
 #include <algorithm>
 
 #include "common.cuh"
@@ -55,7 +67,7 @@
 
 namespace {
 
-// -- f32: CUDA cores ------------------------------------------------------------
+// -- CUDA cores: f32, and bf16 off the wgmma route ---------------------------------
 
 namespace cc {
 
@@ -63,26 +75,30 @@ constexpr int kBQ = 32;   // query rows per CTA
 constexpr int kBKV = 32;  // keys per tile: one per lane
 constexpr int kWarps = 4;
 constexpr int kRowsPerWarp = kBQ / kWarps;
-constexpr int kMaxDimPerLane = 4;  // head dims up to 128
+constexpr int kMaxDimPerLane = 16;  // head dims up to 512
 constexpr float kNeg = -1e30f;
 
+// T: the element type (loaded through repro::to_float, stored by a cast).
+// DV: v's head dims per lane, 4, 8 or 16 >= ceil(Dv / 32).  q and k
+// need no such count: lane j scores key j over all D from shared memory.
+template <typename T, int DV>
 __global__ void __launch_bounds__(kWarps * 32)
-flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                       const float* __restrict__ v, float* __restrict__ out, int H,
-                       int KH, int Sq, int Skv, int D, int causal,
+flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, T* __restrict__ out, int H,
+                       int KH, int Sq, int Skv, int D, int Dv, int causal,
                        float scale) {
   extern __shared__ float smem[];
-  float* qs = smem;               // kBQ x D
-  float* ks = qs + kBQ * D;       // kBKV x (D + 1)
-  float* vs = ks + kBKV * (D + 1);  // kBKV x D
+  float* qs = smem;                 // kBQ x D
+  float* ks = qs + kBQ * D;         // kBKV x (D + 1)
+  float* vs = ks + kBKV * (D + 1);  // kBKV x Dv
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kh = h / (H / KH);
-  const float* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
-  const float* kb = k + (static_cast<size_t>(b) * KH + kh) * Skv * D;
-  const float* vb = v + (static_cast<size_t>(b) * KH + kh) * Skv * D;
-  float* ob = out + (static_cast<size_t>(b) * H + h) * Sq * D;
+  const T* qb = q + (static_cast<size_t>(b) * H + h) * Sq * D;
+  const T* kb = k + (static_cast<size_t>(b) * KH + kh) * Skv * D;
+  const T* vb = v + (static_cast<size_t>(b) * KH + kh) * Skv * Dv;
+  T* ob = out + (static_cast<size_t>(b) * H + h) * Sq * Dv;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -90,32 +106,41 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
   for (int i = tid; i < kBQ * D; i += kWarps * 32) {
     const int r = i / D;
     qs[i] = q0 + r < Sq
-                ? qb[static_cast<size_t>(q0 + r) * D + i % D] * scale
+                ? repro::to_float(qb[static_cast<size_t>(q0) * D + i]) * scale
                 : 0.f;
   }
 
   float m[kRowsPerWarp];
   float l[kRowsPerWarp];
-  float acc[kRowsPerWarp][kMaxDimPerLane];
+  float acc[kRowsPerWarp][DV];
 #pragma unroll
   for (int rr = 0; rr < kRowsPerWarp; ++rr) {
     m[rr] = kNeg;
     l[rr] = 0.f;
 #pragma unroll
-    for (int i = 0; i < kMaxDimPerLane; ++i) acc[rr][i] = 0.f;
+    for (int i = 0; i < DV; ++i) acc[rr][i] = 0.f;
   }
 
   const int q_last = min(q0 + kBQ, Sq) - 1;
   const int kv_end = causal ? min(Skv, q_last + 1) : Skv;
   for (int k0 = 0; k0 < kv_end; k0 += kBKV) {
     __syncthreads();  // the previous tile is consumed (and qs is staged)
-    for (int i = tid; i < kBKV * D; i += kWarps * 32) {
-      const int j = i / D;
-      const int d = i % D;
-      const bool in = k0 + j < Skv;
-      const size_t off = static_cast<size_t>(k0 + j) * D + d;
-      ks[j * (D + 1) + d] = in ? kb[off] : 0.f;
-      vs[j * D + d] = in ? vb[off] : 0.f;
+    if (D == Dv) {  // one flat loop, two loads an index (K rows padded)
+      for (int i = tid; i < kBKV * D; i += kWarps * 32) {
+        const int j = i / D;
+        const bool in = k0 + j < Skv;
+        const size_t off = static_cast<size_t>(k0) * D + i;
+        ks[i + j] = in ? repro::to_float(kb[off]) : 0.f;
+        vs[i] = in ? repro::to_float(vb[off]) : 0.f;
+      }
+    } else {
+      for (int i = tid; i < kBKV * D; i += kWarps * 32) {
+        const int j = i / D;
+        ks[i + j] = k0 + j < Skv ? repro::to_float(kb[static_cast<size_t>(k0) * D + i]) : 0.f;
+      }
+      for (int i = tid; i < kBKV * Dv; i += kWarps * 32) {
+        vs[i] = k0 + i / Dv < Skv ? repro::to_float(vb[static_cast<size_t>(k0) * Dv + i]) : 0.f;
+      }
     }
     __syncthreads();
     const int kv = k0 + lane;  // this lane's key
@@ -136,13 +161,13 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float alpha = expf(m[rr] - m_new);
       l[rr] = l[rr] * alpha + repro::warp_sum(p);
 #pragma unroll
-      for (int i = 0; i < kMaxDimPerLane; ++i) acc[rr][i] *= alpha;
+      for (int i = 0; i < DV; ++i) acc[rr][i] *= alpha;
       for (int j = 0; j < tn; ++j) {
         const float pj = __shfl_sync(0xffffffffu, p, j);
 #pragma unroll
-        for (int i = 0; i < kMaxDimPerLane; ++i) {
+        for (int i = 0; i < DV; ++i) {
           const int d = lane + 32 * i;
-          if (d < D) acc[rr][i] += pj * vs[j * D + d];
+          if (d < Dv) acc[rr][i] += pj * vs[j * Dv + d];
         }
       }
       m[rr] = m_new;
@@ -155,32 +180,49 @@ flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
     if (qi >= Sq) continue;
     const float lv = l[rr] == 0.f ? 1.f : l[rr];
 #pragma unroll
-    for (int i = 0; i < kMaxDimPerLane; ++i) {
+    for (int i = 0; i < DV; ++i) {
       const int d = lane + 32 * i;
-      if (d < D) {
-        ob[static_cast<size_t>(qi) * D + d] = acc[rr][i] / lv;
+      if (d < Dv) {
+        ob[static_cast<size_t>(qi) * Dv + d] = repro::from_float<T>(acc[rr][i] / lv);
       }
     }
   }
 }
 
-cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int KH, int Sq, int Skv, int D, int causal,
-                   float scale, cudaStream_t stream) {
+template <typename T, int DV>
+cudaError_t launch_dv(const void* q, const void* k, const void* v, void* out,
+                      int B, int H, int KH, int Sq, int Skv, int D, int Dv,
+                      int causal, float scale, cudaStream_t stream) {
   const size_t smem =
-      sizeof(float) * (kBQ * D + kBKV * (D + 1) + kBKV * D);
+      sizeof(float) * (kBQ * D + kBKV * (D + 1) + kBKV * Dv);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        flash_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        flash_attention_kernel<T, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
-  flash_attention_kernel<<<grid, kWarps * 32, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), H, KH, Sq, Skv,
-      D, causal, scale);
+  flash_attention_kernel<T, DV><<<grid, kWarps * 32, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), H, KH, Sq, Skv, D, Dv,
+      causal, scale);
   return cudaSuccess;
+}
+
+// v's dims per lane, rounded up to 4, 8 or 16: below 4 ptxas held the
+// kernel to 64 registers and spilled, so head dims up
+// to 128 take 4 a lane, as the first f32 kernel did
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, void* out,
+                   int B, int H, int KH, int Sq, int Skv, int D, int Dv,
+                   int causal, float scale, cudaStream_t stream) {
+  const int per_lane = (Dv + 31) / 32;
+  if (per_lane <= 4)
+    return launch_dv<T, 4>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, stream);
+  if (per_lane <= 8)
+    return launch_dv<T, 8>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, stream);
+  return launch_dv<T, kMaxDimPerLane>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale,
+                                      stream);
 }
 
 }  // namespace cc
@@ -423,25 +465,41 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace tc
 
+// route codes: kernels/attention.py's ROUTES
+constexpr int kRouteCudaCores = 0;
+constexpr int kRouteWgmma = 1;
+
 }  // namespace
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int H,
-                                     int KH, int Sq, int Skv, int D,
+                                     int KH, int Sq, int Skv, int D, int Dv,
                                      int causal, float scale, int dtype,
-                                     void* stream) {
+                                     int route, void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0 ||
-      D <= 0 || D > 128) {
+      D <= 0 || D > 32 * cc::kMaxDimPerLane || Dv <= 0 ||
+      Dv > 32 * cc::kMaxDimPerLane) {
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == repro::kFloat32) {
-    err = cc::launch(q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, s);
-  } else if (dtype == repro::kBFloat16 && D % 8 == 0) {
+  if (route == kRouteWgmma) {
+    // what TMA can load: bf16, one head dim for q, k and v, at most two
+    // column boxes, 16-byte rows and bases
+    const bool aligned = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+                          reinterpret_cast<uintptr_t>(v)) % 16 == 0;
+    if (dtype != repro::kBFloat16 || D != Dv || D > 128 || D % 8 || !aligned) {
+      return cudaErrorInvalidValue;
+    }
     err = D <= 64
               ? tc::launch<1>(q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, s)
               : tc::launch<2>(q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, s);
+  } else if (route != kRouteCudaCores) {
+    return cudaErrorInvalidValue;
+  } else if (dtype == repro::kBFloat16) {
+    err = cc::launch<__nv_bfloat16>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, s);
+  } else if (dtype == repro::kFloat32) {
+    err = cc::launch<float>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -53,26 +53,16 @@ def tma_operands(
     c: torch.Tensor | None = None,
 ) -> tuple[list[torch.Tensor], list[torch.Tensor], torch.Tensor | None]:
     """The A planes (M, K), B planes (K, N) and C (M, N) of a TMA GEMM
-    kernel, with K and N zero-padded to multiples of 4 (TMA's 16-byte row
-    strides) and each operand copied if it is not 16-byte aligned.  The
-    zero columns of A and rows of B add nothing to the product; the caller
-    slices the padded columns off the output.  An operand that needs
-    neither comes back as the same tensor: the aligned shapes pay nothing."""
+    kernel through :func:`build.tma_operand`: K and N zero-padded to
+    multiples of 4 (TMA's 16-byte row strides), misaligned operands copied.
+    The caller slices the padded columns off the output."""
     m, k = a_planes[0].shape
     n = b_planes[0].shape[1]
     k4, n4 = -(-k // 4) * 4, -(-n // 4) * 4
-
-    def fit(x: torch.Tensor, rows: int, cols: int) -> torch.Tensor:
-        if x.shape == (rows, cols) and x.data_ptr() % 16 == 0:
-            return x
-        out = x.new_zeros((rows, cols))
-        out[: x.shape[0], : x.shape[1]] = x
-        return out
-
     return (
-        [fit(a, m, k4) for a in a_planes],
-        [fit(b, k4, n4) for b in b_planes],
-        None if c is None else fit(c, m, n4),
+        [build.tma_operand(a, (m, k4)) for a in a_planes],
+        [build.tma_operand(b, (k4, n4)) for b in b_planes],
+        None if c is None else build.tma_operand(c, (m, n4)),
     )
 
 

@@ -15,22 +15,20 @@ all f32, with ``a_cum`` the within-chunk cumulative sum of ``a * dt``.
 The O(S / L) scan across chunks runs on top (``ops.ssd_scan``).
 
 The wrapper runs the plain version only for a CPU tensor; a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises.  The C entry point picks the route by
+dtype: bf16 (every config's path) on the tensor cores, with the f32
+factors W and ``B o sw`` split into two bf16 terms each; f32 on the CUDA
+cores.  Neither route limits chunk, N or P beyond the shared memory its
+tiles take (chunks of several thousand steps).
 """
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from repro_torch.kernels import build
-
-#: the kernel's compile-time limits (``csrc/ssd_chunks.cu``); at all three limits
-#: its f32 shared memory (C B^T and the decay-weighted W, L x L each; B^T
-#: and C^T, N x (L + 1); the x tile, L x P; three (L,) vectors) is 231,936
-#: bytes, within the H100's 232,448 opt-in limit
-MAX_CHUNK = 128
-MAX_STATE = 128
-MAX_HEAD_DIM = 64
 
 
 def check_chunks(s: int, chunk: int) -> None:
@@ -38,17 +36,18 @@ def check_chunks(s: int, chunk: int) -> None:
         raise ValueError(f"seq {s} % chunk {chunk} != 0")
 
 
-def ssd_chunks_torch(x, dt, a, bmat, cmat, *, chunk: int):
-    """Vectorised plain version (the reference's ``ops._ssd_chunks_jnp``)."""
+def ssd_chunks_torch(x, dt, a, bmat, cmat, *, chunk: int, dtype=torch.float32):
+    """Vectorised plain version (the reference's ``ops._ssd_chunks_jnp``),
+    computed in ``dtype`` (f32; f64 gives the checks their exact terms)."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     check_chunks(s, chunk)
     nc = s // chunk
-    xf = x.float().reshape(b, nc, chunk, h, p)
-    dtf = dt.float().reshape(b, nc, chunk, h)
-    af = a.reshape(h).float()
-    bf = bmat.float().reshape(b, nc, chunk, n)
-    cf = cmat.float().reshape(b, nc, chunk, n)
+    xf = x.to(dtype).reshape(b, nc, chunk, h, p)
+    dtf = dt.to(dtype).reshape(b, nc, chunk, h)
+    af = a.reshape(h).to(dtype)
+    bf = bmat.to(dtype).reshape(b, nc, chunk, n)
+    cf = cmat.to(dtype).reshape(b, nc, chunk, n)
 
     a_cum = torch.cumsum(dtf * af, dim=2)  # (B, NC, L, H)
     a_tot = a_cum[:, :, -1, :]  # (B, NC, H)
@@ -69,10 +68,13 @@ def ssd_chunks_torch(x, dt, a, bmat, cmat, *, chunk: int):
     )
 
 
-def heads_per_cta(b: int, nc: int, h: int, n_sms: int) -> int:
-    """Heads one CTA walks under one staged C B^T: as many as keep the grid
-    to one wave of ``n_sms`` CTAs (one CTA fits on an SM)."""
-    return max(1, min(h, -(-(b * nc * h) // n_sms)))
+def _seq_strides(t: torch.Tensor) -> tuple[int, int]:
+    """The batch and sequence strides of ``t`` (B, S, ...); a dim of length
+    1 gets the dense stride (it is never stepped, but a tensor map needs a
+    valid one)."""
+    b, s = t.shape[:2]
+    ss = t.stride(1) if s > 1 else math.prod(t.shape[2:])
+    return (t.stride(0) if b > 1 else s * ss), ss
 
 
 def _check_rows(name: str, t: torch.Tensor, inner: int) -> None:
@@ -84,7 +86,8 @@ def _check_rows(name: str, t: torch.Tensor, inner: int) -> None:
 
 def ssd_chunks(x, dt, a, bmat, cmat, *, chunk: int = 128):
     """x (B, S, H, P) f32/bf16, dt (B, S, H) f32, a (H,), B/C (B, S, N) in
-    x's dtype -> (y_intra, states, cumdecay, totals), all f32."""
+    x's dtype -> (y_intra, states, cumdecay, totals), all f32.  bf16
+    operands are padded or copied only where TMA cannot load them."""
     b, s, h, p = x.shape
     n = bmat.shape[-1]
     check_chunks(s, chunk)
@@ -102,29 +105,29 @@ def ssd_chunks(x, dt, a, bmat, cmat, *, chunk: int = 128):
         raise TypeError("ssd_chunks: dt must be float32 and B/C of x's dtype")
     if bmat.shape != (b, s, n) or cmat.shape != (b, s, n) or dt.shape != (b, s, h):
         raise ValueError("ssd_chunks: dt (B,S,H), B/C (B,S,N) must match x (B,S,H,P)")
-    if chunk > MAX_CHUNK or n > MAX_STATE or p > MAX_HEAD_DIM:
-        raise ValueError(
-            f"ssd_chunks: the kernel takes chunk <= {MAX_CHUNK}, N <= "
-            f"{MAX_STATE}, P <= {MAX_HEAD_DIM}; got {chunk}, {n}, {p}"
-        )
     nc = s // chunk
     f32 = dict(dtype=torch.float32, device=x.device)
-    y = torch.empty((b, s, h, p), **f32)
-    states = torch.empty((b, nc, h, n, p), **f32)
     cumdecay = torch.empty((b, s, h), **f32)
     totals = torch.empty((b, nc, h), **f32)
+    if x.dtype == torch.bfloat16:
+        # TMA's 16-byte strides: N and P padded with zeros (zero columns of
+        # B and C add nothing to C B^T; zero columns of x give zero columns
+        # of y and the states, sliced away)
+        x, bmat, cmat = (build.tma_operand(t) for t in (x, bmat, cmat))
+    pp, nn = x.shape[-1], bmat.shape[-1]
+    y = torch.empty((b, s, h, pp), **f32)
+    states = torch.empty((b, nc, h, nn, pp), **f32)
     if y.numel():
-        n_sms = torch.cuda.get_device_properties(x.device).multi_processor_count
         build.launch(
             "repro_ssd_chunks", x.data_ptr(), dt.data_ptr(), a.data_ptr(),
             bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(), states.data_ptr(),
             cumdecay.data_ptr(), totals.data_ptr(),
-            x.stride(0), x.stride(1), bmat.stride(0), bmat.stride(1),
-            cmat.stride(0), cmat.stride(1),
-            b, s, h, p, n, chunk, heads_per_cta(b, nc, h, n_sms),
-            build.dtype_code(x), build.stream_of(x),
+            *_seq_strides(x), *_seq_strides(bmat), *_seq_strides(cmat),
+            b, s, h, pp, nn, chunk, build.dtype_code(x), build.stream_of(x),
         )
         ssd_chunks.launches += 1
+    if (pp, nn) != (p, n):
+        y, states = y[..., :p].contiguous(), states[..., :n, :p].contiguous()
     return y, states, cumdecay, totals
 
 

@@ -233,6 +233,23 @@ def test_flash_attention_matches_attention_ref_at_ragged_lengths(s, rng):
     )
 
 
+@pytest.mark.parametrize("dqk,dv", [(48, 32), (192, 128)])
+def test_flash_attention_dv_differs_matches_pallas_interpret(dqk, dv, rng):
+    """v's head dim apart from q's and k's: the reference test's qk 48 / v
+    32 and deepseek-v2's MLA prefill, qk 192 / v 128 (GQA 4 / 2, S 128).
+    The plain version and the CPU wrapper return (b, h, s, dv) and agree
+    with the Pallas kernel in interpret mode within 1e-4 (its online
+    softmax over blocks sums in another order); the scale is 1/sqrt(qk)."""
+    q = rng.standard_normal((1, 4, 128, dqk)).astype(np.float32)
+    k = rng.standard_normal((1, 2, 128, dqk)).astype(np.float32)
+    v = rng.standard_normal((1, 2, 128, dv)).astype(np.float32)
+    want = flash_attention_pallas(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), interpret=True)
+    for fn in (tatt.flash_attention_torch, tatt.flash_attention):
+        got = fn(_t(q), _t(k), _t(v))
+        assert tuple(got.shape) == (1, 4, 128, dv) == want.shape
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+
+
 def _flash_bf16_kernel_arithmetic(q, k, v, causal=True):
     """The bf16 CUDA kernel's arithmetic (``csrc/flash_attention.cu``, the
     wgmma route) in torch: key tiles of 128 (64 when D > 64), the scale
@@ -296,6 +313,41 @@ def test_blocks_pick_target_from_device_and_bind_overrides(monkeypatch):
     with pytest.raises(KeyError):
         with blocks.bind({"rmsnorm": "pallas"}):
             pass
+
+
+def test_flash_route_is_picked_by_the_wrapper_passed_and_counted(monkeypatch):
+    """The wrapper alone picks flash's route: what TMA can load (bf16, one
+    head dim <= 128 and a multiple of 8, 16-byte aligned operands) goes to
+    wgmma, the rest to the CUDA cores.  It passes the route's code to the C
+    entry point and counts the launch under it; ``reset_launches`` clears
+    the counts.  (Meta tensors stand in for CUDA ones.)"""
+    from repro_torch import kernels
+
+    def qkv(d, dv, dtype=torch.bfloat16, device="cpu"):
+        return tuple(torch.zeros(1, 4, 8, e, dtype=dtype, device=device) for e in (d, d, dv))
+
+    assert tatt.flash_route(*qkv(64, 64)) == tatt.flash_route(*qkv(112, 112)) == "wgmma"
+    for args in (qkv(48, 32), qkv(192, 128), qkv(100, 100), qkv(256, 256),
+                 qkv(64, 64, torch.float32)):
+        assert tatt.flash_route(*args) == "cuda_cores"
+    q, k, v = qkv(64, 64)
+    shifted = torch.zeros(1 + q.numel(), dtype=torch.bfloat16)[1:].view(q.shape)
+    assert tatt.flash_route(shifted, k, v) == "cuda_cores"  # a 2-byte offset
+
+    calls = []
+    monkeypatch.setattr(build, "check_cuda", lambda name, *ts: None)
+    monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(build, "launch", lambda name, *args: calls.append((name, args)))
+    kernels.reset_launches()
+    tatt.flash_attention(*qkv(64, 64, device="meta"))
+    out = tatt.flash_attention(*qkv(192, 128, device="meta"))
+    assert tuple(out.shape) == (1, 4, 8, 128)
+    assert [args[14] for _, args in calls] == [tatt.ROUTES.index("wgmma"),
+                                               tatt.ROUTES.index("cuda_cores")]
+    assert tatt.flash_attention.routes == {"cuda_cores": 1, "wgmma": 1}
+    assert launch_counts()["flash_attention"] == 2
+    kernels.reset_launches()
+    assert tatt.flash_attention.routes == {"cuda_cores": 0, "wgmma": 0}
 
 
 def test_build_raises_without_nvcc(monkeypatch):

@@ -11,7 +11,8 @@ in another order.  bf16 inputs are upcast to f32 by both sides before any
 arithmetic, so they keep the f32 tolerance.
 """
 
-import types
+import importlib.util
+import pathlib
 
 import jax.numpy as jnp
 import ml_dtypes
@@ -108,10 +109,11 @@ def test_ssd_chunks_tiling_contract_and_wrapper_counts(rng):
     before = ssd.ssd_chunks.launches
     ssd.ssd_chunks(x, dt, a, bm, cm, chunk=16)
     assert ssd.ssd_chunks.launches == before  # CPU tensors launch nothing
-    # the kernel's one wave of CTAs
-    assert ssd.heads_per_cta(1, 4, 80, 132) == 3
-    assert ssd.heads_per_cta(1, 4, 112, 132) == 4
-    assert ssd.heads_per_cta(1, 1, 80, 132) == 1
+    # the strides the kernel gets: a dim of length 1 takes the dense one
+    x = torch.zeros(2, 48, 3, 8)
+    assert ssd._seq_strides(x) == (48 * 24, 24)
+    assert ssd._seq_strides(torch.zeros(1, 48, 5376)[..., 5120:5248]) == (48 * 5376, 5376)
+    assert ssd._seq_strides(torch.zeros(3, 1, 40)[..., :20]) == (40, 20)
 
 
 def test_ssd_chunks_off_the_cpu_goes_to_the_kernel_and_raises_without_nvcc(monkeypatch, tmp_path):
@@ -123,10 +125,6 @@ def test_ssd_chunks_off_the_cpu_goes_to_the_kernel_and_raises_without_nvcc(monke
     monkeypatch.setattr(build, "_lib", None)
     monkeypatch.setattr(build.shutil, "which", lambda name: None)
     monkeypatch.setattr(build.os.path, "exists", lambda path: False)
-    monkeypatch.setattr(
-        torch.cuda, "get_device_properties",
-        lambda dev: types.SimpleNamespace(multi_processor_count=132),
-    )
     meta = dict(device="meta")
     x = torch.empty((1, 32, 2, 8), dtype=torch.bfloat16, **meta)
     dt = torch.empty((1, 32, 2), **meta)
@@ -138,9 +136,12 @@ def test_ssd_chunks_off_the_cpu_goes_to_the_kernel_and_raises_without_nvcc(monke
     assert ssd.ssd_chunks.launches == before
     with pytest.raises(TypeError, match="float32"):
         ssd.ssd_chunks(x, dt.to(torch.bfloat16), a, bm, bm, chunk=32)
+    # P = 72 (past the old limit of 64, and padded to a multiple of 8 for
+    # TMA's strides) goes to the kernel as well
     wide = torch.empty((1, 32, 2, 72), dtype=torch.bfloat16, **meta)
-    with pytest.raises(ValueError, match="P <= 64"):  # past the kernel's limits
+    with pytest.raises(RuntimeError, match="nvcc not found"):
         ssd.ssd_chunks(wide, dt, a, bm, bm, chunk=32)
+    assert ssd.ssd_chunks.launches == before
 
 
 def test_ssd_scan_block_targets_and_pattern_db_entry(rng):
@@ -152,3 +153,131 @@ def test_ssd_scan_block_targets_and_pattern_db_entry(rng):
     want_y, want_h = ref.ssd_ref(*map(_t, (x, dt, a, bm, cm)))
     np.testing.assert_allclose(y.numpy(), want_y.numpy(), rtol=0, atol=ATOL)
     np.testing.assert_allclose(hfin.numpy(), want_h.numpy(), rtol=0, atol=ATOL)
+
+
+# -- the bf16 route's arithmetic and the shapes C2 opens ----------------------------
+
+_spec = importlib.util.spec_from_file_location(
+    "chip_smoke", pathlib.Path(__file__).resolve().parents[1] / "chip_smoke.py")
+chip_smoke = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(chip_smoke)
+SSD_TOL = chip_smoke.SSD_TOL  # the tolerances the card holds the kernel to
+
+
+def _bf16(v):
+    return torch.from_numpy(v).to(torch.bfloat16)
+
+
+def _card_inputs(rng, b, s, h, p, n):
+    """chip_smoke's ``_ssd_cases`` distribution: x, B and C standard normal
+    in bf16, dt in [1e-3, 0.1], a from -U[1, 16)."""
+    x = _bf16(rng.standard_normal((b, s, h, p)).astype(np.float32))
+    bm = _bf16(rng.standard_normal((b, s, n)).astype(np.float32))
+    cm = _bf16(rng.standard_normal((b, s, n)).astype(np.float32))
+    dt = torch.from_numpy(rng.uniform(1e-3, 0.1, (b, s, h)).astype(np.float32))
+    a = torch.from_numpy(-rng.uniform(1.0, 16.0, (h,)).astype(np.float32))
+    return x, dt, a, bm, cm
+
+
+def _split(v):
+    hi = v.bfloat16().float()
+    return hi, (v - hi).bfloat16().float()
+
+
+def _ssd_bf16_route_arithmetic(x, dt, a, bmat, cmat, *, chunk, split=True):
+    """The bf16 CUDA route's arithmetic (``csrc/ssd_chunks.cu``, namespace
+    ``tc``) in torch: G = C B^T in f32 from the bf16 inputs (exact
+    products); W = G o Lambda o dt_j and B o sw in f32, each split into
+    hi = bf16(v) and lo = bf16(v - hi); y = W_hi x + W_lo x and state =
+    (B o sw)_hi^T x + (B o sw)_lo^T x, products of bf16 values summed in
+    f32.  ``split=False`` runs one bf16 pass (hi only)."""
+    b, s, h, p = x.shape
+    n = bmat.shape[-1]
+    nc = s // chunk
+    xf = x.float().reshape(b, nc, chunk, h, p)
+    dtf = dt.float().reshape(b, nc, chunk, h)
+    bf = bmat.float().reshape(b, nc, chunk, n)
+    cf = cmat.float().reshape(b, nc, chunk, n)
+    a_cum = torch.cumsum(dtf * a.float(), dim=2)
+    a_tot = a_cum[:, :, -1, :]
+    lower = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool))[None, None, :, :, None]
+    diff = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]
+    lam = torch.where(lower, torch.exp(torch.where(lower, diff, 0.0)), 0.0)
+    g = torch.einsum("bcin,bcjn->bcij", cf, bf)
+    w = g[..., None] * lam * dtf[:, :, None, :, :]  # (B, NC, L, L, H)
+    sw = dtf * torch.exp(a_tot[:, :, None, :] - a_cum)  # (B, NC, L, H)
+    bsw = bf[..., None] * sw[:, :, :, None, :]  # (B, NC, L, N, H)
+    w_hi, w_lo = _split(w)
+    b_hi, b_lo = _split(bsw)
+    y = torch.einsum("bcijh,bcjhp->bcihp", w_hi, xf)
+    states = torch.einsum("bcjnh,bcjhp->bchnp", b_hi, xf)
+    if split:
+        y = y + torch.einsum("bcijh,bcjhp->bcihp", w_lo, xf)
+        states = states + torch.einsum("bcjnh,bcjhp->bchnp", b_lo, xf)
+    return y.reshape(b, s, h, p), states, torch.exp(a_cum).reshape(b, s, h), torch.exp(a_tot)
+
+
+def _within(got, want, tol):
+    atol, rtol = tol
+    return bool(((got.double() - want.double()).abs() <= atol + rtol * want.double().abs()).all())
+
+
+def test_bf16_route_split_meets_ssd_tol_at_mamba2_chunk_and_one_pass_does_not(rng):
+    """At mamba2's chunk (L 128, N 128, P 64; two chunks, four heads) the
+    split products stay within chip_smoke's SSD_TOL of an f64 computation,
+    every output on its own; one bf16 pass of W and B o sw does not, which
+    is why the kernel runs each product twice."""
+    x, dt, a, bm, cm = _card_inputs(rng, 1, 256, 4, 64, 128)
+    want = ssd.ssd_chunks_torch(x, dt, a, bm, cm, chunk=128, dtype=torch.float64)
+    got = _ssd_bf16_route_arithmetic(x, dt, a, bm, cm, chunk=128)
+    for name, g, w in zip(("y", "states", "cumdecay", "totals"), got, want):
+        assert _within(g, w, SSD_TOL[name]), name
+    one = _ssd_bf16_route_arithmetic(x, dt, a, bm, cm, chunk=128, split=False)
+    assert not _within(one[0], want[0], SSD_TOL["y"])
+    assert not _within(one[1], want[1], SSD_TOL["states"])
+
+
+def test_bf16_route_arithmetic_matches_pallas_interpret(rng):
+    """At a small size (S 64 in chunks of 32, N 16, P 8) the bf16 route's
+    arithmetic agrees with the reference's Pallas kernel in interpret mode
+    within SSD_TOL."""
+    x, dt, a, bm, cm = _card_inputs(rng, 2, 64, 3, 8, 16)
+    jx, jb, jc = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16) for t in (x, bm, cm))
+    want = ssd_chunks_pallas(jx, jnp.asarray(dt.numpy()), jnp.asarray(a.numpy()), jb, jc,
+                             chunk=32, interpret=True)
+    got = _ssd_bf16_route_arithmetic(x, dt, a, bm, cm, chunk=32)
+    for name, g, w in zip(("y", "states", "cumdecay", "totals"), got, want):
+        assert _within(g, torch.from_numpy(np.array(w)), SSD_TOL[name]), name
+
+
+@pytest.mark.parametrize("s,chunk,n,p", [(512, 256, 16, 8), (128, 64, 256, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_chunks_at_the_shapes_the_old_limits_refused(s, chunk, n, p, dtype, rng):
+    """Chunk 256 (Mamba-2's published default), and N 256 with P 128: the
+    plain version and the CPU wrapper against the Pallas kernel in
+    interpret mode.  f32 sums over N = 256 in another order: atol 2e-5
+    plus 1e-5 of the value (|y| up to ~1e2 there)."""
+    x, dt, a, bm, cm, _ = _inputs(rng, 1, s, 2, p, n)
+    if dtype == "bfloat16":
+        x, bm, cm = (v.astype(ml_dtypes.bfloat16) for v in (x, bm, cm))
+    want = ssd_chunks_pallas(_j(x), _j(dt), _j(a), _j(bm), _j(cm), chunk=chunk, interpret=True)
+    for fn in (ssd.ssd_chunks_torch, ssd.ssd_chunks):
+        got = fn(_t(x), _t(dt), _t(a), _t(bm), _t(cm), chunk=chunk)
+        assert [tuple(g.shape) for g in got] == [w.shape for w in want]
+        for g, w in zip(got, want):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-5, atol=ATOL)
+
+
+def test_tma_operands_and_bf16_route_grid():
+    """The bf16 route's operands through ``build.tma_operand``: views TMA
+    can load pass through, others are copied, and N or P not a multiple of
+    8 is zero-padded (the grid itself is sized in the C entry point)."""
+    base = torch.zeros(1, 64, 5376, dtype=torch.bfloat16)  # mamba2's conv channels
+    view = base[..., 5120:5248]  # B: a slice of the conv output
+    assert build.tma_operand(view) is view
+    odd = torch.zeros(2, 64, 100, dtype=torch.bfloat16)[..., :96]  # 200-byte rows
+    assert build.tma_operand(odd).is_contiguous()
+    x = torch.arange(2 * 6 * 3 * 12, dtype=torch.bfloat16).reshape(2, 6, 3, 12)
+    xp = build.tma_operand(x)
+    assert xp.shape == (2, 6, 3, 16) and torch.equal(xp[..., :12], x)
+    assert not xp[..., 12:].any()
