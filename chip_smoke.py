@@ -44,7 +44,8 @@ JSON line, and any failure raises (exit code != 0):
 10. hybrid: zamba2-7b at full width cut to 12 layers (``mmmmmsmmmmms``)
    served from the paged cache (page_size 16, 8 slots, the same trace),
    with the ``rmsnorm``, ``ssd_chunks``, ``paged_attention`` and
-   ``flash_attention`` launch counts (each > 0).
+   ``flash_attention`` launch counts (each > 0), then its decode profile
+   as phase 5.
 
 The offload kernels (complex matmul, Schur update, matmul) are held
 against their plain versions in phase 2 at the paper's scale (2048^2 f32),
@@ -55,7 +56,10 @@ at mamba2's and zamba2's prefill shapes, at chunk 256 (bf16 and f32) and
 at N = 256 with P = 128; paged and flash attention at zamba2's head dim
 112 too (flash also at B=2 and a ragged S=300, and on its CUDA-core route
 at qk 48 / v 32, deepseek-v2's qk 192 / v 128 and a bf16 D = 100).  Each
-flash and SSD row names the route it ran.
+flash and SSD row names the route it ran; each paged row names its split
+plan's ``n_splits`` (paged attention also runs with all eight slots near
+1024 positions and at B=1 with a one-page table).  Phase 5 sums the
+device time of paged attention's split and merge kernels per step.
 
 The last lines are the card as ``nvidia-smi`` reports it, the kernels'
 summary and ``{"ok": true, "device": {...}}``.  Needs CUDA and the rest of
@@ -287,14 +291,13 @@ def phase_kernels(torch) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import flash_attention, flash_attention_torch
-    from repro_torch.kernels.paged_attention import paged_attention, paged_attention_torch
     from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_torch
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
     timer = Timer(torch)
     rows: dict[str, list] = {k: [] for k in SOURCES}
-    d, h, kh, dh, ps = 2048, 32, 8, 64, 16
+    d, h, kh, dh = 2048, 32, 8, 64
 
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
@@ -314,54 +317,7 @@ def phase_kernels(torch) -> dict:
             nbytes=2 * n_rows * d * e + 4 * d, flops=4 * n_rows * d,
         ))
 
-    # paged attention: decode B=8 with ragged lengths up to 1024, an
-    # extend chunk (S=4) and the MLA operands; null pages poisoned
-    def paged_case(b, hh, kkh, s, dk, dv, lengths, dtype, dr=0):
-        mp = 1024 // ps
-        n_pages = b * mp
-        null = n_pages
-        k_pool = randn(n_pages + 1, kkh, ps, dk, dtype=dtype)
-        v_pool = randn(n_pages + 1, kkh, ps, dv, dtype=dtype)
-        k_pool[null] = 1e6  # poison: masked rows must never contribute
-        v_pool[null] = 1e6
-        q = randn(b, hh, s, dk, dtype=dtype)
-        perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
-        pages = perm.reshape(b, mp).clone()
-        for i, ln in enumerate(lengths):
-            pages[i, -(-(ln + s) // ps):] = null
-        index = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        kw = {}
-        if dr:
-            kr_pool = randn(n_pages + 1, 1, ps, dr, dtype=dtype)
-            kr_pool[null] = 1e6
-            kw = dict(q_rope=randn(b, hh, s, dr, dtype=dtype), kr_pool=kr_pool,
-                      scale=1.0 / (dk + dr) ** 0.5)
-        args = (q, k_pool, v_pool, pages, index)
-        e = q.element_size()
-        seen = [min(ln + si + 1, mp * ps) for ln in lengths for si in range(s)]
-        n_pos = [min(ln + s, mp * ps) for ln in lengths]
-        g = hh // kkh
-        # each input read once (only the K/V rows the lengths reach), the
-        # output written once; flops: q.k, q_rope.k_rope and p.v per seen row
-        nbytes = (
-            e * (q.numel() + b * hh * s * dv + (kw["q_rope"].numel() if dr else 0))
-            + e * sum(n_pos) * (kkh * (dk + dv) + dr) + 4 * (pages.numel() + b)
-        )
-        flops = 2 * kkh * g * sum(seen) * (dk + dv + dr)
-        return _case(
-            torch, "paged_attention", str(dtype).split(".")[1],
-            {"B": b, "H": hh, "KH": kkh, "S": s, "Dk": dk, "Dv": dv, "Dr": dr,
-             "page_size": ps, "lengths": list(lengths)},
-            paged_attention(*args, **kw), paged_attention_torch(*args, **kw), timer,
-            lambda: paged_attention(*args, **kw), lambda: paged_attention_torch(*args, **kw),
-            None, nbytes=nbytes, flops=flops,
-        )
-
-    decode_lengths = [1022, 700, 511, 256, 95, 16, 15, 0]
-    rows["paged_attention"].append(paged_case(8, h, kh, 1, dh, dh, decode_lengths, torch.bfloat16))
-    rows["paged_attention"].append(paged_case(8, h, kh, 4, dh, dh, [1000, 300, 17, 0, 64, 5, 900, 250], torch.bfloat16))
-    rows["paged_attention"].append(paged_case(4, 16, 1, 1, 512, 512, [1022, 333, 64, 0], torch.bfloat16, dr=64))
-    rows["paged_attention"].append(paged_case(8, h, kh, 1, dh, dh, decode_lengths, torch.float32))
+    rows["paged_attention"] = _paged_cases(torch, timer, randn, gen)
 
     # flash attention: prefill B=1 at S=512 and a ragged S=300
     for s, dtype in ((512, torch.bfloat16), (300, torch.bfloat16), (300, torch.float32)):
@@ -381,8 +337,6 @@ def phase_kernels(torch) -> dict:
 
     # zamba2-7b's shared attention block: H = KH = 32, head dim 112
     zh, zd = 32, 112
-    rows["paged_attention"].append(paged_case(
-        8, zh, zh, 1, zd, zd, [512, 600, 480, 520, 530, 400, 511, 450], torch.bfloat16))
     q, k, v = (randn(1, zh, 512, zd, dtype=torch.bfloat16) for _ in range(3))
     got, route = flash_routed(flash_attention, q, k, v)
     rows["flash_attention"].append(_case(
@@ -427,6 +381,86 @@ def phase_kernels(torch) -> dict:
     rows["ssd_chunks"] = _ssd_cases(torch, timer, randn, gen)
     rows.update(_offload_kernel_cases(torch, timer, randn))
     return rows
+
+
+def _paged_cases(torch, timer, randn, gen) -> list:
+    """Paged attention against its plain version: llama3.2-1b's decode at
+    B=8 with ragged lengths up to 1024 (the headline), an extend chunk
+    (S=4), the MLA operands (G=16, 512 + 64 dims), f32 decode, zamba2-7b's
+    shared block (H = KH = 32, head dim 112), all eight slots near 1024
+    positions, and B=1 with a one-page table (one split).  Then two shapes
+    TMA does not take, whose pages come by cp.async: bf16 rows of 64 bytes
+    (the reference tests' head dim 32, pages of 8, an S=4 chunk) on the
+    tensor cores, and f32 head dim 20 with pages of 7 on the CUDA cores.
+    Last, a long table: llama's heads at 16k positions in pages of one
+    (16384 pages, more page ids a split than a CTA has threads, more than
+    32 splits).  Null pages are poisoned.  Each row names the split plan's
+    ``n_splits``."""
+    from repro_torch.kernels import paged_attention as pa
+
+    h, kh, dh = 32, 8, 64
+    dev = "cuda"
+
+    def paged_case(b, hh, kkh, s, dk, dv, lengths, dtype, dr=0, ps=16, mp=None):
+        mp = mp or 1024 // ps
+        n_pages = b * mp
+        null = n_pages
+        k_pool = randn(n_pages + 1, kkh, ps, dk, dtype=dtype)
+        v_pool = randn(n_pages + 1, kkh, ps, dv, dtype=dtype)
+        k_pool[null] = 1e6  # poison: masked rows must never contribute
+        v_pool[null] = 1e6
+        q = randn(b, hh, s, dk, dtype=dtype)
+        perm = torch.randperm(n_pages, generator=gen, device=dev).to(torch.int32)
+        pages = perm.reshape(b, mp).clone()
+        for i, ln in enumerate(lengths):
+            pages[i, -(-(ln + s) // ps):] = null
+        index = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kw = {}
+        if dr:
+            kr_pool = randn(n_pages + 1, 1, ps, dr, dtype=dtype)
+            kr_pool[null] = 1e6
+            kw = dict(q_rope=randn(b, hh, s, dr, dtype=dtype), kr_pool=kr_pool,
+                      scale=1.0 / (dk + dr) ** 0.5)
+        args = (q, k_pool, v_pool, pages, index)
+        e = q.element_size()
+        seen = [min(ln + si + 1, mp * ps) for ln in lengths for si in range(s)]
+        n_pos = [min(ln + s, mp * ps) for ln in lengths]
+        g = hh // kkh
+        # each input read once (only the K/V rows the lengths reach), the
+        # output written once; flops: q.k, q_rope.k_rope and p.v per seen row
+        nbytes = (
+            e * (q.numel() + b * hh * s * dv + (kw["q_rope"].numel() if dr else 0))
+            + e * sum(n_pos) * (kkh * (dk + dv) + dr) + 4 * (pages.numel() + b)
+        )
+        flops = 2 * kkh * g * sum(seen) * (dk + dv + dr)
+        # the parent of a comparison (scripts/ab_parent_change.py) has no plan
+        extra = None
+        if hasattr(pa, "sm_count"):
+            plan = pa.split_plan(b, kkh, mp, ps, dk, dv, pa.sm_count(q.device))
+            extra = {"n_splits": plan.n_splits, "pages_per_split": plan.pages_per_split}
+        return _case(
+            torch, "paged_attention", str(dtype).split(".")[1],
+            {"B": b, "H": hh, "KH": kkh, "S": s, "Dk": dk, "Dv": dv, "Dr": dr,
+             "page_size": ps, "max_pages": mp, "lengths": list(lengths)},
+            pa.paged_attention(*args, **kw), pa.paged_attention_torch(*args, **kw), timer,
+            lambda: pa.paged_attention(*args, **kw), lambda: pa.paged_attention_torch(*args, **kw),
+            None, nbytes=nbytes, flops=flops, extra=extra,
+        )
+
+    bf16 = torch.bfloat16
+    decode_lengths = [1022, 700, 511, 256, 95, 16, 15, 0]
+    return [
+        paged_case(8, h, kh, 1, dh, dh, decode_lengths, bf16),
+        paged_case(8, h, kh, 4, dh, dh, [1000, 300, 17, 0, 64, 5, 900, 250], bf16),
+        paged_case(4, 16, 1, 1, 512, 512, [1022, 333, 64, 0], bf16, dr=64),
+        paged_case(8, h, kh, 1, dh, dh, decode_lengths, torch.float32),
+        paged_case(8, 32, 32, 1, 112, 112, [512, 600, 480, 520, 530, 400, 511, 450], bf16),
+        paged_case(8, h, kh, 1, dh, dh, [1023, 1022, 1020, 1018, 1016, 1010, 1005, 1000], bf16),
+        paged_case(1, h, kh, 1, dh, dh, [9], bf16, mp=1),
+        paged_case(2, 4, 2, 4, 32, 32, [70, 0], bf16, ps=8, mp=16),
+        paged_case(2, 4, 2, 1, 20, 20, [40, 3], torch.float32, ps=7, mp=8),
+        paged_case(2, h, kh, 1, dh, dh, [16380, 9000], bf16, ps=1, mp=16384),
+    ]
 
 
 def _ssd_cases(torch, timer, randn, gen) -> list:
@@ -702,6 +736,8 @@ def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
         "device_ms_per_step": total if device else None,
         "device_busy_share": total / wall_ms if device else None,
         "device_events_per_step": kernels / n,
+        # paged attention's split and merge kernels together
+        "paged_device_ms_per_step": sum(v for k, v in device.items() if "paged" in k) / n,
         "top_device_ms_per_step": {k[:80]: v / n for k, v in top},
     }
     if sampled:
@@ -947,6 +983,7 @@ def main() -> int:
     phase_decode_profile(torch, "mamba2-2.7b", sampled=False, phase="decode_profile_ssm",
                          page_size=None)
     phase_main_path(torch, "zamba2-7b", HYBRID_KERNELS, "hybrid")
+    phase_decode_profile(torch, "zamba2-7b", sampled=False, phase="decode_profile_hybrid")
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],

@@ -3,9 +3,11 @@
 parent, each in a process of its own:
 
 - ``main_path``: chip_smoke.py's phase 4 (llama3.2-1b served from the paged
-  KV cache, 16 requests), twice per process (the second run is warm);
+  KV cache, 16 requests), twice per process (the second run is warm), then
+  its phase-5 decode profile (device ms per step, paged attention's share);
 - ``main_path_ssm``: chip_smoke.py's phase 9 (full-depth mamba2-2.7b from
-  contiguous slots, the same 16 requests), twice per process;
+  contiguous slots, the same 16 requests), twice per process, then its
+  decode profile;
 - ``prefill``: one 512-token llama3.2-1b prefill (paged, batch 1, one new
   token) served by ``ServeEngine``: host wall ms (median of 7, after 3
   warm-up requests) and device ms by kernel from ``torch.profiler``;
@@ -15,12 +17,14 @@ parent, each in a process of its own:
   (CUDA graphs, cold L2), each case's ms beside its plain version's;
 - ``flash_kernels``: the flash kernel at phase 2's main shapes (f32 at
   S=300, bf16 at S=512 with D 64 and 112; CUDA graphs, cold L2);
+- ``paged_kernels``: this tree's chip_smoke.py phase-2 cases of paged
+  attention (CUDA graphs, cold L2), run against each version's kernel;
 - ``offload_kernels``: chip_smoke.py's phase-2 cases of the offload GEMM
   kernels (complex matmul, Schur update, matmul; CUDA graphs, cold L2),
   each kernel's ms beside its PyTorch call's.
 
     git archive <parent commit> | tar -x -C build/parent
-    python3 scripts/ab_parent_change.py main_path|main_path_ssm|prefill|prefill_ssm|ssd_kernels|flash_kernels|offload_kernels [build/parent]
+    python3 scripts/ab_parent_change.py main_path|main_path_ssm|prefill|prefill_ssm|ssd_kernels|flash_kernels|paged_kernels|offload_kernels [build/parent]
 
 Prints one JSON line per measurement with its version.  Compare versions
 only within one call: the host's speed varies between machines.
@@ -34,7 +38,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 MAIN_PATH = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke as c; "
              "torch.backends.cuda.matmul.allow_tf32 = False; c.phase_device(torch); "
-             "c.phase_main_path(torch); c.phase_main_path(torch)")
+             "c.phase_main_path(torch); c.phase_main_path(torch); "
+             "c.phase_decode_profile(torch, sampled=False)")
 PREFILL = r'''
 import json, statistics, sys, time, torch
 sys.path.insert(0, "src")
@@ -87,15 +92,31 @@ for h, kh, s, d, dtype in ((32, 8, 300, 64, torch.float32), (32, 8, 512, 64, tor
                       "dtype": str(dtype), "ms": timer.ms(lambda: flash_attention(q, k, v))}))
 '''
 MAIN_PATH_SSM = MAIN_PATH.replace(
-    "c.phase_main_path(torch); c.phase_main_path(torch)",
+    "c.phase_main_path(torch); c.phase_main_path(torch); c.phase_decode_profile(torch, sampled=False)",
     "kw = dict(arch='mamba2-2.7b', expect=c.SSM_KERNELS, phase='main_path_ssm', page_size=None); "
-    "c.phase_main_path(torch, **kw); c.phase_main_path(torch, **kw)")
+    "c.phase_main_path(torch, **kw); c.phase_main_path(torch, **kw); "
+    "c.phase_decode_profile(torch, 'mamba2-2.7b', sampled=False, phase='decode_profile_ssm', "
+    "page_size=None)")
+# the cases come from this tree's chip_smoke.py, the kernels from the
+# version's own src/
+PAGED_KERNELS = f"""
+import importlib.util, sys, torch
+sys.path.insert(0, "src")
+spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
+c = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(c)
+g = torch.Generator(device="cuda").manual_seed(0)
+c._paged_cases(torch, c.Timer(torch), lambda *shape, dtype: torch.randn(
+    shape, generator=g, device="cuda").to(dtype), g)
+"""
 CODE = {"main_path": MAIN_PATH, "main_path_ssm": MAIN_PATH_SSM,
         "prefill": PREFILL.replace("ARCH", "llama3.2-1b").replace("PAGE", "16"),
         "prefill_ssm": PREFILL.replace("ARCH", "mamba2-2.7b").replace("PAGE", "None"),
         "ssd_kernels": SSD_KERNELS, "flash_kernels": FLASH_KERNELS,
-        "offload_kernels": OFFLOAD_KERNELS}
-KERNEL_KEYS = ("name", "shape", "ms", "plain_ms", "library_ms", "max_abs_err")
+        "paged_kernels": PAGED_KERNELS, "offload_kernels": OFFLOAD_KERNELS}
+KERNEL_KEYS = ("name", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+               "n_splits", "pages_per_split")
+PROFILE_KEYS = ("arch", "wall_ms_per_step", "device_ms_per_step", "device_busy_share")
 MAIN_PATH_KEYS = ("tok_per_s", "prefill_tok_per_s", "decode_tok_per_s", "decode_median_ms",
                   "ttft_p50_ms", "ttft_p99_ms", "wall_seconds", "launches")
 
@@ -116,6 +137,15 @@ def main() -> int:
             row = json.loads(line)
             if what.startswith("main_path") and row.get("phase") == what:
                 print(json.dumps({"version": tag, **{k: row[k] for k in MAIN_PATH_KEYS}}), flush=True)
+            elif what.startswith("main_path") and row.get("phase", "").startswith("decode_profile"):
+                # the parent's profile may not sum paged attention's kernels
+                paged = row.get("paged_device_ms_per_step", sum(
+                    v for k, v in row["top_device_ms_per_step"].items() if "paged" in k))
+                print(json.dumps({"version": tag, "phase": row["phase"],
+                                  **{k: row[k] for k in PROFILE_KEYS},
+                                  "paged_device_ms_per_step": paged,
+                                  "top_device_ms_per_step": row["top_device_ms_per_step"]}),
+                      flush=True)
             elif what.startswith("prefill"):
                 print(json.dumps({"version": tag, **row}), flush=True)
             elif what.endswith("_kernels") and row.get("phase") == "kernel":

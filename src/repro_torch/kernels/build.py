@@ -42,9 +42,10 @@ _L = ctypes.c_longlong
 ENTRY_POINTS = {
     # x, w, out, rows, d, eps, dtype, stream
     "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
-    # q, k_pool, v_pool, q_rope, kr_pool, pages, index, out,
-    # B, H, KH, S, Dk, Dv, Dr, page_size, max_pages, scale, dtype, stream
-    "repro_paged_attention": [_P] * 8 + [_I] * 9 + [_F, _I, _P],
+    # q, k_pool, v_pool, q_rope, kr_pool, pages, index, out, workspace,
+    # workspace_elems, B, H, KH, S, Dk, Dv, Dr, page_size, max_pages,
+    # pool_pages, pages_per_split, n_splits, scale, dtype, stream
+    "repro_paged_attention": [_P] * 9 + [_L] + [_I] * 12 + [_F, _I, _P],
     # q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, dtype, route, stream
     "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _I, _I, _P],
     # a, b, out, M, N, K, stream

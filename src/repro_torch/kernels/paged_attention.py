@@ -7,7 +7,8 @@ slot's allocation point at the shared *null page* (index ``n_pages``, the
 last pool row), whose garbage rows the mask ``t <= index + s`` always hides.
 
 * :func:`paged_attention` — the wrapper of the fused CUDA kernel
-  (``csrc/paged_attention.cu``, replacing ``paged_attention_pallas``);
+  (``csrc/paged_attention.cu``, replacing ``paged_attention_pallas``),
+  whose page walk is split across CTAs by :func:`split_plan`;
 * :func:`paged_attention_torch` — its plain version, operation for
   operation the reference's ``paged_attention_xla`` (page gather, then
   dense masked softmax), used for CPU tensors and as the kernel's yardstick;
@@ -23,11 +24,28 @@ page_size, dr)``.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple
+
 import torch
 
 from repro_torch.kernels import build
 
 _NEG = -1e30
+
+#: the split plan aims at this many CTAs per SM, in splits of at least
+#: SPLIT_MIN_POSITIONS positions (and SPLIT_MIN_ELEMS K/V elements of one
+#: kv head, so a split's fixed cost stays small beside its loads) and at
+#: most MAX_PAGES_PER_SPLIT pages (the page ids a CTA keeps in shared
+#: memory, 4 bytes each); a longer table takes more splits
+SPLIT_CTAS_PER_SM = 4
+SPLIT_MIN_POSITIONS = 32
+SPLIT_MIN_ELEMS = 8192
+MAX_PAGES_PER_SPLIT = 1024
+#: the workspace holds this many partials per (split, query row): the
+#: kernel's position groups of a CTA at most (its warps); the C entry
+#: point checks the workspace against what its launch needs
+WORKSPACE_GROUPS = 4
 
 
 # -- page-table plumbing --------------------------------------------------------
@@ -147,6 +165,37 @@ def paged_attention_torch(
 # -- the CUDA kernel's wrapper ----------------------------------------------------
 
 
+class SplitPlan(NamedTuple):
+    """How the kernel walks the pages: ``n_splits`` runs of
+    ``pages_per_split`` whole pages, each a CTA per (slot, kv head)."""
+
+    pages_per_split: int
+    n_splits: int
+
+
+def split_plan(
+    b: int, kh: int, max_pages: int, page_size: int, dk: int, dv: int, sms: int, *,
+    ctas_per_sm: int = SPLIT_CTAS_PER_SM, min_positions: int = SPLIT_MIN_POSITIONS,
+    min_elems: int = SPLIT_MIN_ELEMS, max_pages_per_split: int = MAX_PAGES_PER_SPLIT,
+) -> SplitPlan:
+    """The kernel's split plan, from shapes alone (never from ``index`` or
+    ``pages``, so a CUDA graph captures the call as it stands): enough
+    splits for ``ctas_per_sm`` CTAs on each of the card's ``sms`` SMs over
+    the ``b * kh`` (slot, kv head) pairs, none shorter than its minimum nor
+    longer than ``max_pages_per_split``; any table length is covered."""
+    want = -(-ctas_per_sm * sms // (b * kh))
+    min_positions = max(min_positions, -(-min_elems // (dk + dv)))
+    min_pages = -(-min_positions // page_size)
+    pages = min(max_pages, max_pages_per_split, max(min_pages, -(-max_pages // want)))
+    return SplitPlan(pages, -(-max_pages // pages))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (read once per device)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def paged_attention(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -159,7 +208,8 @@ def paged_attention(
     scale: float | None = None,
 ) -> torch.Tensor:
     """Fused paged attention: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors.  Returns (B, H, S, Dv) in q's dtype."""
+    version for CPU tensors.  Returns (B, H, S, Dv) in q's dtype.  A call
+    is two launches, the split walk and the merge of its partials."""
     if q.device.type == "cpu":
         return paged_attention_torch(
             q, k_pool, v_pool, pages, index, q_rope=q_rope, kr_pool=kr_pool,
@@ -192,18 +242,23 @@ def paged_attention(
         q_rope.shape[:3] != (b, h, s) or kr_pool.shape != (n_pool, 1, ps, dr)
     ):
         raise ValueError("paged_attention: q_rope (B,H,S,Dr) / kr_pool (P,1,ps,Dr) mismatch")
-    if dv > 512:
-        raise ValueError(f"paged_attention: value head dim {dv} exceeds 512")
+    for name, n in (("key", dk), ("value", dv), ("rope", dr)):
+        if n > 512:
+            raise ValueError(f"paged_attention: {name} head dim {n} exceeds 512")
     if scale is None:
         scale = 1.0 / (dk ** 0.5)
+    plan = split_plan(b, kh, mp, ps, dk, dv, sm_count(q.device))
     out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
+    # each (split, group)'s (B*H*S, Dv) f32 accumulator, then its max / sum
+    work = torch.empty(plan.n_splits * WORKSPACE_GROUPS * b * h * s * (dv + 2),
+                       dtype=torch.float32, device=q.device)
     build.launch(
         "repro_paged_attention",
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
         q_rope.data_ptr() if rope else None,
         kr_pool.data_ptr() if rope else None,
-        pages.data_ptr(), index.data_ptr(), out.data_ptr(),
-        b, h, kh, s, dk, dv, dr, ps, mp, scale,
+        pages.data_ptr(), index.data_ptr(), out.data_ptr(), work.data_ptr(), work.numel(),
+        b, h, kh, s, dk, dv, dr, ps, mp, n_pool, *plan, scale,
         build.dtype_code(q), build.stream_of(q),
     )
     paged_attention.launches += 1

@@ -145,6 +145,253 @@ def test_paged_attention_wrapper_uses_plain_version_on_cpu(rng):
     assert launch_counts() == before  # no kernel ran
 
 
+# -- paged attention: the split kernel's split / partial / merge algebra ---------------
+
+#: SMs the planner is given off the card (an H100's)
+SMS = 132
+#: (positions a group scores at a time, position groups a CTA): the CUDA
+#: kernel picks its own at launch (8-32 positions, 1-4 groups), which
+#: chip_smoke.py's phase 2 holds on the card; these span that range
+TILINGS = [(4, 4), (8, 1), (16, 2)]
+
+
+def _split_merge_algebra(q, k_pool, v_pool, pages, index, *, q_rope=None, kr_pool=None,
+                         scale=None, plan, sub, groups):
+    """The algebra of ``csrc/paged_attention.cu`` in plain f32 torch, at a
+    given split plan and tiling: in each split a CTA runs (its first
+    position at or before its slot's last query position; the others exit
+    at once), group g walks sub-tiles g, g + groups, ... of ``sub``
+    positions through the online softmax with the re-mask, leaving a
+    partial (m, l, acc) per row; then the merge of every (split, group)
+    partial of the splits that ran, with the l == 0 -> 1 guard.  It holds
+    the split-and-merge arithmetic, not the kernel's own tiling.  Returns
+    the output and what the walk met, for the coverage checks."""
+    b, h, s, dk = q.shape
+    _, kh, ps, _ = k_pool.shape
+    dv = v_pool.shape[-1]
+    mp = pages.shape[1]
+    g = h // kh
+    dr = q_rope.shape[-1] if q_rope is not None else 0
+    if scale is None:
+        scale = 1.0 / dk ** 0.5
+    split_len, cap = plan.pages_per_split * ps, ps * mp
+    rows = q.float().reshape(b, kh, g * s, dk)  # row r <-> (g = r // S, s = r % S)
+    rrows = q_rope.float().reshape(b, kh, g * s, dr) if dr else None
+    out = torch.zeros(b, kh, g * s, dv)
+    met = {"splits_past_slot": 0, "empty_row_partials": 0, "split_ends_at_table_end": 0,
+           "chunk_crosses_split": 0, "n_splits": plan.n_splits, "partials": 0}
+    for bi in range(b):
+        base = int(index[bi])
+        n_pos = min(base + s, cap)  # the slot's last row attends these
+        ran = -(-n_pos // split_len)
+        met["splits_past_slot"] += plan.n_splits - ran
+        qpos = base + torch.arange(g * s) % s
+        if s > 1 and base // split_len != (base + s - 1) // split_len:
+            met["chunk_crosses_split"] += 1
+        for k in range(kh):
+            parts = []
+            for sp in range(ran):
+                pos0, pos1 = sp * split_len, min((sp + 1) * split_len, n_pos)
+                met["split_ends_at_table_end"] += pos1 == cap
+                for grp in range(groups):
+                    m, l, acc = torch.full((g * s,), -1e30), torch.zeros(g * s), torch.zeros(g * s, dv)
+                    for t0 in range(pos0 + grp * sub, pos1, groups * sub):
+                        t = torch.arange(t0, min(t0 + sub, pos1))
+                        pg, row = pages[bi, t // ps].long(), t % ps
+                        sc = rows[bi, k] @ k_pool[pg, k, row].float().T
+                        if dr:
+                            sc = sc + rrows[bi, k] @ kr_pool[pg, 0, row].float().T
+                        valid = t[None, :] <= qpos[:, None]
+                        sc = torch.where(valid, sc * scale, torch.tensor(-1e30))
+                        m_new = torch.maximum(m, sc.max(dim=1).values)
+                        p = torch.where(valid, torch.exp(sc - m_new[:, None]), torch.tensor(0.0))
+                        alpha = torch.exp(m - m_new)
+                        l = l * alpha + p.sum(dim=1)
+                        acc = acc * alpha[:, None] + p @ v_pool[pg, k, row].float()
+                        m = m_new
+                    met["empty_row_partials"] += int((l == 0).sum())
+                    parts.append((m, l, acc))
+            met["partials"] = max(met["partials"], len(parts))
+            # the merge kernel
+            ms = torch.stack([m for m, _, _ in parts])
+            w = torch.exp(ms - ms.max(dim=0).values)
+            l = (torch.stack([lp for _, lp, _ in parts]) * w).sum(dim=0)
+            acc = (torch.stack([ap for _, _, ap in parts]) * w[:, :, None]).sum(dim=0)
+            out[bi, k] = acc / torch.where(l == 0, torch.tensor(1.0), l)[:, None]
+    return out.reshape(b, h, s, dv).to(q.dtype), met
+
+
+#: planner knobs for the small cases (ps=8, mp=4): one page a split, and
+#: the planner's own minimums (which give one split)
+SMALL_SPLITS = {
+    "page_splits": dict(ctas_per_sm=10_000, min_positions=1, min_elems=1),
+    "planner": {},
+}
+
+
+def _small_plan(plan, th):
+    b, h, _, dk = th["q"].shape
+    _, kh, ps, dv = th["v_pool"].shape
+    return tpa.split_plan(b, kh, th["pages"].shape[1], ps, dk, dv, SMS, **SMALL_SPLITS[plan])
+
+
+def _hold_split_algebra(jx, th, plan, sub, groups):
+    got, met = _split_merge_algebra(**th, plan=plan, sub=sub, groups=groups)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jpa.paged_attention_xla(**jx)),
+                               rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jpa.paged_attention_pallas(**jx, interpret=True)),
+        rtol=1e-4, atol=1e-4,
+    )
+    return met
+
+
+@pytest.mark.parametrize("sub,groups", TILINGS)
+@pytest.mark.parametrize("plan", sorted(SMALL_SPLITS))
+@pytest.mark.parametrize("s,lengths", GQA_CASES)
+def test_paged_split_arithmetic_matches_reference_gqa(s, lengths, plan, sub, groups, rng):
+    case = _paged_case(rng, b=2, h=4, kh=2, s=s, dk=32, dv=32, ps=8, mp=4, lengths=lengths)
+    jx, th = _sides(case)
+    split = _small_plan(plan, th)
+    met = _hold_split_algebra(jx, th, split, sub, groups)
+    assert met["n_splits"] == (4 if plan == "page_splits" else 1)
+
+
+@pytest.mark.parametrize("sub,groups", TILINGS)
+@pytest.mark.parametrize("plan", sorted(SMALL_SPLITS))
+@pytest.mark.parametrize("s,lengths", [(1, (15, 8)), (4, (6, 20))])
+def test_paged_split_arithmetic_matches_reference_mla(s, lengths, plan, sub, groups, rng):
+    case = _paged_case(
+        rng, b=2, h=4, kh=1, s=s, dk=32, dv=32, ps=8, mp=4, lengths=lengths, dr=16
+    )
+    jx, th = _sides(case)
+    _hold_split_algebra(jx, th, _small_plan(plan, th), sub, groups)
+
+
+def test_paged_split_cases_cover_the_edges(rng):
+    """Across GQA_CASES at one page a split: a slot of length 0, splits
+    wholly past a slot, a split that ends at the table's last page, an S=4
+    chunk across a split boundary, and rows whose share of a split that
+    ran is empty (m = -1e30, l = 0 merged in)."""
+    total = dict.fromkeys(("splits_past_slot", "empty_row_partials",
+                           "split_ends_at_table_end", "chunk_crosses_split"), 0)
+    for s, lengths in GQA_CASES:
+        case = _paged_case(rng, b=2, h=4, kh=2, s=s, dk=32, dv=32, ps=8, mp=4, lengths=lengths)
+        th = _sides(case)[1]
+        _, met = _split_merge_algebra(**th, plan=_small_plan("page_splits", th), sub=4, groups=4)
+        for key in total:
+            total[key] += met[key]
+    assert 0 in {ln for _, lengths in GQA_CASES for ln in lengths}
+    assert all(n > 0 for n in total.values()), total
+
+
+@pytest.mark.parametrize("s,lengths", [(1, (1023, 0, 700)), (4, (1020, 126, 0))])
+def test_paged_split_arithmetic_at_the_planners_own_splits(s, lengths, rng):
+    """A 64-page table (1024 positions) at small head dims: the planner's
+    own plan splits it (8 splits of 8 pages of 16); 1023 + 1 and 1020 + 4
+    end at the table's last position, 126..129 crosses a split boundary."""
+    case = _paged_case(rng, b=3, h=4, kh=2, s=s, dk=32, dv=32, ps=16, mp=64, lengths=lengths)
+    jx, th = _sides(case)
+    plan = tpa.split_plan(3, 2, 64, 16, 32, 32, SMS)
+    got, met = _split_merge_algebra(**th, plan=plan, sub=32, groups=4)
+    assert met["n_splits"] == 8 and met["splits_past_slot"] > 0
+    assert met["split_ends_at_table_end"] > 0 and (s == 1 or met["chunk_crosses_split"] > 0)
+    np.testing.assert_allclose(got.numpy(), np.asarray(jpa.paged_attention_xla(**jx)),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("knobs", [{}, dict(min_positions=1, min_elems=1)])
+def test_paged_split_arithmetic_on_a_table_past_4096_pages(knobs, rng):
+    """5000 pages of one position: the planner's own plan walks 512 pages
+    a split (more page ids than a CTA has threads) in 10 splits; with its
+    minimums at 1 it takes 264 splits of 19 pages (4 CTAs on each of 132
+    SMs over 2 slots), up to 1052 partials a row for the merge.  Held against
+    the reference's XLA path."""
+    case = _paged_case(rng, b=2, h=2, kh=1, s=1, dk=8, dv=8, ps=1, mp=5000, lengths=(4990, 1500))
+    jx, th = _sides(case)
+    plan = tpa.split_plan(2, 1, 5000, 1, 8, 8, SMS, **knobs)
+    assert plan == ((512, 10) if not knobs else (19, 264))
+    got, met = _split_merge_algebra(**th, plan=plan, sub=32, groups=4)
+    assert met["partials"] == 4 * -(-4991 // plan.pages_per_split)  # the longest slot's
+    np.testing.assert_allclose(got.numpy(), np.asarray(jpa.paged_attention_xla(**jx)),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_paged_split_planner_covers_the_table_from_shapes_alone():
+    """Every position of max_pages * page_size falls in exactly one split,
+    for tables of any length (past 4096 pages too); llama3.2-1b's and
+    zamba2-7b's decode (B=8, KH=8 / 32, 64 pages of 16) get at least two
+    CTAs per SM; the planner takes only shapes (ints), and the wrapper
+    reads no value of ``index`` or ``pages`` on the host."""
+    import inspect
+
+    for b, kh, mp, ps, dk, dv in ((8, 8, 64, 16, 64, 64), (8, 32, 64, 16, 112, 112),
+                                  (4, 1, 64, 16, 512, 512), (1, 8, 1, 16, 64, 64),
+                                  (2, 2, 4, 8, 32, 32), (3, 5, 37, 7, 48, 40),
+                                  (1, 1, 4096, 1, 64, 64), (64, 8, 512, 16, 64, 64),
+                                  (8, 8, 8192, 16, 64, 64), (8, 8, 8192, 1, 64, 64),
+                                  (64, 8, 131072, 1, 64, 64), (1, 1, 131072, 1, 512, 512)):
+        plan = tpa.split_plan(b, kh, mp, ps, dk, dv, SMS)
+        covered = [0] * (mp * ps)
+        for sp in range(plan.n_splits):
+            first = sp * plan.pages_per_split * ps
+            for t in range(first, min(first + plan.pages_per_split * ps, mp * ps)):
+                covered[t] += 1
+        assert covered == [1] * (mp * ps)
+        assert (plan.n_splits - 1) * plan.pages_per_split < mp  # no split is empty
+        assert 1 <= plan.pages_per_split <= tpa.MAX_PAGES_PER_SPLIT
+    for kh, d in ((8, 64), (32, 112)):
+        plan = tpa.split_plan(8, kh, 64, 16, d, d, SMS)
+        assert 8 * kh * plan.n_splits >= 2 * SMS
+        assert plan.pages_per_split * 16 >= 64
+    # a card with fewer SMs takes fewer splits
+    assert tpa.split_plan(8, 8, 64, 16, 64, 64, 66).n_splits < tpa.split_plan(
+        8, 8, 64, 16, 64, 64, SMS).n_splits
+    code = inspect.getsource(tpa.paged_attention) + inspect.getsource(tpa.split_plan)
+    for host_read in (".item(", ".tolist(", ".max(", ".cpu(", ".numpy(", "int(index",
+                      "int(pages", "bool("):
+        assert host_read not in code, host_read
+
+
+def test_paged_wrapper_passes_its_plan_and_raises_past_512(monkeypatch):
+    """Off the CPU the wrapper launches (meta tensors stand in for CUDA
+    ones, 132 SMs for the card's): the C entry point gets the plan and a
+    workspace of a partial per (split, group, query row), with its size,
+    and one launch is counted per call.  A head dim past 512 raises in
+    Python before any launch."""
+    import repro_torch.kernels as kernels
+
+    calls = []
+    monkeypatch.setattr(build, "check_cuda", lambda name, *ts: None)
+    monkeypatch.setattr(build, "stream_of", lambda t: 0)
+    monkeypatch.setattr(build, "launch", lambda name, *args: calls.append((name, args)))
+    monkeypatch.setattr(tpa, "sm_count", lambda device: SMS)
+    meta = dict(device="meta", dtype=torch.bfloat16)
+
+    def operands(b, h, kh, s, dk, dv, mp, ps=16):
+        return (torch.empty(b, h, s, dk, **meta), torch.empty(b * mp + 1, kh, ps, dk, **meta),
+                torch.empty(b * mp + 1, kh, ps, dv, **meta),
+                torch.empty(b, mp, dtype=torch.int32, device="meta"),
+                torch.empty(b, dtype=torch.int32, device="meta"))
+
+    kernels.reset_launches()
+    out = tpa.paged_attention(*operands(8, 32, 8, 1, 64, 64, 64))
+    assert tuple(out.shape) == (8, 32, 1, 64)
+    tpa.paged_attention(*operands(1, 32, 8, 1, 64, 64, 1))
+    (name, args), (_, single) = calls
+    assert name == "repro_paged_attention"
+    plan = tpa.split_plan(8, 8, 64, 16, 64, 64, SMS)
+    assert args[19:22] == (8 * 64 + 1, *plan)
+    assert args[9] == plan.n_splits * tpa.WORKSPACE_GROUPS * 8 * 32 * (64 + 2)
+    assert single[20:22] == (1, 1)
+    assert launch_counts()["paged_attention"] == 2
+    for dk, dv in ((520, 64), (64, 520)):
+        with pytest.raises(ValueError, match="exceeds 512"):
+            tpa.paged_attention(*operands(2, 4, 2, 1, dk, dv, 4))
+    assert len(calls) == 2
+    kernels.reset_launches()
+
+
 # -- page plumbing: bit for bit ------------------------------------------------------
 
 
