@@ -19,7 +19,9 @@ JSON line, and any failure raises (exit code != 0):
 4. the main path: full-width llama3.2-1b (16 layers, seeded random
    weights made on the card) served by ``repro_torch.serve.ServeEngine``
    from the paged KV cache (page_size=16, 8 slots, 16 requests), with
-   every kernel's launch count over that run, each of which must be > 0;
+   every kernel's launch count over that run, each of which must be > 0,
+   and the launches of each rmsnorm form (``rmsnorm_forms``: plain and
+   add must be > 0);
 5. decode profile: a full-width decode step at 8 busy slots, wall time
    and device time by kernel (``torch.profiler``), and the host and
    device ms of one sampled ``sample_tokens`` call (temperature and top-k)
@@ -39,13 +41,22 @@ JSON line, and any failure raises (exit code != 0):
    against plain versions, as phase 3;
 9. the SSM main path: full-width, full-depth mamba2-2.7b (64 layers)
    served from contiguous slots (8 slots, the same 16 requests), with the
-   ``rmsnorm`` and ``ssd_chunks`` launch counts (each > 0), then a decode
-   profile at 8 busy slots as phase 5;
+   ``rmsnorm`` and ``ssd_chunks`` launch counts (each > 0) and rmsnorm's
+   plain, add and gated forms (each > 0), then a decode profile at 8 busy
+   slots as phase 5;
 10. hybrid: zamba2-7b at full width cut to 12 layers (``mmmmmsmmmmms``)
    served from the paged cache (page_size 16, 8 slots, the same trace),
    with the ``rmsnorm``, ``ssd_chunks``, ``paged_attention`` and
-   ``flash_attention`` launch counts (each > 0), then its decode profile
-   as phase 5.
+   ``flash_attention`` launch counts (each > 0) and rmsnorm's three forms
+   (each > 0), then its decode profile as phase 5.
+
+RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
+llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
+= 100, bf16 d = 2050: the scalar path) and at d = 20480 (the two-pass
+loop); the add form (residual add fused, its sum bit-identical to the
+plain version's) at llama's decode and prefill; the gated form (Mamba-2's
+gate and skip fused) at mamba2's decode and prefill, zamba2's decode, an
+f32 prefill and a ragged shape, x and z read in place from wider tensors.
 
 The offload kernels (complex matmul, Schur update, matmul) are held
 against their plain versions in phase 2 at the paper's scale (2048^2 f32),
@@ -130,6 +141,12 @@ SERVE_KERNELS = ("rmsnorm", "paged_attention", "flash_attention")
 #: the SSM path's kernels (phase 9) and the hybrid's (phase 10)
 SSM_KERNELS = ("rmsnorm", "ssd_chunks")
 HYBRID_KERNELS = ("rmsnorm", "ssd_chunks", "paged_attention", "flash_attention")
+#: the rmsnorm forms each path must launch: the first block's norm is plain
+#: (and the prefill head's, after backbone's one unfused add), every other
+#: block norm and the decode head's take the add form, Mamba-2's gate the
+#: gated form
+NORM_FORMS = {"llama3.2-1b": ("plain", "add"), "mamba2-2.7b": ("plain", "add", "gated"),
+              "zamba2-7b": ("plain", "add", "gated")}
 #: zamba2-7b at full width, cut to 12 layers (two shared-attention sites)
 ZAMBA2_PATTERN = "mmmmmsmmmmms"
 
@@ -291,7 +308,6 @@ def phase_kernels(torch) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels.attention import flash_attention, flash_attention_torch
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_torch
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -302,20 +318,7 @@ def phase_kernels(torch) -> dict:
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
-    # rmsnorm: decode (8 rows) and prefill (512 rows)
-    for n_rows, dtype in ((8, torch.bfloat16), (512, torch.bfloat16), (8, torch.float32)):
-        x = randn(n_rows, d, dtype=dtype)
-        w = 1.0 + 0.1 * randn(d, dtype=torch.float32)
-        eps = 1e-5
-        w_lib = w.to(dtype)
-        e = x.element_size()
-        rows["rmsnorm"].append(_case(
-            torch, "rmsnorm", str(dtype).split(".")[1], [n_rows, d],
-            rmsnorm(x, w, eps), rmsnorm_torch(x, w, eps), timer,
-            lambda: rmsnorm(x, w, eps), lambda: rmsnorm_torch(x, w, eps),
-            lambda: F.rms_norm(x, (d,), w_lib, eps),
-            nbytes=2 * n_rows * d * e + 4 * d, flops=4 * n_rows * d,
-        ))
+    rows["rmsnorm"] = _norm_plain_cases(torch, timer, randn) + _norm_fused_cases(torch, timer, randn)
 
     rows["paged_attention"] = _paged_cases(torch, timer, randn, gen)
 
@@ -380,6 +383,98 @@ def phase_kernels(torch) -> dict:
         ))
     rows["ssd_chunks"] = _ssd_cases(torch, timer, randn, gen)
     rows.update(_offload_kernel_cases(torch, timer, randn))
+    return rows
+
+
+def _norm_plain_cases(torch, timer, randn) -> list:
+    """RMSNorm's plain form with an f32 weight (the cases the first kernel
+    also takes): llama3.2-1b's decode (8 rows) and prefill (512 rows) of d
+    = 2048 in bf16 (the headline first), f32 decode, then the scalar path at
+    ragged widths (f32 d = 100, bf16 d = 2050) and a bf16 row past the
+    registers (d = 20480, the two-pass loop).  ``F.rms_norm`` is the
+    library call (weight in x's type)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_torch
+
+    rows, eps = [], 1e-5
+    bf16, f32 = torch.bfloat16, torch.float32
+    for n_rows, d, dtype in ((8, 2048, bf16), (512, 2048, bf16), (8, 2048, f32),
+                             (8, 100, f32), (8, 2050, bf16), (8, 20480, bf16)):
+        x = randn(n_rows, d, dtype=dtype)
+        w = 1.0 + 0.1 * randn(d, dtype=f32)
+        w_lib = w.to(dtype)
+        e = x.element_size()
+        rows.append(_case(
+            torch, "rmsnorm", str(dtype).split(".")[1], [n_rows, d],
+            rmsnorm(x, w, eps), rmsnorm_torch(x, w, eps), timer,
+            lambda: rmsnorm(x, w, eps), lambda: rmsnorm_torch(x, w, eps),
+            lambda: F.rms_norm(x, (d,), w_lib, eps),
+            nbytes=2 * n_rows * d * e + 4 * d, flops=4 * n_rows * d,
+            extra={"form": "plain", "w": "float32"},
+        ))
+    return rows
+
+
+def _norm_fused_cases(torch, timer, randn) -> list:
+    """RMSNorm's plain form with a bf16 weight, the add form (x + delta
+    then the norm; s must match its plain version bit for bit) at llama's
+    decode and prefill, and the gated form (Mamba-2's (y + D x) silu(z)
+    norm, y f32) at mamba2-2.7b's decode (8 x 80 heads x 64) and prefill
+    (512 rows of 5120), zamba2-7b's decode (8 x 112 x 64), an f32 prefill
+    (the f32 traces' path) and a ragged bf16 shape (head dim 20, odd
+    strides: the scalar path).  As in the Mamba-2 block, x and z are
+    column slices of wider tensors, read in place.  No single PyTorch call
+    computes a fused form."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    rows, eps = [], 1e-5
+    bf16, f32 = torch.bfloat16, torch.float32
+    for n_rows, d in ((8, 2048), (512, 2048)):
+        x = randn(n_rows, d, dtype=bf16)
+        w = (1.0 + 0.1 * randn(d, dtype=f32)).to(bf16)
+        rows.append(_case(
+            torch, "rmsnorm", "bfloat16", [n_rows, d],
+            rn.rmsnorm(x, w, eps), rn.rmsnorm_torch(x, w, eps), timer,
+            lambda: rn.rmsnorm(x, w, eps), lambda: rn.rmsnorm_torch(x, w, eps),
+            lambda: F.rms_norm(x, (d,), w, eps),
+            nbytes=4 * n_rows * d + 2 * d, flops=4 * n_rows * d,
+            extra={"form": "plain", "w": "bfloat16"},
+        ))
+    for n_rows, d in ((8, 2048), (512, 2048)):
+        x, delta = randn(n_rows, d, dtype=bf16), randn(n_rows, d, dtype=bf16)
+        w = 1.0 + 0.1 * randn(d, dtype=f32)
+        got = dict(zip("sy", rn.add_rmsnorm(x, delta, w, eps)))
+        want = dict(zip("sy", rn.add_rmsnorm_torch(x, delta, w, eps)))
+        rows.append(_case(
+            torch, "rmsnorm", "bfloat16", [n_rows, d], got, want, timer,
+            lambda: rn.add_rmsnorm(x, delta, w, eps),
+            lambda: rn.add_rmsnorm_torch(x, delta, w, eps), None,
+            nbytes=2 * 4 * n_rows * d + 4 * d, flops=5 * n_rows * d,
+            tol={"s": (0.0, 0.0), "y": TOL["bfloat16"]}, extra={"form": "add", "w": "float32"},
+        ))
+    for b, s, h, p, n, dtype in ((8, 1, 80, 64, 128, bf16), (1, 512, 80, 64, 128, bf16),
+                                 (8, 1, 112, 64, 64, bf16), (1, 100, 80, 64, 128, f32),
+                                 (2, 3, 6, 20, 3, bf16)):
+        di = h * p
+        zxbcdt = randn(b, s, 2 * di + 2 * n + h, dtype=dtype)
+        xbc = randn(b, s, di + 2 * n, dtype=dtype)
+        z, x = zxbcdt[..., :di], xbc[..., :di].reshape(b, s, h, p)
+        y = randn(b, s, h, p, dtype=f32)
+        d_skip = 1.0 + 0.1 * randn(h, dtype=f32)
+        w = 1.0 + 0.1 * randn(di, dtype=f32)
+        args = (y, x, d_skip, z, w, eps)
+        e = x.element_size()
+        name = str(dtype).split(".")[1]
+        rows.append(_case(
+            torch, "rmsnorm", name, {"B": b, "S": s, "H": h, "P": p, "N": n},
+            rn.gated_rmsnorm(*args), rn.gated_rmsnorm_torch(*args), timer,
+            lambda: rn.gated_rmsnorm(*args), lambda: rn.gated_rmsnorm_torch(*args), None,
+            nbytes=b * s * di * (4 + 3 * e) + 4 * (di + h), flops=12 * b * s * di,
+            extra={"form": "gated", "w": "float32"},
+        ))
     return rows
 
 
@@ -655,6 +750,7 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: n for k, n in kernels.launch_counts().items() if k in expect}
+    norm_forms = dict(kernels.KERNELS["rmsnorm"].forms)
 
     if len(completions) != n_req:
         raise AssertionError(f"{len(completions)}/{n_req} requests completed")
@@ -665,6 +761,9 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
     missing = [k for k in expect if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{phase}: {arch} never launched {missing}: {launches}")
+    missing = [f for f in NORM_FORMS[arch] if norm_forms[f] <= 0]
+    if missing:
+        raise AssertionError(f"{phase}: {arch} never took rmsnorm's {missing} form: {norm_forms}")
 
     stats = engine.stats
     pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
@@ -686,7 +785,7 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
         "latency_p50_ms": pct(lat, 50), "latency_p99_ms": pct(lat, 99),
         "slot_reuses": stats.slot_reuses, "preemptions": stats.preemptions,
         "prefill_calls": stats.prefill_calls, "decode_steps": stats.decode_steps,
-        "launches": launches,
+        "launches": launches, "rmsnorm_forms": norm_forms,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     if "flash_attention" in expect:  # the routes the prefills' launches took

@@ -7,7 +7,8 @@ parent, each in a process of its own:
   its phase-5 decode profile (device ms per step, paged attention's share);
 - ``main_path_ssm``: chip_smoke.py's phase 9 (full-depth mamba2-2.7b from
   contiguous slots, the same 16 requests), twice per process, then its
-  decode profile;
+  decode profile; ``main_path_hybrid`` the same for phase 10 (zamba2-7b
+  cut to 12 layers, paged);
 - ``prefill``: one 512-token llama3.2-1b prefill (paged, batch 1, one new
   token) served by ``ServeEngine``: host wall ms (median of 7, after 3
   warm-up requests) and device ms by kernel from ``torch.profiler``;
@@ -21,10 +22,13 @@ parent, each in a process of its own:
   attention (CUDA graphs, cold L2), run against each version's kernel;
 - ``offload_kernels``: chip_smoke.py's phase-2 cases of the offload GEMM
   kernels (complex matmul, Schur update, matmul; CUDA graphs, cold L2),
-  each kernel's ms beside its PyTorch call's.
+  each kernel's ms beside its PyTorch call's;
+- ``norm_kernels``: this tree's chip_smoke.py phase-2 cases of rmsnorm's
+  plain form with an f32 weight (the cases every version's wrapper takes;
+  CUDA graphs, cold L2), run against each version's kernel.
 
     git archive <parent commit> | tar -x -C build/parent
-    python3 scripts/ab_parent_change.py main_path|main_path_ssm|prefill|prefill_ssm|ssd_kernels|flash_kernels|paged_kernels|offload_kernels [build/parent]
+    python3 scripts/ab_parent_change.py main_path|main_path_ssm|main_path_hybrid|prefill|prefill_ssm|ssd_kernels|flash_kernels|paged_kernels|offload_kernels|norm_kernels [build/parent]
 
 Prints one JSON line per measurement with its version.  Compare versions
 only within one call: the host's speed varies between machines.
@@ -97,26 +101,35 @@ MAIN_PATH_SSM = MAIN_PATH.replace(
     "c.phase_main_path(torch, **kw); c.phase_main_path(torch, **kw); "
     "c.phase_decode_profile(torch, 'mamba2-2.7b', sampled=False, phase='decode_profile_ssm', "
     "page_size=None)")
+MAIN_PATH_HYBRID = MAIN_PATH.replace(
+    "c.phase_main_path(torch); c.phase_main_path(torch); c.phase_decode_profile(torch, sampled=False)",
+    "kw = dict(arch='zamba2-7b', expect=c.HYBRID_KERNELS, phase='main_path_hybrid'); "
+    "c.phase_main_path(torch, **kw); c.phase_main_path(torch, **kw); "
+    "c.phase_decode_profile(torch, 'zamba2-7b', sampled=False, phase='decode_profile_hybrid')")
 # the cases come from this tree's chip_smoke.py, the kernels from the
 # version's own src/
-PAGED_KERNELS = f"""
+THIS_TREES_CASES = f"""
 import importlib.util, sys, torch
 sys.path.insert(0, "src")
 spec = importlib.util.spec_from_file_location("chip_smoke", {str(ROOT / "chip_smoke.py")!r})
 c = importlib.util.module_from_spec(spec)
 spec.loader.exec_module(c)
 g = torch.Generator(device="cuda").manual_seed(0)
-c._paged_cases(torch, c.Timer(torch), lambda *shape, dtype: torch.randn(
-    shape, generator=g, device="cuda").to(dtype), g)
+randn = lambda *shape, dtype: torch.randn(shape, generator=g, device="cuda").to(dtype)
 """
+PAGED_KERNELS = THIS_TREES_CASES + "c._paged_cases(torch, c.Timer(torch), randn, g)"
+NORM_KERNELS = THIS_TREES_CASES + "c._norm_plain_cases(torch, c.Timer(torch), randn)"
 CODE = {"main_path": MAIN_PATH, "main_path_ssm": MAIN_PATH_SSM,
+        "main_path_hybrid": MAIN_PATH_HYBRID,
         "prefill": PREFILL.replace("ARCH", "llama3.2-1b").replace("PAGE", "16"),
         "prefill_ssm": PREFILL.replace("ARCH", "mamba2-2.7b").replace("PAGE", "None"),
         "ssd_kernels": SSD_KERNELS, "flash_kernels": FLASH_KERNELS,
-        "paged_kernels": PAGED_KERNELS, "offload_kernels": OFFLOAD_KERNELS}
-KERNEL_KEYS = ("name", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
+        "paged_kernels": PAGED_KERNELS, "offload_kernels": OFFLOAD_KERNELS,
+        "norm_kernels": NORM_KERNELS}
+KERNEL_KEYS = ("name", "dtype", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
                "n_splits", "pages_per_split")
-PROFILE_KEYS = ("arch", "wall_ms_per_step", "device_ms_per_step", "device_busy_share")
+PROFILE_KEYS = ("arch", "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
+                "device_events_per_step")
 MAIN_PATH_KEYS = ("tok_per_s", "prefill_tok_per_s", "decode_tok_per_s", "decode_median_ms",
                   "ttft_p50_ms", "ttft_p99_ms", "wall_seconds", "launches")
 

@@ -30,9 +30,11 @@ KERNELS = {
 def _register_all() -> None:
     r = blocks.registry
     for block, target, fn, note in [
-        ("rmsnorm", "ref", ref.rmsnorm_ref, "plain-torch oracle"),
+        # one block, three forms: plain, delta= (the residual add fused) and
+        # gate= (Mamba-2's gated norm); a binding of it covers all three
+        ("rmsnorm", "ref", rmsnorm.rmsnorm_torch, "plain-torch oracle (ref.rmsnorm_ref)"),
         ("rmsnorm", "torch", rmsnorm.rmsnorm_torch, "plain torch"),
-        ("rmsnorm", "cuda", rmsnorm.rmsnorm, "csrc/rmsnorm.cu"),
+        ("rmsnorm", "cuda", rmsnorm.rmsnorm, "csrc/rmsnorm.cu, three forms"),
         ("attention", "ref", ref.attention_ref, "softmax einsum oracle"),
         ("attention", "torch", attention.flash_attention_torch,
          "dense masked softmax"),
@@ -75,6 +77,7 @@ def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     attention.flash_attention.routes = dict.fromkeys(attention.ROUTES, 0)
+    rmsnorm.rmsnorm.forms = dict.fromkeys(rmsnorm.FORMS, 0)
 
 
 def launch_counts() -> dict[str, int]:

@@ -40,8 +40,10 @@ _L = ctypes.c_longlong
 #: C entry point -> argtypes.  Pointers and the stream are ``c_void_p`` so
 #: ctypes never truncates them to 32 bits.
 ENTRY_POINTS = {
-    # x, w, out, rows, d, eps, dtype, stream
-    "repro_rmsnorm": [_P, _P, _P, _I, _I, _F, _I, _P],
+    # form, a, b, c, skip, w, s_out, out, the (batch, sequence, head, dim)
+    # strides of a, b and c, rows, seq, d, head_dim, eps, dtype, w_dtype,
+    # tpr, nv, stream
+    "repro_rmsnorm": [_I] + [_P] * 7 + [_L] * 12 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     # q, k_pool, v_pool, q_rope, kr_pool, pages, index, out, workspace,
     # workspace_elems, B, H, KH, S, Dk, Dv, Dr, page_size, max_pages,
     # pool_pages, pages_per_split, n_splits, scale, dtype, stream

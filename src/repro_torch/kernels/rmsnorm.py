@@ -1,41 +1,214 @@
-"""RMSNorm: the CUDA kernel's wrapper (``csrc/rmsnorm.cu``, the port of
-``repro/kernels/rmsnorm.py``'s ``rmsnorm_pallas``) and its plain version.
+"""RMSNorm in three forms: the CUDA kernel's wrappers (``csrc/rmsnorm.cu``,
+the port of ``repro/kernels/rmsnorm.py``'s ``rmsnorm_pallas``, with the
+residual add and Mamba-2's gated norm fused into it) and their plain
+versions.
 
-The wrapper runs the plain version only for a CPU tensor; a CUDA tensor
-launches the kernel or raises.
+- ``rmsnorm(x, w, eps)``: per row in f32, cast back to ``x.dtype``;
+- ``add_rmsnorm(x, delta, w, eps) -> (s, y)``: ``s = x + delta`` in
+  ``x.dtype``, then ``y = rmsnorm(s)`` (a block's residual add and the
+  next norm);
+- ``gated_rmsnorm(y, x, d_skip, z, w, eps)``: ``g = (y + d_skip[h] x) *
+  silu(z)`` in f32, normalised over rows of ``H * P``, cast to ``z.dtype``.
+
+Each plain version is the op sequence the models ran before the fusion.
+A wrapper runs its plain version only for a CPU tensor; a CUDA tensor
+launches the kernel or raises.  ``rmsnorm`` and ``rmsnorm_torch`` take the
+fused forms as keywords (``delta=``, ``gate=(x, d_skip, z)``), so the
+shelf's one ``rmsnorm`` block, and any binding of it, covers all three.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import functools
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels import build
+from repro_torch.kernels.ref import rmsnorm_ref
 
-# the plain version is the oracle itself, as the reference registers
-# ref.rmsnorm_ref for both its "ref" and "xla" targets
-from repro_torch.kernels.ref import rmsnorm_ref as rmsnorm_torch  # noqa: F401
+FORMS = ("plain", "add", "gated")
+#: elements a thread loads at a time, the most threads of a CTA and the
+#: chunks a thread keeps in registers (``csrc/rmsnorm.cu``: kChunk,
+#: kCtaThreads, kRegChunks)
+CHUNK, CTA_THREADS, REG_CHUNKS = 8, 512, 2
 
 
-def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """x (..., d) float32/bfloat16, w (d,) float32 -> x.dtype."""
-    if x.device.type == "cpu":
-        return rmsnorm_torch(x, w, eps)
-    build.check_cuda("rmsnorm", x, w)
-    d = x.shape[-1]
-    if w.dtype != torch.float32 or w.shape != (d,):
+@dataclasses.dataclass(frozen=True)
+class NormPlan:
+    tpr: int  # threads of the row's CTA, a multiple of 32 up to 512
+    nv: int  # chunks a thread keeps in registers; 0: the two-pass loop
+
+
+@functools.lru_cache(maxsize=256)
+def norm_plan(d: int) -> NormPlan:
+    """The kernel's layout, from the row's width: a CTA a row, each thread
+    holding one chunk of 8 for rows of up to 512 chunks and two up to 1024
+    (the CTA a multiple of 32 wide, so few threads idle); longer rows take
+    the two-pass loop."""
+    chunks = -(-d // CHUNK)
+    nv = next((n for n in range(1, REG_CHUNKS + 1) if chunks <= n * CTA_THREADS), 0)
+    if not nv:
+        return NormPlan(CTA_THREADS, 0)
+    threads = -(-chunks // nv)
+    return NormPlan(max(32, (threads + 31) // 32 * 32), nv)
+
+
+# -- plain versions -----------------------------------------------------------------
+
+
+def add_rmsnorm_torch(x: torch.Tensor, delta: torch.Tensor, w: torch.Tensor,
+                      eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    s = x + delta.to(x.dtype)
+    return s, rmsnorm_ref(s, w, eps)
+
+
+def gated_rmsnorm_torch(y: torch.Tensor, x: torch.Tensor, d_skip: torch.Tensor,
+                        z: torch.Tensor, w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """y (B, S, H, P) f32, x (B, S, H, P), d_skip (H,), z (B, S, H * P),
+    w (H * P,) -> (B, S, H * P) in z's dtype."""
+    y = y + d_skip.float()[None, None, :, None] * x.float()
+    g = y.reshape(z.shape) * F.silu(z.float())
+    ms = torch.mean(g * g, dim=-1, keepdim=True)
+    return (g * torch.rsqrt(ms + eps) * w.float()).to(z.dtype)
+
+
+def rmsnorm_torch(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+                  delta: torch.Tensor | None = None, gate: tuple | None = None):
+    """The plain versions behind one signature, as :func:`rmsnorm`."""
+    if delta is not None:
+        return add_rmsnorm_torch(x, delta, w, eps)
+    if gate is not None:
+        return gated_rmsnorm_torch(x, *gate, w, eps)
+    return rmsnorm_ref(x, w, eps)
+
+
+# -- the kernel's wrappers ----------------------------------------------------------
+
+
+def _check_param(name: str, p: torch.Tensor, n: int) -> None:
+    if p.dtype not in (torch.float32, torch.bfloat16) or tuple(p.shape) != (n,):
         raise ValueError(
-            f"rmsnorm: w must be float32 ({d},), got {w.dtype} {tuple(w.shape)}"
+            f"{name} must be float32 or bfloat16 ({n},), got {p.dtype} {tuple(p.shape)}"
         )
-    out = torch.empty_like(x)
-    rows = x.numel() // d if d else 0
-    if rows == 0:
-        return out
+
+
+def _strides4(t: torch.Tensor) -> tuple[int, ...]:
+    """(batch, sequence, head, within-head) strides in elements of a
+    (B, S, H, P) view; 0 where a dim is 1 (never stepped)."""
+    return tuple(st if n > 1 else 0 for n, st in zip(t.shape, t.stride()))
+
+
+def _launch(form: str, out: torch.Tensor, w: torch.Tensor, rows: int, seq: int, d: int,
+            head_dim: int, eps: float, operands, *, skip=None, s_out=None) -> None:
+    """``operands``: up to three (tensor, strides4) pairs, the C entry
+    point's a, b, c.  The kernel picks its vector path itself."""
+    plan = norm_plan(d)
+    ops = list(operands) + [(None, (0, 0, 0, 0))] * (3 - len(operands))
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     build.launch(
-        "repro_rmsnorm", x.data_ptr(), w.data_ptr(), out.data_ptr(), rows, d,
-        eps, build.dtype_code(x), build.stream_of(x),
+        "repro_rmsnorm", FORMS.index(form), *(ptr(t) for t, _ in ops), ptr(skip), ptr(w),
+        ptr(s_out), ptr(out), *(st for _, sts in ops for st in sts), rows, seq, d, head_dim,
+        eps, build.dtype_code(out), build.dtype_code(w), plan.tpr, plan.nv, build.stream_of(out),
     )
     rmsnorm.launches += 1
+    rmsnorm.forms[form] += 1
+
+
+def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
+            delta: torch.Tensor | None = None, gate: tuple | None = None):
+    """x (..., d) float32/bfloat16, w (d,) float32/bfloat16 -> x.dtype.
+    ``delta=`` gives :func:`add_rmsnorm`, ``gate=(x, d_skip, z)``
+    :func:`gated_rmsnorm` of ``x`` as its ``y``."""
+    if delta is not None and gate is not None:
+        raise ValueError("rmsnorm: give delta= or gate=, not both")
+    if delta is not None:
+        return add_rmsnorm(x, delta, w, eps)
+    if gate is not None:
+        return gated_rmsnorm(x, *gate, w, eps)
+    if x.device.type == "cpu":
+        return rmsnorm_ref(x, w, eps)
+    return _rmsnorm_cuda(x, w, eps)
+
+
+def _rmsnorm_cuda(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
+    build.check_cuda("rmsnorm", x, w)
+    d = x.shape[-1]
+    _check_param("rmsnorm: w", w, d)
+    out = torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows:  # rows of one d-wide head
+        _launch("plain", out, w, rows, rows, d, d, eps, [(x, (0, d, 0, 1))])
     return out
 
 
+def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, w: torch.Tensor,
+                eps: float = 1e-6) -> tuple[torch.Tensor, torch.Tensor]:
+    """x, delta (..., d), one type; w (d,) -> (s = x + delta, rmsnorm(s)),
+    both in x's type.  One launch: s is rounded to x's type before the norm
+    squares it, and written beside the norm's output (nothing in place)."""
+    if x.device.type == "cpu":
+        return add_rmsnorm_torch(x, delta, w, eps)
+    return _add_rmsnorm_cuda(x, delta, w, eps)
+
+
+def _add_rmsnorm_cuda(x, delta, w, eps):
+    build.check_cuda("add_rmsnorm", x, delta, w)
+    if delta.dtype != x.dtype or delta.shape != x.shape:
+        raise ValueError(
+            f"add_rmsnorm: delta must be {x.dtype} {tuple(x.shape)}, got "
+            f"{delta.dtype} {tuple(delta.shape)}"
+        )
+    d = x.shape[-1]
+    _check_param("add_rmsnorm: w", w, d)
+    s, out = torch.empty_like(x), torch.empty_like(x)
+    rows = x.numel() // d if d else 0
+    if rows:
+        _launch("add", out, w, rows, rows, d, d, eps, [(x, (0, d, 0, 1)), (delta, (0, d, 0, 1))],
+                s_out=s)
+    return s, out
+
+
+def gated_rmsnorm(y: torch.Tensor, x: torch.Tensor, d_skip: torch.Tensor, z: torch.Tensor,
+                  w: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """Mamba-2's gated norm: y (B, S, H, P) float32, x (B, S, H, P) and
+    z (B, S, H * P) of one type, d_skip (H,) and w (H * P,) of one type ->
+    (B, S, H * P) in z's type.  y, x and z are read in place through their
+    strides, whatever the layout (the kernel takes 16-byte loads of each
+    where the layout allows): in the Mamba-2 block x and z are column
+    slices of wider tensors, and y and x may come from an einsum or a conv
+    in another order."""
+    if y.device.type == "cpu":
+        return gated_rmsnorm_torch(y, x, d_skip, z, w, eps)
+    return _gated_rmsnorm_cuda(y, x, d_skip, z, w, eps)
+
+
+def _gated_rmsnorm_cuda(y, x, d_skip, z, w, eps):
+    build.check_cuda("gated_rmsnorm", d_skip, w)
+    if any(t.device != w.device for t in (y, x, z)):
+        raise ValueError(f"gated_rmsnorm: every operand must be on {w.device}")
+    if y.ndim != 4 or x.shape != y.shape:
+        raise ValueError(f"gated_rmsnorm: y and x must be one (B, S, H, P) shape, got "
+                         f"{tuple(y.shape)} and {tuple(x.shape)}")
+    b, seq, h, p = y.shape
+    di = h * p
+    if tuple(z.shape) != (b, seq, di):
+        raise ValueError(f"gated_rmsnorm: z must be {(b, seq, di)}, got {tuple(z.shape)}")
+    if y.dtype != torch.float32 or x.dtype != z.dtype:
+        raise ValueError(f"gated_rmsnorm: y must be float32 and x of z's type, got "
+                         f"{y.dtype}, {x.dtype}, {z.dtype}")
+    _check_param("gated_rmsnorm: d_skip", d_skip, h)
+    _check_param("gated_rmsnorm: w", w, di)
+    if d_skip.dtype != w.dtype:
+        raise ValueError("gated_rmsnorm: d_skip and w must share a type")
+    out = torch.empty((b, seq, di), dtype=z.dtype, device=z.device)
+    if b * seq and di:
+        ops = [(t, _strides4(t)) for t in (y, x, z.unflatten(-1, (h, p)))]
+        _launch("gated", out, w, b * seq, seq, di, p, eps, ops, skip=d_skip)
+    return out
+
+
+#: every launch of the kernel, and the launches of each form
 rmsnorm.launches = 0
+rmsnorm.forms = dict.fromkeys(FORMS, 0)

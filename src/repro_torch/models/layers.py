@@ -21,6 +21,23 @@ def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
     return blocks.call("rmsnorm", x, w, eps=eps)
 
 
+def add_rmsnorm(
+    w: torch.Tensor, x: torch.Tensor, delta: torch.Tensor | None, eps: float
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """(x + delta, rmsnorm(x + delta)): a branch's residual add fused into
+    the next norm (the sum in x's dtype, as the reference adds).  With no
+    pending delta (a forward's first block) the plain norm of x."""
+    if delta is None:
+        return x, rmsnorm(w, x, eps)
+    return blocks.call("rmsnorm", x, w, eps=eps, delta=delta.to(x.dtype))
+
+
+def gated_rmsnorm(w, y, x, d_skip, z, eps: float) -> torch.Tensor:
+    """Mamba-2's gated norm, ``norm((y + d_skip x) * silu(z)) * w`` in f32,
+    in z's dtype: one call of the rmsnorm block."""
+    return blocks.call("rmsnorm", y, w, eps=eps, gate=(x, d_skip, z))
+
+
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
     """Rotary embedding, llama-style rotate-half.
 

@@ -10,7 +10,10 @@ Consecutive identical pattern chars form a *group* whose parameters and
 caches are stacked with a leading layer axis, keyed exactly as the
 reference keys them (``blocks/g0_a/attn/wq``, ``g0_a/k``, ``g0_m/ssm``,
 ...); the shared block is one unstacked set (``shared_block``).  A Python
-loop runs the layers.  MoE and MLA are not ported yet and raise.
+loop runs the layers.  Each branch's output stays pending until the next
+norm, which adds it to the residual stream in the same launch
+(``add_rmsnorm``); the values are the reference's ``x + branch`` then
+``rmsnorm``.  MoE and MLA are not ported yet and raise.
 
 Modes: ``prefill`` (fill the cache, logits), ``decode`` (one token per row
 against the cache) and ``extend`` (an S-token chunk per row, causal within
@@ -37,12 +40,12 @@ from repro_torch.models.attention import (
     cache_metas_paged,
 )
 from repro_torch.models.layers import (
+    add_rmsnorm,
     embed_lookup,
     embed_metas,
     lm_logits,
     mlp_forward,
     mlp_metas,
-    rmsnorm,
 )
 from repro_torch.models.params import ParamMeta, torch_dtype
 from repro_torch.models.ssm import ssm_forward, ssm_metas, ssm_state_metas
@@ -193,18 +196,19 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
-def _apply_attn_block(lp, x, cfg, positions, cache, index, mode, pages=None):
+def _apply_attn_block(lp, x, pending, cfg, positions, cache, index, mode, pages=None):
+    """Returns (x, pending): the residual stream with the attention output
+    added (fused into ln2) and the MLP's output, which the next norm adds."""
     cd = torch_dtype(cfg.compute_dtype)
-    h_in = rmsnorm(lp["ln1"], x, cfg.norm_eps).to(cd)
+    x, h_in = add_rmsnorm(lp["ln1"], x, pending, cfg.norm_eps)
     attn_out, cache = attention_forward(
-        lp["attn"], h_in, cfg, positions, cache, index, mode, pages
+        lp["attn"], h_in.to(cd), cfg, positions, cache, index, mode, pages
     )
-    x = x + attn_out.to(x.dtype)
-    ff_in = rmsnorm(lp["ln2"], x, cfg.norm_eps).to(cd)
-    return x + mlp_forward(lp["mlp"], ff_in, cd).to(x.dtype)
+    x, ff_in = add_rmsnorm(lp["ln2"], x, attn_out, cfg.norm_eps)
+    return x, mlp_forward(lp["mlp"], ff_in.to(cd), cd)
 
 
-def _apply_mamba_block(lp, x, cfg, cache, mode):
+def _apply_mamba_block(lp, x, pending, cfg, cache, mode):
     if mode == "extend":
         raise ValueError(
             "chunked prefill (extend mode) is unsupported for SSM blocks: "
@@ -212,16 +216,18 @@ def _apply_mamba_block(lp, x, cfg, cache, mode):
             "boundaries"
         )
     cd = torch_dtype(cfg.compute_dtype)
-    h_in = rmsnorm(lp["ln"], x, cfg.norm_eps).to(cd)
-    out, _ = ssm_forward(lp["mixer"], h_in, cfg, cache, mode)
-    return x + out.to(x.dtype)
+    x, h_in = add_rmsnorm(lp["ln"], x, pending, cfg.norm_eps)
+    out, _ = ssm_forward(lp["mixer"], h_in.to(cd), cfg, cache, mode)
+    return x, out
 
 
 # -- forward / serve ----------------------------------------------------------------------
 
 
-def backbone(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cache: Any = None):
-    """All blocks, no head.  Returns (hidden (B, S, D), cache)."""
+def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
+    """All blocks.  Returns (x, pending, cache): every block's residual add
+    lands in the next block's norm (``add_rmsnorm``), so the last block's
+    output is still pending; None if there is no block."""
     _require_ported(cfg)
     cd = torch_dtype(cfg.compute_dtype)
     x = embed_lookup(params["embed"], batch["tokens"], cd)
@@ -239,6 +245,7 @@ def backbone(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cac
         index = None
         positions = steps[None, :].expand(b, s)
 
+    pending = None
     for g in groups_of(cfg):
         gcache = cache[g.key] if cache is not None else None
         for i in range(g.count):
@@ -246,22 +253,34 @@ def backbone(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cac
             # each 's' site applies the one shared set to its own cache
             lp = params["shared_block"] if g.kind == "s" else _layer(params["blocks"][g.key], i)
             if g.kind == "m":
-                x = _apply_mamba_block(lp, x, cfg, lcache, mode)
+                x, pending = _apply_mamba_block(lp, x, pending, cfg, lcache, mode)
             else:
-                x = _apply_attn_block(lp, x, cfg, positions, lcache, index, mode, pages)
-    return x, cache
+                x, pending = _apply_attn_block(
+                    lp, x, pending, cfg, positions, lcache, index, mode, pages
+                )
+    return x, pending, cache
 
 
-def head(params: Any, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+def backbone(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cache: Any = None):
+    """All blocks, no head.  Returns (hidden (B, S, D), cache), the last
+    block's residual add applied: the one add of a forward left unfused."""
+    x, pending, cache = _blocks(params, batch, cfg, mode, cache)
+    return (x if pending is None else x + pending.to(x.dtype)), cache
+
+
+def head(params: Any, x: torch.Tensor, cfg: ArchConfig,
+         pending: torch.Tensor | None = None) -> torch.Tensor:
+    """The final norm (of ``x + pending``, fused, when the last block's
+    output is pending) and the logits."""
+    _, x = add_rmsnorm(params["final_norm"], x, pending, cfg.norm_eps)
     return lm_logits(params["embed"], x, cfg, torch_dtype(cfg.compute_dtype))
 
 
 def forward(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cache: Any = None):
-    """Returns (logits, cache)."""
-    x, cache = backbone(params, batch, cfg, mode, cache)
+    """Returns (logits, cache).  Every residual add lands in a norm."""
+    x, pending, cache = _blocks(params, batch, cfg, mode, cache)
     s = x.shape[1]
-    logits = head(params, x, cfg)
+    logits = head(params, x, cfg, pending)
     if cache is not None:
         if mode in ("decode", "extend"):
             cache["index"] = cache["index"] + s

@@ -15,6 +15,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import blocks
+from repro_torch.models.layers import gated_rmsnorm
 from repro_torch.models.params import ParamMeta, torch_dtype
 
 
@@ -139,10 +140,7 @@ def ssm_forward(
             state["conv"].copy_(new_conv)
             state["ssm"].copy_(ssm_fin)
 
-    y = y + p["d_skip"].float()[None, None, :, None] * x_ssm.float()
-    y = y.reshape(b, seq, di)
-    # gated RMSNorm (Mamba-2): norm(y * silu(z)) * w, in f32
-    g = y * F.silu(z.float())
-    ms = torch.mean(g * g, dim=-1, keepdim=True)
-    g = g * torch.rsqrt(ms + cfg.norm_eps) * p["norm"].float()
-    return g.to(cdty) @ p["out_proj"].to(cdty), state
+    # the D skip and the gated RMSNorm (Mamba-2), norm((y + D x) * silu(z)) * w
+    # in f32: one call of the rmsnorm block, reading x and z in place
+    g = gated_rmsnorm(p["norm"], y, x_ssm, p["d_skip"], z, cfg.norm_eps)
+    return g @ p["out_proj"].to(cdty), state
