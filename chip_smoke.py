@@ -15,17 +15,34 @@ JSON line, and any failure raises (exit code != 0):
    one;
 3. served f32 trace: a short greedy trace of the full-width config cut to
    2 layers, once through the kernels and once with the plain versions
-   bound; the tokens must be identical;
+   bound; the tokens must be identical.  It runs twice: at exact prompt
+   lengths (prefill eager: ``graphs`` shows no prefill capture), and with
+   ``prefill_bucket=16``, where padded lengths repeat and the prefill
+   program replays its CUDA graphs (prefill replays > 0);
 4. the main path: full-width llama3.2-1b (16 layers, seeded random
    weights made on the card) served by ``repro_torch.serve.ServeEngine``
    from the paged KV cache (page_size=16, 8 slots, 16 requests), with
    every kernel's launch count over that run, each of which must be > 0,
    and the launches of each rmsnorm form (``rmsnorm_forms``: plain and
-   add must be > 0);
+   add must be > 0).  The engine runs its decode step as CUDA graphs
+   (``repro_torch.serve.programs``; prefill too where lengths are
+   bucketed, not here); ``graphs`` gives each program's calls, eager
+   calls, captures, replays, capture seconds and graph keys.  Decode must
+   capture at most three times (once per sampling policy) and replay every
+   step after its key's first; the launch counts include the replays'
+   launches;
 5. decode profile: a full-width decode step at 8 busy slots, wall time
-   and device time by kernel (``torch.profiler``), and the host and
-   device ms of one sampled ``sample_tokens`` call (temperature and top-k)
-   at the same batch and the full vocabulary;
+   and device time by kernel (``torch.profiler``), the host and device ms
+   of one sampled ``sample_tokens`` call (temperature and top-k) at the
+   same batch and the full vocabulary, and ``replay_ms_per_step``, the
+   CUDA-event time of back-to-back decode steps (``_top_k``: of a top-k
+   batch, the sampler inside the graph).  Then ``replay_vs_eager``:
+   from one engine state (the cache cloned), one replay of the decode
+   graph and one eager call of the decode step function on the same
+   inputs, logits and the whole cache held to ``TOL`` (greedy, and a top-k
+   batch).  The profiler's events of rmsnorm's and paged attention's
+   kernels over the profiled replays must equal the launches the replays
+   added to their counts;
 6. offload: the paper's function-block offload pipeline
    (``repro_torch.offload.OffloadSession``) on the card for the four
    application entry points (FFT n=256, LU n=192), with the
@@ -38,17 +55,21 @@ JSON line, and any failure raises (exit code != 0):
    2048 x 2048, checked against ``np.fft.fft2`` and |det| = 1, timed beside
    cuFFT (``torch.fft.fft2``) and cuSOLVER (``torch.linalg.lu_factor``);
 8. served f32 trace, SSM: full-width mamba2-2.7b cut to 2 layers, kernels
-   against plain versions, as phase 3;
+   against plain versions, as phase 3's exact lengths (an SSM refuses
+   buckets; every prefill after the first starts from the shared batch-1
+   state, zeroed inside the prefill program);
 9. the SSM main path: full-width, full-depth mamba2-2.7b (64 layers)
    served from contiguous slots (8 slots, the same 16 requests), with the
    ``rmsnorm`` and ``ssd_chunks`` launch counts (each > 0) and rmsnorm's
    plain, add and gated forms (each > 0), then a decode profile at 8 busy
-   slots as phase 5;
+   slots as phase 5 (its ``replay_vs_eager`` greedy);
 10. hybrid: zamba2-7b at full width cut to 12 layers (``mmmmmsmmmmms``)
    served from the paged cache (page_size 16, 8 slots, the same trace),
    with the ``rmsnorm``, ``ssd_chunks``, ``paged_attention`` and
    ``flash_attention`` launch counts (each > 0) and rmsnorm's three forms
-   (each > 0), then its decode profile as phase 5.
+   (each > 0), then its decode profile as phase 5 (``replay_vs_eager``
+   greedy).  Phases 9 and 10 report ``graphs`` and hold decode's captures
+   and replays as phase 4.
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -80,6 +101,7 @@ the repository next to this file; exits non-zero without either.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -679,13 +701,15 @@ def _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw):
     engine = ServeEngine(cfg, params=params, seed=0, device="cuda", **kw)
     ids = [engine.submit(Request(p, max_new_tokens=g)) for p, g in zip(prompts, gens)]
     engine.run_until_idle(max_steps=10_000)
-    return [engine.completions[i].tokens for i in ids]
+    return [engine.completions[i].tokens for i in ids], engine.graph_stats()
 
 
-def phase_served_f32(torch, arch: str = "llama3.2-1b", lens=(37, 100, 16, 70),
-                     gens=(12, 6, 10, 8), **kw) -> None:
+def phase_served_f32(torch, arch: str = "llama3.2-1b", lens=(37, 100, 16, 70, 37, 100),
+                     gens=(12, 6, 10, 8, 5, 7), **kw) -> None:
     """Full-width ``arch`` cut to 2 layers in f32: kernels vs plain, on
-    prompts of ``lens`` tokens that generate ``gens`` tokens each."""
+    prompts of ``lens`` tokens that generate ``gens`` tokens each.  With
+    ``prefill_bucket`` the repeated padded lengths replay their prefill
+    graphs; without, prefill runs eagerly."""
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -702,15 +726,44 @@ def phase_served_f32(torch, arch: str = "llama3.2-1b", lens=(37, 100, 16, 70),
     plain = {"rmsnorm": "torch", "attention": "torch", "paged_attention": "torch",
              "ssd_scan": "torch"}
     t0 = time.perf_counter()
-    kernels = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw)
+    kernels, graphs = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw)
     with blocks.bind(plain):
-        plain_tokens = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw)
+        plain_tokens, plain_graphs = _engine_trace(
+            ServeEngine, Request, cfg, params, prompts, gens, **kw)
     if kernels != plain_tokens:
         raise AssertionError(
             f"f32 served trace differs: kernels {kernels} vs plain {plain_tokens}")
+    bucketed = kw.get("prefill_bucket") is not None
+    for g in (graphs, plain_graphs):
+        _check_graphs("served_f32", g)
+        if (g["prefill"]["replays"] > 0) != bucketed or (g["prefill"]["captures"] > 0) != bucketed:
+            raise AssertionError(f"served_f32: prefill graphs {g['prefill']} with "
+                                 f"prefill_bucket={kw.get('prefill_bucket')}")
     emit({"phase": "served_f32", "arch": cfg.name, "layers": 2, "requests": len(prompts),
+          "prefill_bucket": kw.get("prefill_bucket"),
           "identical": True, "tokens": [list(t) for t in kernels],
+          "graphs": graphs, "plain_graphs": plain_graphs,
           "seconds": round(time.perf_counter() - t0, 3)})
+
+
+def _check_graphs(phase: str, stats: dict, decode_steps: int | None = None) -> None:
+    """Decode captures at most once per sampling policy and replays every
+    step after its key's first call."""
+    dec = stats["decode"]
+    if dec["captures"] > 3 or dec["eager_calls"] > 3:
+        raise AssertionError(f"{phase}: decode captured {dec['captures']} times, "
+                             f"{dec['eager_calls']} eager calls (at most 3 each)")
+    if decode_steps is not None and dec["replays"] + dec["eager_calls"] != decode_steps:
+        raise AssertionError(f"{phase}: {decode_steps} decode steps, but {dec['replays']} "
+                             f"replays and {dec['eager_calls']} eager calls")
+
+
+def _free_dead_engines(torch) -> None:
+    """Free the engines of earlier phases (an engine is a reference cycle:
+    its step programs hold its methods), so a phase's ``peak_memory_gb``
+    is its own."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def _serve_config(arch: str):
@@ -733,6 +786,7 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
 
     cfg = _serve_config(arch)
     engine_kw = dict(dict(n_slots=8, max_len=1024, page_size=16), **engine_kw)
+    _free_dead_engines(torch)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     engine = ServeEngine(cfg, seed=0, device="cuda", **engine_kw)
@@ -751,6 +805,7 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
     wall = time.perf_counter() - t0
     launches = {k: n for k, n in kernels.launch_counts().items() if k in expect}
     norm_forms = dict(kernels.KERNELS["rmsnorm"].forms)
+    graphs = engine.graph_stats()
 
     if len(completions) != n_req:
         raise AssertionError(f"{len(completions)}/{n_req} requests completed")
@@ -766,6 +821,9 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
         raise AssertionError(f"{phase}: {arch} never took rmsnorm's {missing} form: {norm_forms}")
 
     stats = engine.stats
+    _check_graphs(phase, graphs, stats.decode_steps)
+    if graphs["decode"]["replays"] <= 0:
+        raise AssertionError(f"{phase}: decode never replayed its graph: {graphs['decode']}")
     pct = lambda xs, q: float(np.percentile(xs, q))  # noqa: E731
     ttft = [c.ttft * 1e3 for c in completions]
     lat = [c.latency * 1e3 for c in completions]
@@ -779,13 +837,15 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
         "setup_seconds": setup, "wall_seconds": wall,
         "tok_per_s": n_req * gen / wall,
         "prefill_tok_per_s": engine.telemetry["prefill"].tokens_per_second,
+        "prefill_seconds": engine.telemetry["prefill"].seconds,
+        "decode_seconds": engine.telemetry["decode"].seconds,
         "decode_tok_per_s": engine.telemetry["decode"].tokens_per_second,
         "decode_median_ms": engine.median_decode_step() * 1e3,
         "ttft_p50_ms": pct(ttft, 50), "ttft_p99_ms": pct(ttft, 99),
         "latency_p50_ms": pct(lat, 50), "latency_p99_ms": pct(lat, 99),
         "slot_reuses": stats.slot_reuses, "preemptions": stats.preemptions,
         "prefill_calls": stats.prefill_calls, "decode_steps": stats.decode_steps,
-        "launches": launches, "rmsnorm_forms": norm_forms,
+        "launches": launches, "rmsnorm_forms": norm_forms, "graphs": graphs,
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
     }
     if "flash_attention" in expect:  # the routes the prefills' launches took
@@ -799,14 +859,20 @@ def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
     """Where a full-width decode step's time goes, at 8 busy slots with
     ~512-token contexts: wall time per step unprofiled, then device time
     per step by kernel from ``torch.profiler`` over the same number of
-    steps.  The busy share is device time over unprofiled wall time."""
+    steps.  The busy share is device time over unprofiled wall time.  Then
+    the decode graph's replay against an eager call (greedy; with
+    ``sampled`` a top-k batch too) and the CUDA-event time of back-to-back
+    decode steps."""
     import numpy as np
     from torch.profiler import ProfilerActivity, profile
 
+    import repro_torch.kernels as kernels
     from repro_torch.serve import Request, ServeEngine
 
     cfg = _serve_config(arch)
     engine_kw = dict(dict(n_slots=8, max_len=1024, page_size=16), **engine_kw)
+    _free_dead_engines(torch)
+    torch.cuda.reset_peak_memory_stats()
     engine = ServeEngine(cfg, seed=0, device="cuda", **engine_kw)
     rng = np.random.default_rng(2)
     for _ in range(8):
@@ -822,11 +888,16 @@ def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
+    counted, replays = kernels.counters(), engine.graph_stats()["decode"]["replays"]
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             engine.step()
         torch.cuda.synchronize()
-    device, kernels = _device_events(prof)
+    if engine.graph_stats()["decode"]["replays"] - replays != n:
+        raise AssertionError(f"{phase}: the {n} profiled decode steps were not all replays")
+    added = {k: v - counted[k] for k, v in kernels.counters().items()}
+    replay_launches = _replay_launches(phase, prof, added, n)
+    device, events = _device_events(prof)
     total = sum(device.values()) / n
     top = sorted(device.items(), key=lambda kv: -kv[1])[:10]
     out = {
@@ -834,15 +905,137 @@ def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
         "wall_ms_per_step": wall_ms,
         "device_ms_per_step": total if device else None,
         "device_busy_share": total / wall_ms if device else None,
-        "device_events_per_step": kernels / n,
+        "device_events_per_step": events / n,
+        "replay_launches_per_step": replay_launches,
         # paged attention's split and merge kernels together
         "paged_device_ms_per_step": sum(v for k, v in device.items() if "paged" in k) / n,
         "top_device_ms_per_step": {k[:80]: v / n for k, v in top},
+        "graphs": engine.graph_stats(),
     }
     if sampled:
         out["sampled"] = _sampler_cost(torch, cfg.vocab_size, wall_ms)
+    out["replay_vs_eager"] = [_replay_vs_eager(torch, engine, policy)
+                              for policy in (("greedy", "top_k") if sampled else ("greedy",))]
+    out["replay_ms_per_step"] = _replay_ms(torch, engine)
+    if sampled:  # the sampler inside the graph: a top-k batch's step
+        out["replay_ms_per_step_top_k"] = _replay_ms(torch, engine, policy="top_k")
+    out["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     emit(out)
     return out
+
+
+#: each counted kernel's device-side names (paged attention: a launch is a
+#: split walk and its merge)
+KERNEL_EVENTS = {"rmsnorm": ("norm_kernel",),
+                 "paged_attention": ("paged_attention_split", "paged_attention_merge")}
+
+
+def _replay_launches(phase: str, prof, added: dict, n: int) -> dict:
+    """Hold the launches that ``n`` profiled decode replays added to the
+    wrappers' counts (the capture's counts, added at each replay) against
+    the profiler's device events of those kernels: each counted launch
+    must be one event of each of its kernel's names.  Returns the launches
+    per step."""
+    import re
+
+    from torch.autograd import DeviceType
+
+    names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
+    out = {}
+    for counter, kernel_names in KERNEL_EVENTS.items():
+        for name in kernel_names:
+            seen = sum(1 for ev in names if re.search(rf"(?<!\w){name}(?!\w)", ev))
+            if seen != added[counter]:
+                raise AssertionError(f"{phase}: {n} replays counted {added[counter]} "
+                                     f"{counter} launches, the profiler saw {seen} {name}")
+        out[counter] = added[counter] / n
+    return out
+
+
+def _tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _decode_inputs(engine, policy: str) -> list:
+    """The engine's decode inputs, the knobs set for ``policy`` (top-k: 40
+    at temperature 0.8 in every slot)."""
+    import numpy as np
+
+    inputs = list(engine._decode_inputs())
+    if policy != "greedy":
+        n = engine.n_slots
+        inputs[3] = np.full((n,), 0.8, np.float32)
+        inputs[4] = np.full((n,), 40 if policy == "top_k" else 0, np.int32)
+    return inputs
+
+
+def _replay_vs_eager(torch, engine, policy: str) -> dict:
+    """From one engine state (the cache cloned and restored in place), one
+    replay of the decode graph of ``policy`` and one eager call of the
+    program's underlying step function on the same inputs.  Logits and
+    every cache leaf (the rows the step wrote; the rest is untouched by
+    both) are held to the compute type's ``TOL``: cuBLAS may pick another
+    algorithm on the capture stream, and the SSM state is computed from
+    bf16 products.  The step's index advance must be the same."""
+    program = engine.programs["decode"]
+    inputs = _decode_inputs(engine, policy)
+    saved = _tree(torch.clone, engine.cache)
+
+    def restore():
+        _tree(lambda pair: pair[0].copy_(pair[1]), _zip_trees(engine.cache, saved))
+
+    with torch.no_grad():
+        for _ in range(3):  # the key's eager call and capture, then a replay
+            replays = program.summary()["replays"]
+            tok_g, logits_g = (t.clone() for t in program(inputs, policy=policy))
+            if program.summary()["replays"] > replays and program.summary()["captures"] > 0:
+                break
+            restore()
+        else:
+            raise AssertionError(f"replay_vs_eager: {policy} never replayed")
+        graph_cache = _tree(torch.clone, engine.cache)
+        restore()
+        views = [torch.from_numpy(a.copy()).to(engine.device) for a in inputs]
+        tok_e, logits_e = program.fn(*views, policy=policy)
+        torch.cuda.synchronize()
+        dtype = engine.cfg.compute_dtype
+        errs = {"logits": compare(torch, logits_g, logits_e, dtype)}
+        for key, group in graph_cache.items():
+            if key == "index":
+                if not torch.equal(group, engine.cache["index"]):
+                    raise AssertionError("replay_vs_eager: the index advanced differently")
+                continue
+            for leaf, value in group.items():
+                errs[f"{key}/{leaf}"] = compare(torch, value, engine.cache[key][leaf], dtype)
+        restore()
+    return {"policy": policy, "tol": TOL[dtype], "max_abs_err": errs,
+            "tokens_equal": bool(torch.equal(tok_g, tok_e))}
+
+
+def _zip_trees(a, b):
+    if isinstance(a, dict):
+        return {k: _zip_trees(a[k], b[k]) for k in a}
+    return (a, b)
+
+
+def _replay_ms(torch, engine, n: int = 10, policy: str = "greedy") -> float:
+    """CUDA-event ms per decode step over ``n`` back-to-back calls of the
+    decode program under ``policy`` (replays: ``replay_vs_eager`` captured
+    the key), its inputs uploaded each call as in serving; the engine's
+    cache advances."""
+    program = engine.programs["decode"]
+    inputs = _decode_inputs(engine, policy)
+    with torch.no_grad():
+        program(inputs, policy=policy)
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            program(inputs, policy=policy)
+        end.record()
+        torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def _device_events(prof) -> tuple[dict, int]:
@@ -876,7 +1069,7 @@ def _sampler_cost(torch, vocab: int, step_ms: float, b: int = 8, n: int = 20) ->
     top_ks = torch.full((b,), 40, device="cuda")
 
     def call():
-        return sample_tokens(logits, seeds, steps, temps, top_ks)
+        return sample_tokens(logits, seeds, steps, temps, top_ks, policy="top_k")
 
     toks = call()
     top40 = torch.topk(logits, 40, dim=-1).indices
@@ -1069,6 +1262,7 @@ def main() -> int:
     phase_device(torch)
     rows = phase_kernels(torch)
     phase_served_f32(torch)
+    phase_served_f32(torch, prefill_bucket=16)
     main = phase_main_path(torch)
     phase_decode_profile(torch)
     offload = phase_offload(torch)
@@ -1076,7 +1270,7 @@ def main() -> int:
     # the SSM path (contiguous slots: its state has no sequence axis) and
     # the hybrid (paged K/V at the shared-attention sites)
     # a 300-token prompt pads to 384 and runs three chunks with their carry
-    phase_served_f32(torch, "mamba2-2.7b", (37, 100, 16, 70, 300), (12, 6, 10, 8, 8),
+    phase_served_f32(torch, "mamba2-2.7b", (37, 100, 16, 70, 300, 100), (12, 6, 10, 8, 8, 5),
                      page_size=None, max_len=320)
     ssm = phase_main_path(torch, "mamba2-2.7b", SSM_KERNELS, "main_path_ssm", page_size=None)
     phase_decode_profile(torch, "mamba2-2.7b", sampled=False, phase="decode_profile_ssm",

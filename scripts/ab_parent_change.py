@@ -9,11 +9,20 @@ parent, each in a process of its own:
   contiguous slots, the same 16 requests), twice per process, then its
   decode profile; ``main_path_hybrid`` the same for phase 10 (zamba2-7b
   cut to 12 layers, paged);
-- ``prefill``: one 512-token llama3.2-1b prefill (paged, batch 1, one new
-  token) served by ``ServeEngine``: host wall ms (median of 7, after 3
-  warm-up requests) and device ms by kernel from ``torch.profiler``;
+- ``prefill``: one 512-token llama3.2-1b prefill (paged, prompts bucketed
+  by 64, batch 1, one new token) served by ``ServeEngine``: host wall ms
+  (median of 7, after 3 warm-up requests: with step programs the key's
+  eager call, its capture and a replay, so the 7 are replays) and device
+  ms by kernel from ``torch.profiler``;
 - ``prefill_ssm``: the same for full-depth mamba2-2.7b (64 layers) from
-  contiguous slots, with the ``ssd_chunks`` kernels' device ms;
+  contiguous slots (exact lengths: an SSM refuses buckets), with the
+  ``ssd_chunks`` kernels' device ms;
+- ``served_recurring``: 256 requests, prompt lengths drawn from phase 4's
+  U[64, 512] so that some recur, 8 new tokens each, 8 in flight (a request
+  is submitted as one completes), after 8 warm-up requests of 32 tokens:
+  llama3.2-1b paged at exact lengths and bucketed by 64, and full-depth
+  mamba2-2.7b: prefill seconds, TTFT (from submission, and from
+  admission) p50 / p99, tok/s and the step programs' ``graphs``;
 - ``ssd_kernels``: chip_smoke.py's phase-2 cases of the SSD chunk kernel
   (CUDA graphs, cold L2), each case's ms beside its plain version's;
 - ``flash_kernels``: the flash kernel at phase 2's main shapes (f32 at
@@ -28,9 +37,11 @@ parent, each in a process of its own:
   CUDA graphs, cold L2), run against each version's kernel.
 
     git archive <parent commit> | tar -x -C build/parent
-    python3 scripts/ab_parent_change.py main_path|main_path_ssm|main_path_hybrid|prefill|prefill_ssm|ssd_kernels|flash_kernels|paged_kernels|offload_kernels|norm_kernels [build/parent]
+    python3 scripts/ab_parent_change.py main_path|main_path_ssm|main_path_hybrid|prefill|prefill_ssm|served_recurring|ssd_kernels|flash_kernels|paged_kernels|offload_kernels|norm_kernels [build/parent]
 
-Prints one JSON line per measurement with its version.  Compare versions
+Prints one JSON line per measurement with its version, with the step
+programs' ``graphs`` (captures, replays) and ``peak_memory_gb`` where the
+version has them.  Compare versions
 only within one call: the host's speed varies between machines.
 """
 
@@ -53,7 +64,9 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch.serve import Request, ServeEngine
 torch.backends.cuda.matmul.allow_tf32 = False
 cfg = c._serve_config("ARCH")
-engine = ServeEngine(cfg, seed=0, device="cuda", n_slots=8, max_len=1024, page_size=PAGE)
+torch.cuda.reset_peak_memory_stats()
+engine = ServeEngine(cfg, seed=0, device="cuda", n_slots=8, max_len=1024, page_size=PAGE,
+                     prefill_bucket=BUCKET)
 prompt = np.random.default_rng(0).integers(0, cfg.vocab_size, 512).tolist()
 def one():
     engine.submit(Request(prompt, max_new_tokens=1))
@@ -71,7 +84,66 @@ print(json.dumps({"phase": "prefill", "arch": cfg.name,
                   "wall_ms_median": statistics.median(walls),
                   "wall_ms": walls, "device_ms": sum(dev.values()), "device_events": n,
                   "flash_device_ms": flash, "ssd_device_ms": ssd,
+                  # a version without step programs has no graphs
+                  "graphs": engine.graph_stats() if hasattr(engine, "graph_stats") else None,
+                  "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
                   "top": {k[:60]: v for k, v in sorted(dev.items(), key=lambda kv: -kv[1])[:6]}}))
+'''
+SERVED_RECURRING = r'''
+import json, sys, time, torch
+sys.path.insert(0, "src")
+import numpy as np
+import chip_smoke as c
+from repro_torch.serve import Completion, Request, ServeEngine
+torch.backends.cuda.matmul.allow_tf32 = False
+for arch, kw in (("llama3.2-1b", dict(page_size=16)),
+                 ("llama3.2-1b", dict(page_size=16, prefill_bucket=64)),
+                 ("mamba2-2.7b", dict(page_size=None))):
+    cfg = c._serve_config(arch)
+    torch.cuda.reset_peak_memory_stats()
+    engine = ServeEngine(cfg, seed=0, device="cuda", n_slots=8, max_len=1024, **kw)
+    rng = np.random.default_rng(0)
+    for _ in range(8):  # builds the kernels; the decode key's eager call and capture
+        engine.submit(Request(rng.integers(0, cfg.vocab_size, 32).tolist(), max_new_tokens=2))
+    engine.run_until_idle(max_steps=1000)
+    prefill0 = engine.telemetry["prefill"].seconds
+    decode0 = engine.telemetry["decode"].seconds
+    graphs0 = engine.graph_stats() if hasattr(engine, "graph_stats") else None
+    lens = rng.integers(64, 513, 256)
+    todo = [rng.integers(0, cfg.vocab_size, int(n)).tolist() for n in lens]
+    done = []
+    torch.cuda.synchronize(); t0 = time.perf_counter()
+    for _ in range(8):
+        engine.submit(Request(todo.pop(), max_new_tokens=8))
+    while engine.scheduler.has_work:
+        for ev in engine.step():
+            if isinstance(ev, Completion):
+                done.append(ev)
+                if todo:
+                    engine.submit(Request(todo.pop(), max_new_tokens=8))
+    torch.cuda.synchronize(); wall = time.perf_counter() - t0
+    pct = lambda xs, q: float(np.percentile(xs, q))
+    ttft = [d.ttft * 1e3 for d in done]
+    admitted = [d.ttft_admitted * 1e3 for d in done]
+    graphs = None
+    if graphs0 is not None:
+        graphs = {name: {k: v - graphs0[name][k] for k, v in g.items()
+                         if isinstance(v, (int, float))}
+                  for name, g in engine.graph_stats().items()}
+    print(json.dumps({"phase": "served_recurring", "arch": cfg.name,
+                      "prefill_bucket": kw.get("prefill_bucket"), "requests": len(done),
+                      "distinct_lengths": len(set(lens.tolist())),
+                      "distinct_padded": len({engine._padded_len(int(n)) for n in lens}),
+                      "wall_seconds": wall, "tok_per_s": 8 * len(done) / wall,
+                      "prefill_seconds": engine.telemetry["prefill"].seconds - prefill0,
+                      "decode_seconds": engine.telemetry["decode"].seconds - decode0,
+                      "ttft_p50_ms": pct(ttft, 50), "ttft_p99_ms": pct(ttft, 99),
+                      "ttft_admitted_p50_ms": pct(admitted, 50),
+                      "ttft_admitted_p99_ms": pct(admitted, 99),
+                      "graphs": graphs, "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}),
+          flush=True)
+    del engine
+    torch.cuda.empty_cache()
 '''
 OFFLOAD_KERNELS = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke as c; "
                    "torch.backends.cuda.matmul.allow_tf32 = False; "
@@ -121,17 +193,22 @@ PAGED_KERNELS = THIS_TREES_CASES + "c._paged_cases(torch, c.Timer(torch), randn,
 NORM_KERNELS = THIS_TREES_CASES + "c._norm_plain_cases(torch, c.Timer(torch), randn)"
 CODE = {"main_path": MAIN_PATH, "main_path_ssm": MAIN_PATH_SSM,
         "main_path_hybrid": MAIN_PATH_HYBRID,
-        "prefill": PREFILL.replace("ARCH", "llama3.2-1b").replace("PAGE", "16"),
-        "prefill_ssm": PREFILL.replace("ARCH", "mamba2-2.7b").replace("PAGE", "None"),
+        "prefill": PREFILL.replace("ARCH", "llama3.2-1b").replace("PAGE", "16")
+                          .replace("BUCKET", "64"),
+        "prefill_ssm": PREFILL.replace("ARCH", "mamba2-2.7b").replace("PAGE", "None")
+                              .replace("BUCKET", "None"),
+        "served_recurring": SERVED_RECURRING,
         "ssd_kernels": SSD_KERNELS, "flash_kernels": FLASH_KERNELS,
         "paged_kernels": PAGED_KERNELS, "offload_kernels": OFFLOAD_KERNELS,
         "norm_kernels": NORM_KERNELS}
 KERNEL_KEYS = ("name", "dtype", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
                "n_splits", "pages_per_split")
 PROFILE_KEYS = ("arch", "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
-                "device_events_per_step")
-MAIN_PATH_KEYS = ("tok_per_s", "prefill_tok_per_s", "decode_tok_per_s", "decode_median_ms",
-                  "ttft_p50_ms", "ttft_p99_ms", "wall_seconds", "launches")
+                "device_events_per_step", "replay_ms_per_step", "peak_memory_gb", "graphs")
+MAIN_PATH_KEYS = ("tok_per_s", "prefill_tok_per_s", "decode_tok_per_s", "prefill_seconds",
+                  "decode_seconds", "decode_median_ms",
+                  "ttft_p50_ms", "ttft_p99_ms", "wall_seconds", "launches", "graphs",
+                  "peak_memory_gb")
 
 
 def main() -> int:
@@ -149,17 +226,19 @@ def main() -> int:
                 continue
             row = json.loads(line)
             if what.startswith("main_path") and row.get("phase") == what:
-                print(json.dumps({"version": tag, **{k: row[k] for k in MAIN_PATH_KEYS}}), flush=True)
+                # keys a version lacks (a parent without graphs) print as null
+                print(json.dumps({"version": tag, **{k: row.get(k) for k in MAIN_PATH_KEYS}}),
+                      flush=True)
             elif what.startswith("main_path") and row.get("phase", "").startswith("decode_profile"):
                 # the parent's profile may not sum paged attention's kernels
                 paged = row.get("paged_device_ms_per_step", sum(
                     v for k, v in row["top_device_ms_per_step"].items() if "paged" in k))
                 print(json.dumps({"version": tag, "phase": row["phase"],
-                                  **{k: row[k] for k in PROFILE_KEYS},
+                                  **{k: row.get(k) for k in PROFILE_KEYS},
                                   "paged_device_ms_per_step": paged,
                                   "top_device_ms_per_step": row["top_device_ms_per_step"]}),
                       flush=True)
-            elif what.startswith("prefill"):
+            elif what.startswith("prefill") or what == "served_recurring":
                 print(json.dumps({"version": tag, **row}), flush=True)
             elif what.endswith("_kernels") and row.get("phase") == "kernel":
                 print(json.dumps({"version": tag, **{k: row.get(k) for k in KERNEL_KEYS},

@@ -78,6 +78,11 @@ class FunctionBlockRegistry:
         finally:
             self._local.bindings = saved
 
+    def bindings(self) -> tuple[tuple[str, str], ...]:
+        """The bindings in force in this thread, sorted (hashable: a CUDA
+        graph freezes the targets it captured)."""
+        return tuple(sorted(self._bindings.items()))
+
     def call(self, block: str, *args: Any, **kwargs: Any) -> Any:
         impls = self._impls.get(block)
         if not impls:

@@ -82,3 +82,25 @@ def reset_launches() -> None:
 
 def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
+
+
+def counters() -> dict[str, int]:
+    """Every launch counter by name: each kernel's launches, flash's per
+    route and rmsnorm's per form.  A CUDA graph replay runs no wrapper, so
+    a step program adds what its capture counted at every replay."""
+    out = launch_counts()
+    out.update({f"flash_attention/{r}": n for r, n in attention.flash_attention.routes.items()})
+    out.update({f"rmsnorm/{f}": n for f, n in rmsnorm.rmsnorm.forms.items()})
+    return out
+
+
+def add_counters(delta: dict[str, int]) -> None:
+    """Add ``delta`` (keys of :func:`counters`) to the counters."""
+    for key, n in delta.items():
+        name, _, sub = key.partition("/")
+        if not sub:
+            KERNELS[name].launches += n
+        elif name == "flash_attention":
+            attention.flash_attention.routes[sub] += n
+        else:
+            rmsnorm.rmsnorm.forms[sub] += n

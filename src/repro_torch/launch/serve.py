@@ -128,6 +128,11 @@ def main(argv: "list[str] | None" = None) -> int:
             f"kv pool: {kv['n_pages']} x {kv['page_size']}-token pages, "
             f"peak {kv['peak_used_pages']} used, {stats.preemptions} preemptions"
         )
+    graphs = engine.graph_stats()
+    print("step programs: " + " | ".join(
+        f"{name} {g['eager_calls']} eager, {g['captures']} captured "
+        f"({g['capture_seconds']:.2f}s), {g['replays']} replayed" for name, g in graphs.items()
+    ))
     sample = completions[0]
     print(f"sample (request {sample.request_id}):", np.asarray(sample.tokens[:16]))
     return 0

@@ -20,7 +20,7 @@ against the cache) and ``extend`` (an S-token chunk per row, causal within
 the chunk).  ``cache["index"]`` is per-slot (B,): rows decode at their own
 positions (continuous batching); a paged cache also carries
 ``cache["pages"]``, the (B, max_pages) page table.  Caches are updated in
-place and returned.
+place and returned, ``cache["index"]`` too (the same tensor, advanced).
 """
 
 from __future__ import annotations
@@ -281,13 +281,11 @@ def forward(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cach
     x, pending, cache = _blocks(params, batch, cfg, mode, cache)
     s = x.shape[1]
     logits = head(params, x, cfg, pending)
-    if cache is not None:
+    if cache is not None:  # in place: a CUDA graph replay writes the caller's tensor
         if mode in ("decode", "extend"):
-            cache["index"] = cache["index"] + s
+            cache["index"].add_(s)
         else:  # prefill: every row's cache now holds s tokens
-            cache["index"] = torch.full(
-                (x.shape[0],), s, dtype=torch.int32, device=x.device
-            )
+            cache["index"].fill_(s)
     return logits, cache
 
 

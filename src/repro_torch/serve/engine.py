@@ -18,6 +18,18 @@ streaming :class:`Token` events and a final :class:`Completion` per request.
   resumes token-identically.
 * **Sampling on the device** — logits never leave the card; the per-step
   host transfer is the (B,) token ids.
+* **Compiled steps** — the decode step of the whole slot batch and each
+  admission's prefill, sampling fused into both, run as step programs
+  (:mod:`repro_torch.serve.programs`), the counterpart of the reference's
+  jitted ``decode`` and ``prefill``: on the card each key (sampling policy;
+  for prefill the padded length too) runs eagerly once, is captured as a
+  CUDA graph at its second call and replayed from then on.  Decode has at
+  most three keys, one per policy, whatever the batch's composition.
+  Prefill is graphed only with ``prefill_bucket``, where its lengths are
+  few; exact lengths are too many to pay for their captures, so they run
+  eagerly.  The prefill fills one static batch-1 cache, zeroed inside the
+  program (the reference builds its zero cache inside the jitted prefill);
+  the insert into the slot stays a few eager copies.
 * **SSM and hybrid models** — Mamba-2 ('m') layers carry a recurrent state
   per slot with no sequence axis, so it stays slot-indexed in the paged
   layout too; a preempted request's state is rebuilt by re-prefilling its
@@ -25,6 +37,9 @@ streaming :class:`Token` events and a final :class:`Completion` per request.
 
 Caches are updated in place (the reference donates them to its jitted
 programs).  Weights are cast to the compute dtype once, at construction.
+The per-step inputs reach the card in one copy (the program's pinned
+staging buffer); the page table is a static device buffer rewritten only
+when the table changed.
 
 The engine runs on the CUDA card unless the caller passes ``device="cpu"``;
 without CUDA it raises.  Not ported yet (they raise
@@ -48,8 +63,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
 from repro_torch.models.attention import cache_seq_axes, insert_pages
 from repro_torch.serve.kv import PagePool, PageTable, PoolExhausted, pages_for
+from repro_torch.serve.programs import StepProgram
 from repro_torch.serve.request import Completion, Request, RequestState, Token
-from repro_torch.serve.sampler import Sampler, sample_tokens
+from repro_torch.serve.sampler import Sampler, policy_of, sample_tokens
 from repro_torch.serve.scheduler import Scheduler
 
 PHASES = ("prefill", "decode")
@@ -122,6 +138,7 @@ class ServeEngine:
     padded K/V rows are never attended: each decode step overwrites
     position ``index`` before the mask admits it); a pattern with SSM
     layers refuses it, since padding would run through the recurrence.
+    On the card, prefill runs as CUDA graphs only with a bucket.
     """
 
     def __init__(
@@ -193,6 +210,9 @@ class ServeEngine:
             cfg, n_slots, max_len, page_size=page_size, n_pages=n_pages,
             device=self.device,
         )
+        # the prefill program's batch-1 cache (mamba2-2.7b: ~170 MB of
+        # state), shared by every prefill key and zeroed inside the program
+        self._b1_cache = lm.init_cache(cfg, 1, self._slot_len, device=self.device)
         self.scheduler = Scheduler(
             n_slots, max_tokens_per_step, prompt_cost=self._admission_cost,
             kv=self.kv,
@@ -208,9 +228,23 @@ class ServeEngine:
         self._temps = np.zeros((n_slots,), np.float32)
         self._topks = np.zeros((n_slots,), np.int32)
         self._lengths = np.zeros((n_slots,), np.int64)  # resident tokens
-        # device page table, re-uploaded only when the table changed
-        self._pages_op: torch.Tensor | None = None
-        self._pages_version = -1
+        # the static device page table, rewritten only when the table changed
+        self._pages_dev = (
+            torch.tensor(self.kv.array(), device=self.device) if self.paged else None
+        )
+        self._pages_version = self.kv.version if self.paged else -1
+
+        # the compiled steps; their graphs share one memory pool, which holds
+        # about the largest key's activations (a graph's outputs stay live:
+        # (1, V) f32 logits a prefill key), and never drop a graph: decode
+        # has at most three keys, a bucketed prefill three per bucket
+        pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
+        self.programs = {
+            "decode": StepProgram("decode", self._decode_step, 5 * n_slots, self.device,
+                                  pool=pool),
+            "prefill": StepProgram("prefill", self._prefill_step, max_len + 5, self.device,
+                                   pool=pool, graphs=prefill_bucket is not None),
+        }
 
         self.telemetry = {p: PhaseTelemetry(p) for p in PHASES}
         self._decode_seconds: collections.deque = collections.deque(maxlen=256)
@@ -240,67 +274,89 @@ class ServeEngine:
         return (state.request.sampling or self.sampler).knobs
 
     # -- the programs ------------------------------------------------------------
-    def _tensor(self, array: np.ndarray) -> torch.Tensor:
-        return torch.tensor(array, device=self.device)  # copies: host arrays change
+    def _prefill_step(self, last, seed, gen_step, temp, topk, tokens, *, policy: str):
+        """The prefill program: ``tokens`` (1, Lp) through the blocks into
+        the batch-1 cache, zeroed first (a stale SSM state would be the next
+        prompt's ``h0``); only the last real position, ``last`` (1,),
+        reaches the head.  ``gen_step`` is the sampled token's generation
+        index: 0 for a fresh request, len(tokens) when a preempted request
+        resumes.  Returns (sampled token (1,), logits (1, V)); the cache
+        stays in ``_b1_cache``."""
+        cache = self._b1_cache
+        for key, group in cache.items():
+            if key != "index":
+                for leaf in group.values():
+                    leaf.zero_()
+        x, _ = lm.backbone(self.params, {"tokens": tokens}, self.cfg, "prefill", cache)
+        logits = lm.head(self.params, x.index_select(1, last), self.cfg)
+        logits = logits[:, 0, : self.cfg.vocab_size]
+        cache["index"].copy_(last + 1)
+        return sample_tokens(logits, seed, gen_step, temp, topk, policy=policy), logits
 
-    def _prefill(self, context: Sequence[int], state: RequestState):
-        """Batch-1 prefill of ``context`` into a fresh contiguous slot cache;
-        only the last real position reaches the head.  Returns (sampled
-        token (1,), the filled batch-1 cache)."""
-        cfg = self.cfg
+    def _decode_step(self, tokens, seeds, steps, temps, topks, *, policy: str):
+        """The decode program: one step of the whole slot batch, tokens
+        (B, 1), the cache's index advanced in place.  Returns (sampled
+        tokens (B,), logits (B, V))."""
+        cache = dict(self.cache, pages=self._pages_dev) if self.paged else self.cache
+        logits, _ = lm.decode_step(self.params, tokens, self.cfg, cache)
+        logits = logits[:, 0, : self.cfg.vocab_size]
+        return sample_tokens(logits, seeds, steps, temps, topks, policy=policy), logits
+
+    def _prefill(self, context: Sequence[int], state: RequestState) -> torch.Tensor:
+        """Batch-1 prefill of ``context`` into ``_b1_cache``; returns the
+        sampled token (1,)."""
         tokens = np.zeros((1, self._padded_len(len(context))), np.int32)
         tokens[0, : len(context)] = context
-        cache = lm.init_cache(cfg, 1, self._slot_len, device=self.device)
-        x, cache = lm.backbone(
-            self.params, {"tokens": self._tensor(tokens)}, cfg, "prefill", cache
-        )
-        last = len(context) - 1
-        logits = lm.head(self.params, x[:, last : last + 1], cfg)[:, 0, : cfg.vocab_size]
         temp, topk = self._request_knobs(state)
-        tok = sample_tokens(
-            logits,
-            self._tensor(np.asarray([state.seed], np.int32)),
-            # the sampled token's generation index: 0 for a fresh request,
-            # len(tokens) when a preempted request resumes
-            self._tensor(np.asarray([len(state.tokens)], np.int32)),
-            self._tensor(np.asarray([temp], np.float32)),
-            self._tensor(np.asarray([topk], np.int32)),
+        i32 = lambda v: np.asarray([v], np.int32)  # noqa: E731
+        tok, _ = self.programs["prefill"](
+            [i32(len(context) - 1), i32(state.seed), i32(len(state.tokens)),
+             np.asarray([temp], np.float32), i32(topk), tokens],
+            policy=policy_of([temp], [topk]),
         )
-        cache["index"] = torch.full((1,), len(context), dtype=torch.int32, device=self.device)
-        return tok, cache
+        return tok
 
-    def _insert(self, b1_cache: Any, slot: int) -> None:
-        """Write a prefilled batch-1 cache into ``slot``: the slot row of the
-        contiguous cache (and of every SSM state), or the slot's pages of
-        the pool (entries past the allocation land in the null page)."""
+    def _sync_pages(self) -> None:
+        """Rewrite the static device page table if the table changed."""
+        if self._pages_version != self.kv.version:
+            self._pages_dev.copy_(torch.tensor(self.kv.array()))
+            self._pages_version = self.kv.version
+
+    def _insert(self, slot: int) -> None:
+        """Write the prefilled batch-1 cache into ``slot``: the slot row of
+        the contiguous cache (and of every SSM state), or the slot's pages
+        of the pool (entries past the allocation land in the null page)."""
+        b1_cache = self._b1_cache
+        if self.paged:
+            self._sync_pages()
         for key, value in self.cache.items():
             if key == "index":
                 value[slot] = b1_cache[key][0]
             elif self.paged and self._group_kinds[key] != "m":
-                page_ids = self._tensor(self.kv.array()[slot])
                 for leaf in value:
-                    insert_pages(value[leaf], b1_cache[key][leaf], page_ids, self._seq_axes[leaf])
+                    insert_pages(value[leaf], b1_cache[key][leaf], self._pages_dev[slot],
+                                 self._seq_axes[leaf])
             else:
                 for leaf in value:
                     value[leaf][:, slot] = b1_cache[key][leaf][:, 0]
 
-    def _decode(self) -> torch.Tensor:
-        """One decode step for the whole slot batch; returns (B,) tokens."""
-        cache = self.cache
+    def _decode_inputs(self) -> list[np.ndarray]:
+        return [self._last_tok, self._seeds, self._gen_counts, self._temps, self._topks]
+
+    def _decode(self, active: Sequence[int]) -> torch.Tensor:
+        """One decode step for the whole slot batch, its policy from the
+        ``active`` slots' knobs; returns (B,) tokens."""
         if self.paged:
-            if self._pages_version != self.kv.version:
-                self._pages_op = self._tensor(self.kv.array())
-                self._pages_version = self.kv.version
-            cache = dict(cache, pages=self._pages_op)
-        logits, cache = lm.decode_step(self.params, self._tensor(self._last_tok), self.cfg, cache)
-        self.cache["index"] = cache["index"]
-        return sample_tokens(
-            logits[:, 0, : self.cfg.vocab_size],
-            self._tensor(self._seeds),
-            self._tensor(self._gen_counts),
-            self._tensor(self._temps),
-            self._tensor(self._topks),
-        )
+            self._sync_pages()
+        slots = list(active)
+        policy = policy_of(self._temps[slots], self._topks[slots])
+        tok, _ = self.programs["decode"](self._decode_inputs(), policy=policy)
+        return tok
+
+    def graph_stats(self) -> dict:
+        """Each step program's calls, eager calls, captures, replays,
+        capture seconds and graph keys."""
+        return {name: program.summary() for name, program in self.programs.items()}
 
     # -- public API ------------------------------------------------------------
     def submit(self, request: Request) -> int:
@@ -436,8 +492,8 @@ class ServeEngine:
     def _admit(self, state: RequestState) -> list[Token | Completion]:
         context = list(state.request.prompt) + list(state.tokens)
         t0 = time.perf_counter()
-        tok, b1_cache = self._prefill(context, state)
-        self._insert(b1_cache, state.slot)
+        tok = self._prefill(context, state)
+        self._insert(state.slot)
         events: list[Token | Completion] = []
         self._commit_slot(state, int(tok[0]), events)  # syncs the device
         self.telemetry["prefill"].add(time.perf_counter() - t0, len(context))
@@ -472,7 +528,7 @@ class ServeEngine:
         if not active:
             return []
         t0 = time.perf_counter()
-        toks = self._decode().cpu().numpy()  # the only device->host transfer
+        toks = self._decode(active).cpu().numpy()  # the only device->host transfer
         elapsed = time.perf_counter() - t0
         self.telemetry["decode"].add(elapsed, len(active))
         self._decode_seconds.append(elapsed)

@@ -16,16 +16,27 @@ over the vocabulary.  A draw depends only on (request seed, token index,
 vocab id) — not the slot, the engine step or the other requests in the
 batch — so a request replayed under another batch composition samples the
 identical tokens, and a sampled trace matches the JAX engine's.
+
+The reference gates the top-k sort and the draw on ``lax.cond`` over
+``any(temperature > 0)`` and ``any(top_k > 0)``.  Here the caller names
+the batch's :data:`POLICIES` entry instead (:func:`policy_of` picks it
+from the knobs on the host), so :func:`sample_tokens` reads nothing on the
+host and a CUDA graph captures it; the tokens are the same for any policy
+at least as wide as the batch needs.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 _NEG = -1e30
 _M32 = 0xFFFFFFFF
+#: what a batch's sampling does, narrowest first: argmax only; a draw at
+#: each row's temperature; a draw after each row's top-k filter
+POLICIES = ("greedy", "temperature", "top_k")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,21 +143,43 @@ def gumbel_noise(seeds: torch.Tensor, steps: torch.Tensor, vocab: int) -> torch.
     return -torch.log(-torch.log(u))
 
 
+def policy_of(temperatures: np.ndarray, top_ks: np.ndarray) -> str:
+    """The narrowest policy that samples the rows of these host-side knobs
+    as the reference does: greedy unless a row has a temperature, top-k if
+    such a row has a k."""
+    drawn = np.asarray(temperatures) > 0
+    if not drawn.any():
+        return "greedy"
+    return "top_k" if (np.asarray(top_ks)[drawn] > 0).any() else "temperature"
+
+
 def sample_tokens(
     logits: torch.Tensor,  # (B, V) float
     seeds: torch.Tensor,  # (B,) int: per-request sampling seed
     steps: torch.Tensor,  # (B,) int: per-request token index
     temperatures: torch.Tensor,  # (B,) float: 0 = greedy
     top_ks: torch.Tensor,  # (B,) int: 0 = no top-k filter
+    policy: str | None = None,
 ) -> torch.Tensor:
     """(B,) int32 sampled token ids; argmax takes the first index on ties.
-    An all-greedy batch skips the sort and the draw."""
+
+    ``policy`` (one of :data:`POLICIES`) says what the batch needs, and the
+    call reads nothing on the host: greedy skips the sort and the draw,
+    temperature skips the sort.  Without it the call reads the two
+    predicates from the knobs (a device-to-host read each), as an eager
+    caller may."""
+    if policy is None:
+        policy = "greedy"
+        if bool((temperatures > 0).any()):
+            policy = "top_k" if bool((top_ks > 0).any()) else "temperature"
+    elif policy not in POLICIES:
+        raise ValueError(f"unknown sampling policy '{policy}'; known: {POLICIES}")
     v = logits.shape[-1]
     lf = logits.float()
     greedy = torch.argmax(lf, dim=-1).to(torch.int32)
-    if not bool((temperatures > 0).any()):
+    if policy == "greedy":
         return greedy
-    if bool((top_ks > 0).any()):
+    if policy == "top_k":
         # top-k with per-row k: threshold at the k-th largest logit
         sorted_desc = torch.sort(lf, dim=-1, descending=True).values
         kth = torch.clamp(top_ks.long() - 1, 0, v - 1)
