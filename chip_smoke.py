@@ -16,9 +16,13 @@ JSON line, and any failure raises (exit code != 0):
 3. served f32 trace: a short greedy trace of the full-width config cut to
    2 layers, once through the kernels and once with the plain versions
    bound; the tokens must be identical.  It runs twice: at exact prompt
-   lengths (prefill eager: ``graphs`` shows no prefill capture), and with
+   lengths (prefill eager: ``graphs`` shows no prefill capture), with
    ``prefill_bucket=16``, where padded lengths repeat and the prefill
-   program replays its CUDA graphs (prefill replays > 0);
+   program replays its CUDA graphs (prefill replays > 0), and with
+   ``prefill_chunk=16`` on the paged cache, where prompts longer than 16
+   run as chunks through the ``extend`` / ``extend_sample`` programs
+   (replays of both > 0) under an enabled tracer whose ``prefill-chunk``
+   spans must number ``stats.prefill_chunks``;
 4. the main path: full-width llama3.2-1b (16 layers, seeded random
    weights made on the card) served by ``repro_torch.serve.ServeEngine``
    from the paged KV cache (page_size=16, 8 slots, 16 requests), with
@@ -69,7 +73,17 @@ JSON line, and any failure raises (exit code != 0):
    ``flash_attention`` launch counts (each > 0) and rmsnorm's three forms
    (each > 0), then its decode profile as phase 5 (``replay_vs_eager``
    greedy).  Phases 9 and 10 report ``graphs`` and hold decode's captures
-   and replays as phase 4.
+   and replays as phase 4;
+11. main_path_chunked: phase 4's configuration and trace with
+   ``prefill_chunk=128``: prompts longer than 128 tokens prefill as
+   128-wide chunks extended in place into their pages (paged attention's
+   extend route at B=1, S=128), the final chunk over the context's last
+   128 positions.  ``paged_attention`` must launch more often than in
+   phase 4; ``extend`` captures once and ``extend_sample`` at most three
+   times (once per policy), every later call a replay.  It reports prefill
+   seconds, TTFT and tok/s beside phase 4's, the extra device tokens of
+   the overlapped final chunks, and ``replay_vs_eager`` of both chunk
+   programs from a cloned cache (logits and the pool held to ``TOL``).
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -90,7 +104,8 @@ at N = 256 with P = 128; paged and flash attention at zamba2's head dim
 at qk 48 / v 32, deepseek-v2's qk 192 / v 128 and a bf16 D = 100).  Each
 flash and SSD row names the route it ran; each paged row names its split
 plan's ``n_splits`` (paged attention also runs with all eight slots near
-1024 positions and at B=1 with a one-page table).  Phase 5 sums the
+1024 positions, at B=1 with a one-page table, and on phase 11's extend
+chunk: B=1, S=128 from position 384).  Phase 5 sums the
 device time of paged attention's split and merge kernels per step.
 
 The last lines are the card as ``nvidia-smi`` reports it, the kernels'
@@ -511,7 +526,9 @@ def _paged_cases(torch, timer, randn, gen) -> list:
     tensor cores, and f32 head dim 20 with pages of 7 on the CUDA cores.
     Last, a long table: llama's heads at 16k positions in pages of one
     (16384 pages, more page ids a split than a CTA has threads, more than
-    32 splits).  Null pages are poisoned.  Each row names the split plan's
+    32 splits).  Last, chunked prefill's extend at llama's shape: one slot,
+    a 128-token chunk from position 384 (tensor-core walk, 512 rows a kv
+    head).  Null pages are poisoned.  Each row names the split plan's
     ``n_splits``."""
     from repro_torch.kernels import paged_attention as pa
 
@@ -577,6 +594,8 @@ def _paged_cases(torch, timer, randn, gen) -> list:
         paged_case(2, 4, 2, 4, 32, 32, [70, 0], bf16, ps=8, mp=16),
         paged_case(2, 4, 2, 1, 20, 20, [40, 3], torch.float32, ps=7, mp=8),
         paged_case(2, h, kh, 1, dh, dh, [16380, 9000], bf16, ps=1, mp=16384),
+        # phase 11's chunk: 128 tokens extended from position 384
+        paged_case(1, h, kh, 128, dh, dh, [384], bf16),
     ]
 
 
@@ -701,7 +720,7 @@ def _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw):
     engine = ServeEngine(cfg, params=params, seed=0, device="cuda", **kw)
     ids = [engine.submit(Request(p, max_new_tokens=g)) for p, g in zip(prompts, gens)]
     engine.run_until_idle(max_steps=10_000)
-    return [engine.completions[i].tokens for i in ids], engine.graph_stats()
+    return [engine.completions[i].tokens for i in ids], engine
 
 
 def phase_served_f32(torch, arch: str = "llama3.2-1b", lens=(37, 100, 16, 70, 37, 100),
@@ -709,12 +728,15 @@ def phase_served_f32(torch, arch: str = "llama3.2-1b", lens=(37, 100, 16, 70, 37
     """Full-width ``arch`` cut to 2 layers in f32: kernels vs plain, on
     prompts of ``lens`` tokens that generate ``gens`` tokens each.  With
     ``prefill_bucket`` the repeated padded lengths replay their prefill
-    graphs; without, prefill runs eagerly."""
+    graphs; without, prefill runs eagerly.  With ``prefill_chunk`` the
+    longer prompts run as chunks, whose programs must replay, under a
+    tracer with one ``prefill-chunk`` span a chunk."""
     import numpy as np
 
     from repro_torch.configs import get_config
     from repro_torch.core import blocks
     from repro_torch.models import lm
+    from repro_torch.obs import Tracer
     from repro_torch.serve import Request, ServeEngine
 
     cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
@@ -725,25 +747,40 @@ def phase_served_f32(torch, arch: str = "llama3.2-1b", lens=(37, 100, 16, 70, 37
     kw = dict(dict(n_slots=2, max_len=128, page_size=16), **kw)
     plain = {"rmsnorm": "torch", "attention": "torch", "paged_attention": "torch",
              "ssd_scan": "torch"}
+    chunked = kw.get("prefill_chunk") is not None
     t0 = time.perf_counter()
-    kernels, graphs = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens, **kw)
+    kernels, engine = _engine_trace(ServeEngine, Request, cfg, params, prompts, gens,
+                                    tracer=Tracer() if chunked else None, **kw)
     with blocks.bind(plain):
-        plain_tokens, plain_graphs = _engine_trace(
+        plain_tokens, plain_engine = _engine_trace(
             ServeEngine, Request, cfg, params, prompts, gens, **kw)
     if kernels != plain_tokens:
         raise AssertionError(
             f"f32 served trace differs: kernels {kernels} vs plain {plain_tokens}")
+    graphs, plain_graphs = engine.graph_stats(), plain_engine.graph_stats()
     bucketed = kw.get("prefill_bucket") is not None
     for g in (graphs, plain_graphs):
         _check_graphs("served_f32", g)
         if (g["prefill"]["replays"] > 0) != bucketed or (g["prefill"]["captures"] > 0) != bucketed:
             raise AssertionError(f"served_f32: prefill graphs {g['prefill']} with "
                                  f"prefill_bucket={kw.get('prefill_bucket')}")
-    emit({"phase": "served_f32", "arch": cfg.name, "layers": 2, "requests": len(prompts),
-          "prefill_bucket": kw.get("prefill_bucket"),
-          "identical": True, "tokens": [list(t) for t in kernels],
-          "graphs": graphs, "plain_graphs": plain_graphs,
-          "seconds": round(time.perf_counter() - t0, 3)})
+        if chunked and not (g["extend"]["replays"] > 0 and g["extend_sample"]["replays"] > 0):
+            raise AssertionError(f"served_f32: chunk programs never replayed: "
+                                 f"{g['extend']} {g['extend_sample']}")
+    out = {"phase": "served_f32", "arch": cfg.name, "layers": 2, "requests": len(prompts),
+           "prefill_bucket": kw.get("prefill_bucket"), "prefill_chunk": kw.get("prefill_chunk"),
+           "identical": True, "tokens": [list(t) for t in kernels],
+           "graphs": graphs, "plain_graphs": plain_graphs}
+    if chunked:
+        spans = sum(1 for r in engine.tracer.records() if r.name == "prefill-chunk")
+        chunks = engine.stats.prefill_chunks
+        if spans != chunks or chunks != plain_engine.stats.prefill_chunks or chunks <= 0:
+            raise AssertionError(f"served_f32: {spans} prefill-chunk spans, "
+                                 f"{chunks} chunks ({plain_engine.stats.prefill_chunks} plain)")
+        out.update(prefill_chunks=chunks, prefill_chunk_spans=spans,
+                   overlap_tokens=engine.overlap_tokens)
+    out["seconds"] = round(time.perf_counter() - t0, 3)
+    emit(out)
 
 
 def _check_graphs(phase: str, stats: dict, decode_steps: int | None = None) -> None:
@@ -776,9 +813,10 @@ def _serve_config(arch: str):
 
 
 def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
-                    phase: str = "main_path", **engine_kw) -> dict:
+                    phase: str = "main_path", report=None, **engine_kw) -> dict:
     """Full-width ``arch`` served by ``ServeEngine`` (default: llama3.2-1b
-    from the paged KV cache); every kernel in ``expect`` must launch."""
+    from the paged KV cache); every kernel in ``expect`` must launch.
+    ``report(engine, out)`` checks the run further and adds to its line."""
     import numpy as np
 
     import repro_torch.kernels as kernels
@@ -850,8 +888,97 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
     }
     if "flash_attention" in expect:  # the routes the prefills' launches took
         out["flash_routes"] = dict(kernels.KERNELS["flash_attention"].routes)
+    if report is not None:
+        report(engine, out)
     emit(out)
     return out
+
+
+#: phase 11's chunk width
+CHUNK = 128
+
+
+def phase_main_path_chunked(torch, main: dict) -> dict:
+    """Phase 4's run with ``prefill_chunk=CHUNK``: paged attention launches
+    more than in phase 4 (``main``), the chunk programs capture once a key
+    and replay every later call, and each replays as its step function
+    runs eagerly from the same cloned state."""
+
+    def report(engine, out):
+        graphs = out["graphs"]
+        ext, fin = graphs["extend"], graphs["extend_sample"]
+        if ext["captures"] != 1 or ext["eager_calls"] != 1 or ext["replays"] != ext["calls"] - 1:
+            raise AssertionError(f"main_path_chunked: extend {ext}")
+        if not (1 <= fin["captures"] <= 3 and fin["eager_calls"] == fin["captures"]
+                and fin["replays"] == fin["calls"] - fin["eager_calls"]):
+            raise AssertionError(f"main_path_chunked: extend_sample {fin}")
+        if out["launches"]["paged_attention"] <= main["launches"]["paged_attention"]:
+            raise AssertionError(f"main_path_chunked: paged_attention launched "
+                                 f"{out['launches']['paged_attention']} times, phase 4 "
+                                 f"{main['launches']['paged_attention']}")
+        out["prefill_chunk"] = CHUNK
+        out["prefill_chunks"] = engine.stats.prefill_chunks
+        # positions the final chunks re-extended beyond their new tokens
+        out["overlap_tokens"] = engine.overlap_tokens
+        out["main_path"] = {k: main[k] for k in (
+            "wall_seconds", "tok_per_s", "prefill_seconds", "decode_seconds",
+            "decode_median_ms", "ttft_p50_ms", "ttft_p99_ms", "latency_p50_ms",
+            "latency_p99_ms", "launches")}
+        out["replay_vs_eager"] = [_chunk_replay_vs_eager(torch, engine, name)
+                                  for name in ("extend", "extend_sample")]
+
+    return phase_main_path(torch, phase="main_path_chunked", report=report, prefill_chunk=CHUNK)
+
+
+def _chunk_replay_vs_eager(torch, engine, name: str) -> dict:
+    """From one engine state (the cache cloned and restored in place), one
+    replay of chunk program ``name`` (its key captured while serving) and
+    one eager call of its step function on the same inputs: a 128-token
+    chunk from position 384 into slot 0, through the first pages of the
+    pool (free once the run is done).  The pool, the index and (for
+    ``extend_sample``) the logits are held to the compute type's ``TOL``;
+    the errors are printed."""
+    import numpy as np
+
+    program = engine.programs[name]
+    rng = np.random.default_rng(3)
+    i32 = lambda v: np.asarray([v], np.int32)  # noqa: E731
+    inputs = [i32(0), i32(384), np.arange(engine.kv.max_pages, dtype=np.int32)[None]]
+    kw = {}
+    if name == "extend_sample":
+        inputs += [i32(11), i32(0), np.asarray([0.0], np.float32), i32(0)]
+        kw = {"policy": "greedy"}
+    inputs.append(rng.integers(0, engine.cfg.vocab_size, (1, CHUNK)).astype(np.int32))
+    saved = _tree(torch.clone, engine.cache)
+
+    def restore():
+        _tree(lambda pair: pair[0].copy_(pair[1]), _zip_trees(engine.cache, saved))
+
+    with torch.no_grad():
+        replays = program.summary()["replays"]
+        out_g = program(inputs, **kw)
+        if program.summary()["replays"] != replays + 1:
+            raise AssertionError(f"replay_vs_eager: {name} did not replay")
+        logits_g = out_g[1].clone() if out_g is not None else None
+        graph_cache = _tree(torch.clone, engine.cache)
+        restore()
+        views = [torch.from_numpy(a.copy()).to(engine.device) for a in inputs]
+        out_e = program.fn(*views, **kw)
+        torch.cuda.synchronize()
+        dtype = engine.cfg.compute_dtype
+        errs = {}
+        if logits_g is not None:
+            errs["logits"] = compare(torch, logits_g, out_e[1], dtype)
+        for key, group in graph_cache.items():
+            if key == "index":
+                if not torch.equal(group, engine.cache["index"]):
+                    raise AssertionError(f"replay_vs_eager: {name} set the index differently")
+                continue
+            for leaf, value in group.items():
+                errs[f"{key}/{leaf}"] = compare(torch, value, engine.cache[key][leaf], dtype)
+        restore()
+    return {"program": name, "tol": TOL[dtype], "max_abs_err": errs,
+            "bit_identical": all(e == 0.0 for e in errs.values())}
 
 
 def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
@@ -1263,6 +1390,7 @@ def main() -> int:
     rows = phase_kernels(torch)
     phase_served_f32(torch)
     phase_served_f32(torch, prefill_bucket=16)
+    phase_served_f32(torch, prefill_chunk=16)
     main = phase_main_path(torch)
     phase_decode_profile(torch)
     offload = phase_offload(torch)
@@ -1277,6 +1405,7 @@ def main() -> int:
                          page_size=None)
     phase_main_path(torch, "zamba2-7b", HYBRID_KERNELS, "hybrid")
     phase_decode_profile(torch, "zamba2-7b", sampled=False, phase="decode_profile_hybrid")
+    phase_main_path_chunked(torch, main)
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],

@@ -14,7 +14,8 @@ last pool row), whose garbage rows the mask ``t <= index + s`` always hides.
   dense masked softmax), used for CPU tensors and as the kernel's yardstick;
 * the page plumbing shared with the model and the serve engine:
   :func:`gather_kv_pages`, :func:`scatter_token_pages`,
-  :func:`scatter_chunk_pages`, :func:`insert_pages`.  The scatters write
+  :func:`scatter_chunk_pages` (with :func:`chunk_scatter_plan`),
+  :func:`insert_pages`.  The scatters write
   into the pool in place (the reference returns a new array).
 
 Pool layouts: GQA ``(P_total, KH, page_size, D)``; MLA latent
@@ -83,17 +84,66 @@ def scatter_token_pages(
     return pool
 
 
+class ChunkScatter(NamedTuple):
+    """Where the tokens of an S-token chunk land in a page pool: token
+    ``(b, i)`` goes to row ``off[b, i]`` of page ``pid[b, i]``, with the
+    value of token ``(src_row, src_token)[b, i]`` (itself, unless a later
+    write of the token-by-token loop lands on the same pool row)."""
+
+    pid: torch.Tensor  # (B, S) int64
+    off: torch.Tensor  # (B, S) int64
+    src_row: torch.Tensor  # (B, S) int64
+    src_token: torch.Tensor  # (B, S) int64
+
+
+def chunk_scatter_plan(
+    pages: torch.Tensor, index: torch.Tensor, s: int, page_size: int, pool_pages: int
+) -> ChunkScatter:
+    """The pool rows an S-token chunk at positions ``index + i`` (B,) is
+    written to, through the page table ``pages`` (B, max_pages) of a pool of
+    ``pool_pages`` pages (the null page included): the page ids of all S
+    positions in one gather, the column clamped into the table as
+    :func:`scatter_token_pages` clamps it; null-page entries write into the
+    sacrificial page.  Where two writes meet one pool row (a clamped
+    column, rows sharing the null page) the token-by-token loop leaves the
+    last one, token ``i`` outer and row ``b`` inner; every writer of such a
+    row takes that last value, so the scatter does not depend on the order
+    ``index_put_`` applies duplicates in.  It depends only on the table and
+    the positions, so one plan serves every layer's K and V."""
+    b = pages.shape[0]
+    dev = pages.device
+    pos = index.long()[:, None] + torch.arange(s, device=dev)  # (B, S)
+    col = torch.clamp(pos // page_size, 0, pages.shape[1] - 1)
+    pid = torch.gather(pages.long(), 1, col)
+    off = pos % page_size
+    order = torch.arange(s, device=dev)[None, :] * b + torch.arange(b, device=dev)[:, None]
+    target = pid * page_size + off
+    last = torch.full((pool_pages * page_size,), -1, dtype=torch.long, device=dev)
+    last.scatter_reduce_(0, target.reshape(-1), order.reshape(-1), "amax")
+    winner = last[target]
+    return ChunkScatter(pid, off, winner % b, winner // b)
+
+
 def scatter_chunk_pages(
     pool: torch.Tensor,
     val: torch.Tensor,
     pages: torch.Tensor,
     index: torch.Tensor,
     seq_axis: int,
+    plan: ChunkScatter | None = None,
 ) -> torch.Tensor:
     """Write an S-token ``extend`` chunk (chunk axis at ``seq_axis``) into
-    each row's page list: token ``i`` lands at position ``index + i``."""
-    for i in range(val.shape[seq_axis]):
-        scatter_token_pages(pool, val.select(seq_axis, i), pages, index + i, seq_axis)
+    each row's page list, in place: token ``i`` lands at position
+    ``index + i``.  One vectorised scatter (one ``index_put_``) with the
+    writes of :func:`scatter_token_pages` token by token; ``plan`` is
+    :func:`chunk_scatter_plan` of ``pages`` and ``index`` (made here when
+    not given)."""
+    if plan is None:
+        plan = chunk_scatter_plan(
+            pages, index, val.shape[seq_axis], pool.shape[seq_axis], pool.shape[0]
+        )
+    rows = torch.movedim(val, seq_axis, 1)[plan.src_row, plan.src_token]  # (B, S, ...)
+    torch.movedim(pool, seq_axis, 1)[plan.pid, plan.off] = rows.to(pool.dtype)
     return pool
 
 

@@ -8,7 +8,10 @@ until idle and prints throughput and latency.  Runs on the CUDA card:
       --page-size 16 --slots 8 --max-len 1024
 
 ``--device cpu`` runs on the CPU explicitly (the tests do, with
-``--reduced``).
+``--reduced``).  ``--prefill-chunk`` splits long prompts into chunks run
+between decode steps; ``--trace-out`` writes a Chrome/Perfetto trace of the
+request lifecycles (inspect with ``python -m repro_torch.obs.timeline``)
+and ``--metrics-out`` a Prometheus text snapshot of the engine's metrics.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ import argparse
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.obs import Tracer
 from repro_torch.serve import Request, Sampler, ServeEngine
 
 
@@ -26,6 +30,47 @@ def percentile(xs: "list[float]", q: float) -> float:
     if not xs:
         return float("nan")
     return float(np.percentile(xs, q * 100))
+
+
+def format_kv_metrics(engine: ServeEngine) -> str:
+    """One line of KV-memory health from ``engine.metrics()``.
+    Stranded/utilization/fragmentation are means of one sample per engine
+    step while requests were resident."""
+    m = engine.metrics()
+    kv = m["kv"]
+    if m["mode"] == "paged":
+        return (
+            f"kv pool: {kv['n_pages']} x {kv['page_size']}-token pages, "
+            f"peak {kv['peak_used_pages']} used "
+            f"({100.0 * kv['peak_used_pages'] / kv['n_pages']:.0f}% peak, "
+            f"{m['mean_utilization_pct']:.1f}% mean utilization), "
+            f"stranded {m['mean_stranded_pct']:.1f}%, "
+            f"fragmentation {m['mean_fragmentation_pct']:.1f}%, "
+            f"{m['preemptions']} preemptions, "
+            f"{m['prefill_chunks']} prefill chunks"
+        )
+    return (
+        f"kv cache: contiguous {m['n_slots']} x {m['max_len']} "
+        f"({kv['token_capacity']} tokens reserved worst-case), "
+        f"{m['mean_utilization_pct']:.1f}% mean slot utilization, "
+        f"stranded {m['mean_stranded_pct']:.1f}% of reserved, "
+        f"{m['prefill_chunks']} prefill chunks"
+    )
+
+
+def write_obs_outputs(engine: ServeEngine, args: argparse.Namespace) -> None:
+    """Write the observability outputs the CLI asked for: a Chrome/Perfetto
+    trace (``--trace-out``) and a Prometheus text snapshot of the engine's
+    registry (``--metrics-out``)."""
+    if args.trace_out:
+        engine.tracer.write_chrome(args.trace_out)
+        print(f"trace written: {args.trace_out} "
+              f"({len(engine.tracer)} records; inspect with "
+              f"python -m repro_torch.obs.timeline {args.trace_out})")
+    if args.metrics_out:
+        with open(args.metrics_out, "w") as f:
+            f.write(engine.registry.render_prometheus())
+        print(f"metrics written: {args.metrics_out}")
 
 
 def make_requests(cfg, args: argparse.Namespace, rng: np.random.Generator) -> list[Request]:
@@ -55,6 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                     help="max tokens (prefill + decode) one engine step may process")
     ap.add_argument("--prefill-bucket", type=int, default=None,
                     help="pad prompts to a multiple of this bucket")
+    ap.add_argument("--prefill-chunk", type=int, default=None,
+                    help="split prompts longer than this into chunk-sized prefill "
+                         "pieces interleaved with decode steps (attention-family archs)")
     ap.add_argument("--page-size", type=int, default=None,
                     help="block-paged KV cache: tokens per page (default: contiguous slots)")
     ap.add_argument("--n-pages", type=int, default=None,
@@ -68,6 +116,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gen", type=int, default=16)
     ap.add_argument("--gen-jitter", type=int, default=4)
     ap.add_argument("--max-steps", type=int, default=10_000)
+    ap.add_argument("--trace-out", default=None,
+                    help="enable request-lifecycle tracing and write a Chrome/Perfetto "
+                         "trace_event JSON here")
+    ap.add_argument("--metrics-out", default=None,
+                    help="write a Prometheus text snapshot of the engine's metrics here")
     return ap
 
 
@@ -83,10 +136,14 @@ def main(argv: "list[str] | None" = None) -> int:
         sampler=Sampler.parse(args.sampler),
         max_tokens_per_step=args.step_budget,
         prefill_bucket=args.prefill_bucket,
+        prefill_chunk=args.prefill_chunk,
         page_size=args.page_size,
         n_pages=args.n_pages,
         seed=args.seed,
         device=args.device,
+        # --trace-out turns tracing on for this engine; without it the
+        # engine keeps the process tracer, disabled
+        tracer=Tracer() if args.trace_out else None,
     )
     rng = np.random.default_rng(args.seed)
     requests = make_requests(engine.cfg, args, rng)
@@ -122,12 +179,7 @@ def main(argv: "list[str] | None" = None) -> int:
         f"max {stats.max_active} concurrent, {stats.steps} engine steps, "
         f"decode median {engine.median_decode_step()*1e3:.2f} ms/step"
     )
-    if engine.kv is not None:
-        kv = engine.kv.stats()
-        print(
-            f"kv pool: {kv['n_pages']} x {kv['page_size']}-token pages, "
-            f"peak {kv['peak_used_pages']} used, {stats.preemptions} preemptions"
-        )
+    print(format_kv_metrics(engine))
     graphs = engine.graph_stats()
     print("step programs: " + " | ".join(
         f"{name} {g['eager_calls']} eager, {g['captures']} captured "
@@ -135,6 +187,7 @@ def main(argv: "list[str] | None" = None) -> int:
     ))
     sample = completions[0]
     print(f"sample (request {sample.request_id}):", np.asarray(sample.tokens[:16]))
+    write_obs_outputs(engine, args)
     return 0
 
 

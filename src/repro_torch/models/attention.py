@@ -14,7 +14,9 @@ import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import blocks
-from repro_torch.kernels.paged_attention import (  # noqa: F401  (insert_pages re-exported)
+from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-exported)
+    ChunkScatter,
+    chunk_scatter_plan,
     insert_pages,
     scatter_chunk_pages,
     scatter_token_pages,
@@ -79,16 +81,22 @@ def cache_seq_axes(cfg: ArchConfig) -> dict:
 
 
 def _update_slot_rows(
-    cache: torch.Tensor, update: torch.Tensor, index: torch.Tensor, axis: int
+    cache: torch.Tensor, update: torch.Tensor, index: torch.Tensor, axis: int,
+    slots: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Per-batch-row write of ``update`` at each row's own position, in
     place.  ``axis`` is the sequence axis including the batch axis; each
     start clamps into the cache like ``dynamic_update_slice`` (a freed
-    slot's index keeps counting past the end)."""
+    slot's index keeps counting past the end).  ``slots`` (B,) names the
+    cache rows that ``update``'s rows go to (default: row ``b`` to row
+    ``b``)."""
     s = update.shape[axis]
     start = torch.clamp(index.long(), 0, cache.shape[axis] - s)
     pos = start[:, None] + torch.arange(s, device=cache.device)  # (B, S)
-    rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    if slots is None:
+        rows = torch.arange(cache.shape[0], device=cache.device)[:, None]
+    else:
+        rows = slots.long()[:, None]
     torch.movedim(cache, axis, 1)[rows, pos] = torch.movedim(update, axis, 1).to(cache.dtype)
     return cache
 
@@ -127,9 +135,15 @@ def gqa_forward(
     index: torch.Tensor | None = None,
     mode: str = "train",
     pages: torch.Tensor | None = None,
+    slots: torch.Tensor | None = None,
+    scatter: ChunkScatter | None = None,
 ):
     """Returns (out (B, S, D), cache) — the cache updated in place, or
-    None when none was given."""
+    None when none was given.  ``slots`` (B,), contiguous ``extend`` only:
+    the rows of a larger cache that the batch's rows are (the serve
+    engine's chunked prefill extends one slot of its cache in place).
+    ``scatter``, paged ``extend`` only: the chunk's pool rows, one plan for
+    every layer (made here when not given)."""
     b, s, _ = x.shape
     cd = torch_dtype(cfg.compute_dtype)
     xc = x.to(cd)
@@ -152,12 +166,16 @@ def gqa_forward(
                 if s == 1:
                     scatter_token_pages(cache[leaf], val[:, :, 0], pages, index, seq_axis=2)
                 else:  # extend: S-token chunk, causal within the chunk
-                    scatter_chunk_pages(cache[leaf], val, pages, index, seq_axis=2)
+                    scatter_chunk_pages(cache[leaf], val, pages, index, seq_axis=2,
+                                        plan=scatter)
             o = blocks.call("paged_attention", qt, cache["k"], cache["v"], pages, index)
         else:
-            _update_slot_rows(cache["k"], kt, index, axis=2)
-            _update_slot_rows(cache["v"], vt, index, axis=2)
-            o = decode_attention_gqa(qt, cache["k"], cache["v"], index)
+            _update_slot_rows(cache["k"], kt, index, axis=2, slots=slots)
+            _update_slot_rows(cache["v"], vt, index, axis=2, slots=slots)
+            k_rows, v_rows = cache["k"], cache["v"]
+            if slots is not None:
+                k_rows, v_rows = k_rows.index_select(0, slots), v_rows.index_select(0, slots)
+            o = decode_attention_gqa(qt, k_rows, v_rows, index)
     else:
         o = blocks.call(
             "attention", qt, kt.contiguous(), vt.contiguous(), causal=True
@@ -169,6 +187,7 @@ def gqa_forward(
     return o.to(cd) @ p["wo"].to(cd), cache
 
 
-def attention_forward(p, x, cfg, positions, cache=None, index=None, mode="train", pages=None):
+def attention_forward(p, x, cfg, positions, cache=None, index=None, mode="train", pages=None,
+                      slots=None, scatter=None):
     _require_gqa(cfg)
-    return gqa_forward(p, x, cfg, positions, cache, index, mode, pages)
+    return gqa_forward(p, x, cfg, positions, cache, index, mode, pages, slots, scatter)

@@ -19,7 +19,9 @@ Modes: ``prefill`` (fill the cache, logits), ``decode`` (one token per row
 against the cache) and ``extend`` (an S-token chunk per row, causal within
 the chunk).  ``cache["index"]`` is per-slot (B,): rows decode at their own
 positions (continuous batching); a paged cache also carries
-``cache["pages"]``, the (B, max_pages) page table.  Caches are updated in
+``cache["pages"]``, the (B, max_pages) page table; a contiguous ``extend``
+may carry ``cache["slots"]``, the (B,) rows of a larger cache that the
+batch extends (the serve engine's chunked prefill).  Caches are updated in
 place and returned, ``cache["index"]`` too (the same tensor, advanced).
 """
 
@@ -38,6 +40,8 @@ from repro_torch.models.attention import (
     attn_metas,
     cache_metas,
     cache_metas_paged,
+    cache_seq_axes,
+    chunk_scatter_plan,
 )
 from repro_torch.models.layers import (
     add_rmsnorm,
@@ -196,13 +200,14 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
-def _apply_attn_block(lp, x, pending, cfg, positions, cache, index, mode, pages=None):
+def _apply_attn_block(lp, x, pending, cfg, positions, cache, index, mode, pages=None,
+                      slots=None, scatter=None):
     """Returns (x, pending): the residual stream with the attention output
     added (fused into ln2) and the MLP's output, which the next norm adds."""
     cd = torch_dtype(cfg.compute_dtype)
     x, h_in = add_rmsnorm(lp["ln1"], x, pending, cfg.norm_eps)
     attn_out, cache = attention_forward(
-        lp["attn"], h_in.to(cd), cfg, positions, cache, index, mode, pages
+        lp["attn"], h_in.to(cd), cfg, positions, cache, index, mode, pages, slots, scatter
     )
     x, ff_in = add_rmsnorm(lp["ln2"], x, attn_out, cfg.norm_eps)
     return x, mlp_forward(lp["mlp"], ff_in.to(cd), cd)
@@ -224,6 +229,17 @@ def _apply_mamba_block(lp, x, pending, cfg, cache, mode):
 # -- forward / serve ----------------------------------------------------------------------
 
 
+def _pool_geometry(cfg: ArchConfig, cache: Any) -> tuple[int, int]:
+    """(page_size, pool pages with the null page) of a paged cache's
+    attention pools."""
+    seq_axis = cache_seq_axes(cfg)["k"] + 1  # the stacked layer axis leads
+    for g in groups_of(cfg):
+        if g.kind != "m":
+            pool = cache[g.key]["k"]
+            return pool.shape[seq_axis], pool.shape[1]
+    raise ValueError(f"{cfg.name}: no attention pool to extend")
+
+
 def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
     """All blocks.  Returns (x, pending, cache): every block's residual add
     lands in the next block's norm (``add_rmsnorm``), so the last block's
@@ -234,13 +250,17 @@ def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
     b, s = x.shape[0], x.shape[1]
     steps = torch.arange(s, dtype=torch.int32, device=x.device)
 
-    pages = None
+    pages = slots = scatter = None
     if mode in ("decode", "extend"):
         index = cache["index"]
         if index.ndim != 1:
             raise ValueError("cache['index'] must be per-slot (B,) write positions")
         pages = cache.get("pages")  # (B, max_pages) page table, paged only
+        slots = cache.get("slots")  # (B,) cache rows, contiguous extend only
         positions = index[:, None] + steps[None, :]
+        if pages is not None and s > 1:
+            # where the chunk's K/V land in the pool, shared by every layer
+            scatter = chunk_scatter_plan(pages, index, s, *_pool_geometry(cfg, cache))
     else:
         index = None
         positions = steps[None, :].expand(b, s)
@@ -256,7 +276,7 @@ def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
                 x, pending = _apply_mamba_block(lp, x, pending, cfg, lcache, mode)
             else:
                 x, pending = _apply_attn_block(
-                    lp, x, pending, cfg, positions, lcache, index, mode, pages
+                    lp, x, pending, cfg, positions, lcache, index, mode, pages, slots, scatter
                 )
     return x, pending, cache
 

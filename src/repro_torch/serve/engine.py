@@ -1,10 +1,10 @@
-"""ServeEngine — request-level serving with continuous batching (the
-scheduling core of ``repro/serve/engine.py``).
+"""ServeEngine — request-level serving with continuous batching (the port
+of ``repro/serve/engine.py``).
 
 Callers ``submit()`` :class:`Request` objects at any time and drive the
-engine with ``step()`` (one scheduling round: admit waiting requests into
-free KV slots — a batch-1 prefill each, inserted into the slot — then one
-decode step for every active slot) or ``run_until_idle()``; they get
+engine with ``step()`` (one scheduling round: in-flight prefill chunks,
+then admissions of waiting requests into free KV slots, then one decode
+step for every decodable slot) or ``run_until_idle()``; they get
 streaming :class:`Token` events and a final :class:`Completion` per request.
 
 * **Continuous batching** — the KV cache has ``n_slots`` rows with per-slot
@@ -16,24 +16,46 @@ streaming :class:`Token` events and a final :class:`Completion` per request.
   through the page table, a device tensor re-uploaded only when the table
   changed.  Under page pressure the youngest request is preempted and later
   resumes token-identically.
+* **Chunked prefill** — ``prefill_chunk`` (attention-family archs only)
+  splits prompts longer than one chunk into chunk-sized pieces run on
+  consecutive steps, interleaved with the in-flight decodes, with the
+  reference's scheduling: the same chunks run in the same steps, charge
+  the same budget and preempt in the same order.  Each chunk extends the
+  slot's own cache in place — through the slot's page row on the paged
+  cache (the paged attention kernel's extend route at B=1, S=chunk), or
+  the slot's row of the contiguous cache, picked by a device slot tensor.
+  Every chunk is ``prefill_chunk`` wide: the final one covers the window
+  ``[ctx - chunk, ctx)``, re-extending positions an earlier chunk wrote
+  with the same values, and samples from its last position; the budget
+  and telemetry still count the ``run`` new tokens, as the reference does.
+  A mid-prefill slot's row of the decode step's page table is the null
+  row, so decode's write for it lands in the null page.
 * **Sampling on the device** — logits never leave the card; the per-step
   host transfer is the (B,) token ids.
-* **Compiled steps** — the decode step of the whole slot batch and each
-  admission's prefill, sampling fused into both, run as step programs
-  (:mod:`repro_torch.serve.programs`), the counterpart of the reference's
-  jitted ``decode`` and ``prefill``: on the card each key (sampling policy;
-  for prefill the padded length too) runs eagerly once, is captured as a
-  CUDA graph at its second call and replayed from then on.  Decode has at
-  most three keys, one per policy, whatever the batch's composition.
-  Prefill is graphed only with ``prefill_bucket``, where its lengths are
-  few; exact lengths are too many to pay for their captures, so they run
-  eagerly.  The prefill fills one static batch-1 cache, zeroed inside the
-  program (the reference builds its zero cache inside the jitted prefill);
-  the insert into the slot stays a few eager copies.
+* **Compiled steps** — the decode step of the whole slot batch, each
+  admission's prefill, and the chunk programs ``extend`` and
+  ``extend_sample``, sampling fused in where a token is drawn, run as step
+  programs (:mod:`repro_torch.serve.programs`), the counterparts of the
+  reference's jitted programs: on the card each key (sampling policy; for
+  prefill the padded length too) runs eagerly once, is captured as a CUDA
+  graph at its second call and replayed from then on.  Decode has at most
+  three keys, one per policy, whatever the batch's composition; so has
+  ``extend_sample``, and ``extend`` has one.  Prefill is graphed only with
+  ``prefill_bucket``, where its lengths are few; exact lengths are too
+  many to pay for their captures, so they run eagerly.  The prefill fills
+  one static batch-1 cache, zeroed inside the program; the insert into the
+  slot stays a few eager copies.
 * **SSM and hybrid models** — Mamba-2 ('m') layers carry a recurrent state
   per slot with no sequence axis, so it stays slot-indexed in the paged
   layout too; a preempted request's state is rebuilt by re-prefilling its
   prompt and generated tokens.
+* **Observability** — request-lifecycle spans and events on a
+  :class:`repro_torch.obs.Tracer` (disabled unless one is passed), a
+  :class:`repro_torch.obs.MetricsRegistry` fed by per-phase
+  :class:`PhaseTelemetry`, the scheduler and a decode
+  :class:`~repro_torch.runtime.monitor.StepMonitor`, and
+  :meth:`ServeEngine.metrics` for KV-pool utilization, stranded capacity
+  and page fragmentation.
 
 Caches are updated in place (the reference donates them to its jitted
 programs).  Weights are cast to the compute dtype once, at construction.
@@ -43,15 +65,12 @@ when the table changed.
 
 The engine runs on the CUDA card unless the caller passes ``device="cpu"``;
 without CUDA it raises.  Not ported yet (they raise
-``NotImplementedError``): chunked prefill, plan binding, meters, the tracer,
-lint and capacity planning.
+``NotImplementedError``): plan binding, meters, lint and capacity planning.
 """
 
 from __future__ import annotations
 
-import collections
 import dataclasses
-import statistics
 import time
 from typing import Any, Iterable, Sequence
 
@@ -62,11 +81,13 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
 from repro_torch.models.attention import cache_seq_axes, insert_pages
+from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
+from repro_torch.runtime.monitor import StepMonitor
 from repro_torch.serve.kv import PagePool, PageTable, PoolExhausted, pages_for
 from repro_torch.serve.programs import StepProgram
 from repro_torch.serve.request import Completion, Request, RequestState, Token
 from repro_torch.serve.sampler import Sampler, policy_of, sample_tokens
-from repro_torch.serve.scheduler import Scheduler
+from repro_torch.serve.scheduler import Scheduler, request_track
 
 PHASES = ("prefill", "decode")
 
@@ -83,21 +104,57 @@ def resolve_device(device: "torch.device | str") -> torch.device:
     return device
 
 
+def _i32(value: int) -> np.ndarray:
+    return np.asarray([value], np.int32)
+
+
 @dataclasses.dataclass
 class PhaseTelemetry:
     """Wall time and tokens of one phase, summed over its calls.  Every call
-    ends in a device-to-host read of the sampled tokens, so the wall time
-    covers the device work."""
+    ends in a device-to-host read of the sampled tokens or a device
+    synchronisation, so the wall time covers the device work.
+
+    With a ``registry`` (a :class:`repro_torch.obs.MetricsRegistry`), every
+    :meth:`add` also writes through to the
+    ``serve_phase_{calls,seconds,tokens,joules}_total{phase=...}`` counters:
+    one observation feeds both views.  ``joules`` and ``provenance`` stay
+    None: the port has no power meter yet.
+    """
 
     phase: str
     calls: int = 0
     seconds: float = 0.0
     tokens: int = 0
+    joules: float | None = None
+    provenance: str | None = None
+    registry: Any = dataclasses.field(default=None, repr=False, compare=False)
+
+    def __post_init__(self) -> None:
+        self._counters = None
+        if self.registry is not None:
+            lab = {"phase": self.phase}
+            reg = self.registry
+            self._counters = (
+                reg.counter("serve_phase_calls_total",
+                            "phase program invocations", ("phase",)).labels(**lab),
+                reg.counter("serve_phase_seconds_total",
+                            "wall seconds inside phase programs", ("phase",)).labels(**lab),
+                reg.counter("serve_phase_tokens_total",
+                            "tokens processed per phase", ("phase",)).labels(**lab),
+                # registered for the exposition's schema; fed once a meter is
+                reg.counter("serve_phase_joules_total",
+                            "metered energy per phase", ("phase",)).labels(**lab),
+            )
 
     def add(self, seconds: float, tokens: int) -> None:
         self.calls += 1
         self.seconds += seconds
         self.tokens += tokens
+        if self._counters is not None:
+            calls_c, seconds_c, tokens_c, _ = self._counters
+            calls_c.inc()
+            seconds_c.inc(max(seconds, 0.0))
+            tokens_c.inc(tokens)
 
     @property
     def tokens_per_second(self) -> float:
@@ -123,6 +180,17 @@ class EngineStats:
     slot_reuses: int
     max_active: int
     preemptions: int = 0
+    prefill_chunks: int = 0
+
+
+@dataclasses.dataclass
+class _PrefillProgress:
+    """One request mid-chunked-prefill: its context and how much of it the
+    slot's cache holds."""
+
+    state: RequestState
+    context: list[int]
+    pos: int = 0
 
 
 class ServeEngine:
@@ -139,6 +207,15 @@ class ServeEngine:
     position ``index`` before the mask admits it); a pattern with SSM
     layers refuses it, since padding would run through the recurrence.
     On the card, prefill runs as CUDA graphs only with a bucket.
+    ``prefill_chunk`` enables chunked prefill (attention-family archs only:
+    a recurrent SSM scan cannot resume across chunk boundaries).
+
+    ``tracer`` (a :class:`repro_torch.obs.Tracer`; default the process
+    tracer, disabled) records request-lifecycle spans; ``registry`` (a
+    :class:`repro_torch.obs.MetricsRegistry`; default a fresh one) holds
+    the ``serve_*`` metric families; ``monitor`` (a
+    :class:`~repro_torch.runtime.monitor.StepMonitor`) times decode steps
+    into ``serve_step_seconds``.
     """
 
     def __init__(
@@ -151,21 +228,21 @@ class ServeEngine:
         sampler: Sampler | None = None,
         max_tokens_per_step: int | None = None,
         prefill_bucket: int | None = None,
+        prefill_chunk: int | None = None,
         page_size: int | None = None,
         n_pages: int | None = None,
         seed: int = 0,
         device: "torch.device | str" = "cuda",
-        prefill_chunk: int | None = None,
+        monitor: StepMonitor | None = None,
+        tracer: Tracer | None = None,
+        registry: MetricsRegistry | None = None,
         plan_dir: str | None = None,
         decode_impl: str = "auto",
         meter: Any = None,
-        tracer: Any = None,
     ) -> None:
         asked = [
-            name for name, value in (
-                ("prefill_chunk", prefill_chunk), ("plan_dir", plan_dir),
-                ("meter", meter), ("tracer", tracer),
-            ) if value is not None
+            name for name, value in (("plan_dir", plan_dir), ("meter", meter))
+            if value is not None
         ] + (["decode_impl"] if decode_impl != "auto" else [])
         if asked:
             raise NotImplementedError(
@@ -179,6 +256,14 @@ class ServeEngine:
                 f"state — unsupported for '{cfg.name}' "
                 f"(pattern {cfg.pattern()!r})"
             )
+        if prefill_chunk is not None and "m" in cfg.pattern():
+            raise ValueError(
+                "prefill_chunk resumes the sequence mid-prompt, which an "
+                f"SSM scan cannot do — unsupported for '{cfg.name}' "
+                f"(pattern {cfg.pattern()!r})"
+            )
+        if prefill_chunk is not None and prefill_chunk < 1:
+            raise ValueError("prefill_chunk must be >= 1")
         if n_pages is not None and page_size is None:
             raise ValueError("n_pages given without page_size")
         self.device = resolve_device(device)
@@ -188,6 +273,32 @@ class ServeEngine:
         self.sampler = sampler or Sampler.greedy()
         self.seed = seed
         self.prefill_bucket = prefill_bucket
+        self.prefill_chunk = prefill_chunk
+
+        # -- observability -------------------------------------------------
+        self.tracer = tracer if tracer is not None else get_tracer()
+        self.registry = registry if registry is not None else MetricsRegistry()
+        self._queue_depth_g = self.registry.gauge(
+            "serve_queue_depth", "requests waiting for a slot")
+        self._active_slots_g = self.registry.gauge(
+            "serve_active_slots", "requests resident in KV slots")
+        self._kv_util_g = self.registry.gauge(
+            "serve_kv_utilization_pct", "KV pool/slot utilization")
+        self._kv_stranded_g = self.registry.gauge(
+            "serve_kv_stranded_pct", "reserved-but-unused KV capacity")
+        self._kv_frag_g = self.registry.gauge(
+            "serve_kv_fragmentation_pct", "partial-page fragmentation")
+        self._submitted_c = self.registry.counter(
+            "serve_requests_submitted_total", "requests accepted by submit()")
+        self._completed_c = self.registry.counter(
+            "serve_requests_completed_total", "requests finished")
+        self._generated_c = self.registry.counter(
+            "serve_tokens_generated_total", "tokens sampled across requests")
+        self._step_hist = self.registry.histogram(
+            "serve_step_seconds", "fused decode step latency")
+        self.monitor = monitor or StepMonitor()
+        if self.monitor.histogram is None:
+            self.monitor.histogram = self._step_hist
 
         # -- KV memory ------------------------------------------------------
         self.paged = page_size is not None
@@ -215,7 +326,8 @@ class ServeEngine:
         self._b1_cache = lm.init_cache(cfg, 1, self._slot_len, device=self.device)
         self.scheduler = Scheduler(
             n_slots, max_tokens_per_step, prompt_cost=self._admission_cost,
-            kv=self.kv,
+            kv=self.kv, admit_tokens=self._admission_tokens,
+            tracer=self.tracer, metrics=self.registry,
         )
         if params is None:
             params = lm.init_params(cfg, seed=seed, device=self.device)
@@ -228,16 +340,22 @@ class ServeEngine:
         self._temps = np.zeros((n_slots,), np.float32)
         self._topks = np.zeros((n_slots,), np.int32)
         self._lengths = np.zeros((n_slots,), np.int64)  # resident tokens
-        # the static device page table, rewritten only when the table changed
+        #: slots mid-chunked-prefill (slot -> _PrefillProgress); these hold
+        #: a slot and pages but sit out decode until the final chunk
+        #: samples their first token
+        self._prefilling: dict[int, _PrefillProgress] = {}
+        # the static device page table, rewritten only when the table or
+        # the set of mid-prefill slots (null rows there) changed
         self._pages_dev = (
             torch.tensor(self.kv.array(), device=self.device) if self.paged else None
         )
-        self._pages_version = self.kv.version if self.paged else -1
+        self._pages_key: tuple | None = (self.kv.version, ()) if self.paged else None
 
         # the compiled steps; their graphs share one memory pool, which holds
         # about the largest key's activations (a graph's outputs stay live:
         # (1, V) f32 logits a prefill key), and never drop a graph: decode
-        # has at most three keys, a bucketed prefill three per bucket
+        # has at most three keys, a bucketed prefill three per bucket, the
+        # chunk programs four
         pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
         self.programs = {
             "decode": StepProgram("decode", self._decode_step, 5 * n_slots, self.device,
@@ -245,14 +363,28 @@ class ServeEngine:
             "prefill": StepProgram("prefill", self._prefill_step, max_len + 5, self.device,
                                    pool=pool, graphs=prefill_bucket is not None),
         }
+        if prefill_chunk is not None:
+            words = 6 + prefill_chunk + (self.kv.max_pages if self.paged else 1)
+            self.programs["extend"] = StepProgram(
+                "extend", self._extend_step, words, self.device, pool=pool)
+            self.programs["extend_sample"] = StepProgram(
+                "extend_sample", self._extend_sample_step, words, self.device, pool=pool)
 
-        self.telemetry = {p: PhaseTelemetry(p) for p in PHASES}
-        self._decode_seconds: collections.deque = collections.deque(maxlen=256)
+        self.telemetry = {p: PhaseTelemetry(p, registry=self.registry) for p in PHASES}
         self.completions: dict[int, Completion] = {}
         self._finished: list[Completion] = []
         self._next_id = 0
+        self._submitted = 0
         self._steps = 0
         self._max_active = 0
+        self._chunk_calls = 0
+        #: positions the final chunks re-extended beyond their ``run`` new
+        #: tokens (each final chunk covers ``prefill_chunk`` positions)
+        self.overlap_tokens = 0
+        # per-step KV-health samples (while requests were resident):
+        # (utilization_pct, stranded_pct, fragmentation_pct) running sums
+        self._kv_samples = 0
+        self._kv_sums = [0.0, 0.0, 0.0]
 
     # -- admission policy ------------------------------------------------------
     @staticmethod
@@ -261,8 +393,22 @@ class ServeEngine:
         tokens generated before a preemption."""
         return len(state.request.prompt) + len(state.tokens)
 
+    def _is_chunked(self, ctx: int) -> bool:
+        return self.prefill_chunk is not None and ctx > self.prefill_chunk
+
     def _admission_cost(self, state: RequestState) -> int:
-        return self._padded_len(self._ctx_len(state))
+        """Budget tokens the admission's first program call runs."""
+        ctx = self._ctx_len(state)
+        if self._is_chunked(ctx):
+            return self.prefill_chunk
+        return self._padded_len(ctx)
+
+    def _admission_tokens(self, state: RequestState) -> int:
+        """Tokens the admission must hold pages for right now."""
+        ctx = self._ctx_len(state)
+        if self._is_chunked(ctx):
+            return min(ctx, self.prefill_chunk)
+        return ctx
 
     def _padded_len(self, length: int) -> int:
         if self.prefill_bucket:
@@ -293,6 +439,36 @@ class ServeEngine:
         cache["index"].copy_(last + 1)
         return sample_tokens(logits, seed, gen_step, temp, topk, policy=policy), logits
 
+    def _chunk_forward(self, slot, start, pages, tokens) -> torch.Tensor:
+        """One prefill chunk, ``tokens`` (1, C) at positions ``start`` (1,)
+        on, extended into slot ``slot`` (1,) of the engine cache in place:
+        through the slot's page row ``pages`` (1, max_pages) on the paged
+        cache (unused on the contiguous one).  The slot's index becomes the
+        next write position, ``start + C``.  Returns the hidden states."""
+        cache = {key: value for key, value in self.cache.items() if key != "index"}
+        cache["index"] = start
+        if self.paged:
+            cache["pages"] = pages
+        else:
+            cache["slots"] = slot
+        x, _ = lm.backbone(self.params, {"tokens": tokens}, self.cfg, "extend", cache)
+        self.cache["index"].index_copy_(0, slot.long(), start + tokens.shape[1])
+        return x
+
+    def _extend_step(self, slot, start, pages, tokens) -> None:
+        """The ``extend`` program: a non-final chunk, no head, no sampling."""
+        self._chunk_forward(slot, start, pages, tokens)
+
+    def _extend_sample_step(self, slot, start, pages, seed, gen_step, temp, topk, tokens, *,
+                            policy: str):
+        """The ``extend_sample`` program: the final chunk, whose last
+        position is the context's last; projects only that position and
+        samples the request's next token.  Returns (token (1,), logits
+        (1, V))."""
+        x = self._chunk_forward(slot, start, pages, tokens)
+        logits = lm.head(self.params, x[:, -1:], self.cfg)[:, 0, : self.cfg.vocab_size]
+        return sample_tokens(logits, seed, gen_step, temp, topk, policy=policy), logits
+
     def _decode_step(self, tokens, seeds, steps, temps, topks, *, policy: str):
         """The decode program: one step of the whole slot batch, tokens
         (B, 1), the cache's index advanced in place.  Returns (sampled
@@ -308,19 +484,25 @@ class ServeEngine:
         tokens = np.zeros((1, self._padded_len(len(context))), np.int32)
         tokens[0, : len(context)] = context
         temp, topk = self._request_knobs(state)
-        i32 = lambda v: np.asarray([v], np.int32)  # noqa: E731
         tok, _ = self.programs["prefill"](
-            [i32(len(context) - 1), i32(state.seed), i32(len(state.tokens)),
-             np.asarray([temp], np.float32), i32(topk), tokens],
+            [_i32(len(context) - 1), _i32(state.seed), _i32(len(state.tokens)),
+             np.asarray([temp], np.float32), _i32(topk), tokens],
             policy=policy_of([temp], [topk]),
         )
         return tok
 
     def _sync_pages(self) -> None:
-        """Rewrite the static device page table if the table changed."""
-        if self._pages_version != self.kv.version:
-            self._pages_dev.copy_(torch.tensor(self.kv.array()))
-            self._pages_version = self.kv.version
+        """Rewrite the static device page table if the table or the set of
+        mid-prefill slots changed; a mid-prefill slot's row is the null row
+        (decode's write for it lands in the null page)."""
+        key = (self.kv.version, tuple(sorted(self._prefilling)))
+        if key != self._pages_key:
+            table = self.kv.array()
+            if self._prefilling:
+                table = table.copy()
+                table[list(self._prefilling)] = self.kv.pool.null_page
+            self._pages_dev.copy_(torch.tensor(table))
+            self._pages_key = key
 
     def _insert(self, slot: int) -> None:
         """Write the prefilled batch-1 cache into ``slot``: the slot row of
@@ -353,6 +535,11 @@ class ServeEngine:
         tok, _ = self.programs["decode"](self._decode_inputs(), policy=policy)
         return tok
 
+    def _synchronize(self) -> None:
+        """Wait for the card (a chunk's wall time then covers its work)."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
     def graph_stats(self) -> dict:
         """Each step program's calls, eager calls, captures, replays,
         capture seconds and graph keys."""
@@ -378,39 +565,58 @@ class ServeEngine:
             )
         request_id = self._next_id
         self._next_id += 1
+        self._submitted += 1
+        self._submitted_c.inc()
         seed = (
             request.seed
             if request.seed is not None
             else (self.seed * 1_000_003 + request_id) & 0x7FFFFFFF
         )
+        submitted_at = time.perf_counter()
+        if self.tracer.enabled:
+            self.tracer.event(
+                "submit", tid=request_track(request_id),
+                request=request_id, prompt=len(request.prompt),
+                max_new=request.max_new_tokens,
+            )
         self.scheduler.enqueue(
             RequestState(
                 request_id=request_id,
                 request=request,
                 slot=-1,
                 seed=seed,
-                submitted_at=time.perf_counter(),
+                submitted_at=submitted_at,
             )
         )
         return request_id
 
     @torch.no_grad()
     def step(self) -> list[Token | Completion]:
-        """One scheduling round: admissions (a prefill each), then one
-        decode step over every active slot.  Returns the streamed events in
-        generation order."""
+        """One scheduling round: in-flight prefill chunks, admissions (a
+        prefill — or a first chunk — each), then one decode step over every
+        decodable slot.  Returns the streamed events in generation order."""
         if not self.scheduler.has_work:
             return []
         self._steps += 1
         events: list[Token | Completion] = []
-        admitted = self.scheduler.admissions()
+
+        decoding = sum(1 for slot in self.scheduler.active if slot not in self._prefilling)
+        planned, reserved = self._plan_chunks(decoding)
+        spent = decoding + sum(run for _, run in planned) + reserved
+        for slot, run in planned:
+            self._run_chunk(slot, run, events)
+
+        admitted = self.scheduler.admissions(spent=spent)
         # concurrency peaks right after admission, before same-step
         # finishes release their slots
         self._max_active = max(self._max_active, len(self.scheduler.active))
         for state in admitted:
             events.extend(self._admit(state))
-        if self.scheduler.active:
+        if any(slot not in self._prefilling for slot in self.scheduler.active):
             events.extend(self._decode_active())
+        self._sample_kv_health()
+        self._queue_depth_g.set(len(self.scheduler.waiting))
+        self._active_slots_g.set(len(self.scheduler.active))
         return events
 
     def run_until_idle(self, max_steps: int | None = None) -> list[Completion]:
@@ -436,11 +642,44 @@ class ServeEngine:
         while self.scheduler.has_work:
             yield from self.step()
 
+    def reset_stats(self) -> None:
+        """Zero every lifetime counter — telemetry, monitor, scheduler
+        reuse accounting, completions, the registry and the tracer's
+        records — without touching the step programs or the cache.  For
+        load generators that warm the programs up front and must not report
+        the warmup as served traffic.  Only valid on an idle engine."""
+        if self.scheduler.has_work:
+            raise RuntimeError("reset_stats on a busy engine")
+        # the registry resets in place (child handles stay valid)
+        self.registry.reset()
+        self.tracer.clear()
+        self.telemetry = {p: PhaseTelemetry(p, registry=self.registry) for p in PHASES}
+        self.monitor = StepMonitor(
+            window=self.monitor.window.maxlen or 32,
+            threshold=self.monitor.threshold,
+            patience=self.monitor.patience,
+            on_straggler=self.monitor.on_straggler,
+            histogram=self._step_hist,
+        )
+        self.scheduler.admitted_per_slot.clear()
+        self.scheduler.preemptions = 0
+        if self.kv is not None:
+            self.kv.pool.peak_used = self.kv.pool.used_pages
+        self.completions.clear()
+        self._finished.clear()
+        self._submitted = 0
+        self._steps = 0
+        self._max_active = 0
+        self._chunk_calls = 0
+        self.overlap_tokens = 0
+        self._kv_samples = 0
+        self._kv_sums = [0.0, 0.0, 0.0]
+
     @property
     def stats(self) -> EngineStats:
         return EngineStats(
             steps=self._steps,
-            requests_submitted=self._next_id,
+            requests_submitted=self._submitted,
             requests_completed=len(self._finished),
             prefill_calls=self.telemetry["prefill"].calls,
             decode_steps=self.telemetry["decode"].calls,
@@ -449,11 +688,99 @@ class ServeEngine:
             slot_reuses=self.scheduler.slot_reuses,
             max_active=self._max_active,
             preemptions=self.scheduler.preemptions,
+            prefill_chunks=self._chunk_calls,
         )
 
     def median_decode_step(self) -> float:
-        """Median wall seconds of the recent decode steps (0 before any)."""
-        return statistics.median(self._decode_seconds) if self._decode_seconds else 0.0
+        """Median wall seconds of the monitor's recent decode steps (0
+        before any)."""
+        return self.monitor.median_step()
+
+    def _kv_snapshot(self) -> tuple[float, float, float]:
+        """(utilization %, stranded %, fragmentation %) right now."""
+        if self.kv is not None:
+            pool = self.kv.pool
+            return (
+                100.0 * pool.used_pages / pool.n_pages,
+                self.kv.stranded_pct,
+                self.kv.fragmentation_pct,
+            )
+        active = len(self.scheduler.active)
+        resident = int(sum(self._lengths[slot] for slot in self.scheduler.active))
+        reserved = active * self.max_len
+        return (
+            100.0 * reserved / (self.n_slots * self.max_len),
+            100.0 * (reserved - resident) / reserved if reserved else 0.0,
+            0.0,
+        )
+
+    def _sample_kv_health(self) -> None:
+        if not self.scheduler.active:
+            return
+        util, stranded, frag = self._kv_snapshot()
+        self._kv_samples += 1
+        self._kv_sums[0] += util
+        self._kv_sums[1] += stranded
+        self._kv_sums[2] += frag
+        self._kv_util_g.set(util)
+        self._kv_stranded_g.set(stranded)
+        self._kv_frag_g.set(frag)
+
+    def metrics(self) -> dict:
+        """KV memory health: pool utilization, stranded capacity and page
+        fragmentation (paged), or the contiguous equivalents.  The
+        ``mean_*`` keys average one sample per engine step taken while
+        requests were resident; ``programs`` is :meth:`graph_stats`."""
+        active = len(self.scheduler.active)
+        resident = int(sum(self._lengths[slot] for slot in self.scheduler.active))
+        n = max(self._kv_samples, 1)
+        out: dict = {
+            "mode": "paged" if self.paged else "contiguous",
+            "n_slots": self.n_slots,
+            "max_len": self.max_len,
+            "active": active,
+            "waiting": len(self.scheduler.waiting),
+            "preemptions": self.scheduler.preemptions,
+            "prefill_chunks": self._chunk_calls,
+            "mean_utilization_pct": self._kv_sums[0] / n,
+            "mean_stranded_pct": self._kv_sums[1] / n,
+            "mean_fragmentation_pct": self._kv_sums[2] / n,
+        }
+        out["programs"] = self.graph_stats()
+        if self.kv is not None:
+            out["kv"] = self.kv.stats()
+        else:
+            util, stranded, _ = self._kv_snapshot()
+            out["kv"] = {
+                "token_capacity": self.n_slots * self.max_len,
+                "resident_tokens": resident,
+                "reserved_tokens": active * self.max_len,
+                "utilization_pct": util,
+                "stranded_pct": stranded,
+            }
+        return out
+
+    def serve_metrics(self, port: int = 0, host: str = "127.0.0.1"):
+        """Expose this engine's :class:`~repro_torch.obs.MetricsRegistry`
+        over HTTP (Prometheus text at ``/metrics``) on a daemon thread.
+        ``port=0`` picks a free port.  Returns the
+        :class:`~repro_torch.obs.MetricsServer`; ``.close()`` stops it."""
+        from repro_torch.obs import MetricsServer
+
+        return MetricsServer(self.registry, port=port, host=host)
+
+    def profile_steps(self, n_steps: int, logdir: str) -> bool:
+        """Drive ``step()`` ``n_steps`` times under a ``torch.profiler``
+        window whose Chrome trace is written to ``logdir``.  Returns False
+        (and still runs the steps) when the profiler is unavailable."""
+        from repro_torch.obs import profile_window
+
+        with profile_window(logdir, tracer=self.tracer, name="serve-steps") as captured:
+            for _ in range(n_steps):
+                if not self.scheduler.has_work:
+                    break
+                self.step()
+        return captured
 
     def lint(self, envelope: Any = None) -> list:
         raise NotImplementedError("lint: not ported to repro_torch yet")
@@ -461,16 +788,24 @@ class ServeEngine:
     def plan_capacity(self, envelope: Any = None) -> Any:
         raise NotImplementedError("plan_capacity: not ported to repro_torch yet")
 
-    # -- admission / decode ----------------------------------------------------
+    # -- pages -------------------------------------------------------------------
     def _preempt_for_pages(self, needy_slot: int) -> bool:
-        """Reclaim pages by preempting the youngest other request, finally
-        the needy slot itself (requeue beats deadlock).  Returns False when
-        there is nothing left to preempt."""
-        others = [s for s in self.scheduler.active if s != needy_slot]
-        pool = others or ([needy_slot] if needy_slot in self.scheduler.active else [])
+        """Reclaim pages by preempting the youngest other request —
+        decoding victims first, then mid-prefill ones, finally the needy
+        slot itself (requeue beats deadlock).  Returns False when there is
+        nothing left to preempt."""
+        decoding = [
+            slot for slot in self.scheduler.active
+            if slot not in self._prefilling and slot != needy_slot
+        ]
+        prefilling = [slot for slot in self._prefilling if slot != needy_slot]
+        pool = decoding or prefilling or (
+            [needy_slot] if needy_slot in self.scheduler.active else []
+        )
         if not pool:
             return False
         victim = max(pool, key=lambda s: self.scheduler.active[s].admit_seq)
+        self._prefilling.pop(victim, None)
         self.scheduler.preempt(victim)
         self._gen_counts[victim] = 0
         self._lengths[victim] = 0
@@ -479,9 +814,17 @@ class ServeEngine:
     def _ensure_pages(self, slot: int, n_tokens: int) -> None:
         """Grow the slot to ``n_tokens`` of page capacity, preempting under
         pool pressure."""
+        if self.kv is None:
+            return
         while True:
             try:
-                self.kv.ensure(slot, n_tokens)
+                added = self.kv.ensure(slot, n_tokens)
+                if added and self.tracer.enabled and slot in self.scheduler.active:
+                    state = self.scheduler.active[slot]
+                    self.tracer.event(
+                        "kv-grow", tid=request_track(state.request_id),
+                        request=state.request_id, slot=slot, pages=len(added),
+                    )
                 return
             except PoolExhausted:
                 if not self._preempt_for_pages(slot):
@@ -489,12 +832,86 @@ class ServeEngine:
                 if slot not in self.scheduler.active:
                     return  # the needy slot preempted itself
 
+    # -- chunked prefill -------------------------------------------------------
+    def _plan_chunks(self, decoding: int) -> tuple[list[tuple[int, int]], int]:
+        """Pick which mid-prefill slots run a chunk this step, and how many
+        new tokens each: budget-capped, but guaranteed progress when nothing
+        else runs this step.  Returns ``(planned, reserved)`` — skipped
+        chunks reserve their budget tokens so this step's admissions cannot
+        refill the budget and starve an in-flight prefill forever."""
+        budget = self.scheduler.max_tokens_per_step
+        planned: list[tuple[int, int]] = []
+        reserved = 0
+        spent = decoding
+        for slot in sorted(self._prefilling):
+            prog = self._prefilling[slot]
+            run = min(self.prefill_chunk, len(prog.context) - prog.pos)
+            if budget is not None and spent + reserved + run > budget:
+                if spent or planned:
+                    reserved += run  # held against new admissions
+                    continue  # decode / earlier chunks run first
+                # nothing else runs this step: progress beats the budget
+            planned.append((slot, run))
+            spent += run
+        return planned, reserved
+
+    def _run_chunk(self, slot: int, run: int, events: list[Token | Completion]) -> None:
+        """Extend one request's slot by one chunk of ``run`` new tokens; the
+        final chunk samples the next token and arms the slot for decode."""
+        if slot not in self._prefilling:
+            return  # preempted by an earlier slot's page-ensure this step
+        prog = self._prefilling[slot]
+        state = prog.state
+        ctx = len(prog.context)
+        final = prog.pos + run >= ctx
+        self._ensure_pages(slot, prog.pos + run)
+        if slot not in self._prefilling:
+            return  # self-preempted under extreme pool pressure
+        # every chunk is prefill_chunk wide (one graph key): the final one
+        # ends at the context's end, re-extending the positions before
+        # prog.pos that an earlier chunk wrote (ctx > chunk, so it fits)
+        width = self.prefill_chunk
+        start = ctx - width if final else prog.pos
+        tokens = np.asarray([prog.context[start : start + width]], np.int32)
+        pages = (self.kv.array()[slot : slot + 1] if self.paged
+                 else np.zeros((1, 1), np.int32))  # unused operand
+        head = [_i32(slot), _i32(start), pages]
+        self._chunk_calls += 1
+        t0 = time.perf_counter()
+        if final:
+            temp, topk = self._request_knobs(state)
+            tok, _ = self.programs["extend_sample"](
+                head + [_i32(state.seed), _i32(len(state.tokens)),
+                        np.asarray([temp], np.float32), _i32(topk), tokens],
+                policy=policy_of([temp], [topk]),
+            )
+            self.overlap_tokens += width - run
+            del self._prefilling[slot]
+            self._commit_slot(state, int(tok[0]), events)  # syncs the device
+        else:
+            self.programs["extend"](head + [tokens])
+            self._synchronize()
+            prog.pos += run
+        self.telemetry["prefill"].add(time.perf_counter() - t0, run)
+        if self.tracer.enabled:
+            self.tracer.add_span(
+                "prefill-chunk", t0, time.perf_counter(),
+                tid=request_track(state.request_id),
+                request=state.request_id, slot=slot, tokens=run,
+                final=final, step=self._steps,
+            )
+
+    # -- admission / decode ----------------------------------------------------
     def _admit(self, state: RequestState) -> list[Token | Completion]:
         context = list(state.request.prompt) + list(state.tokens)
+        events: list[Token | Completion] = []
+        if self._is_chunked(len(context)):
+            self._prefilling[state.slot] = _PrefillProgress(state, context)
+            self._run_chunk(state.slot, self.prefill_chunk, events)
+            return events
         t0 = time.perf_counter()
         tok = self._prefill(context, state)
         self._insert(state.slot)
-        events: list[Token | Completion] = []
         self._commit_slot(state, int(tok[0]), events)  # syncs the device
         self.telemetry["prefill"].add(time.perf_counter() - t0, len(context))
         return events
@@ -502,6 +919,7 @@ class ServeEngine:
     def _commit_slot(self, state: RequestState, first: int, events: list) -> None:
         """Record the prefill's sampled token and arm the slot for decode."""
         slot = state.slot
+        context = self._ctx_len(state)
         temp, topk = self._request_knobs(state)
         gen_index = len(state.tokens)
         self._last_tok[slot, 0] = first
@@ -509,9 +927,23 @@ class ServeEngine:
         self._gen_counts[slot] = gen_index + 1
         self._temps[slot] = temp
         self._topks[slot] = topk
-        self._lengths[slot] = self._ctx_len(state)
+        self._lengths[slot] = context
+        now = time.perf_counter()
+        if self.tracer.enabled:
+            track = request_track(state.request_id)
+            # the prefill span covers admission -> first token, including
+            # every chunk for chunked prompts (chunk sub-spans sit inside)
+            self.tracer.add_span(
+                "prefill", state.last_admitted_at or now, now, tid=track,
+                request=state.request_id, slot=slot, tokens=context,
+                step=self._steps,
+            )
+            if state.first_token_at is None:
+                self.tracer.event(
+                    "first-token", tid=track, request=state.request_id, token=first,
+                )
         if state.first_token_at is None:
-            state.first_token_at = time.perf_counter()
+            state.first_token_at = now
         state.tokens.append(first)
         events.append(Token(state.request_id, first, gen_index, "prefill", self._steps))
         if state.done:
@@ -522,16 +954,31 @@ class ServeEngine:
             # grow page capacity for this step's writes up front; under
             # pool pressure this preempts the youngest request
             for slot in sorted(self.scheduler.active):
+                if slot in self._prefilling:
+                    continue
                 if slot in self.scheduler.active:  # not preempted meanwhile
                     self._ensure_pages(slot, int(self._lengths[slot]) + 1)
-        active = dict(self.scheduler.active)
+        active = {
+            slot: state for slot, state in self.scheduler.active.items()
+            if slot not in self._prefilling
+        }
         if not active:
             return []
         t0 = time.perf_counter()
+        self.monitor.start()
         toks = self._decode(active).cpu().numpy()  # the only device->host transfer
-        elapsed = time.perf_counter() - t0
-        self.telemetry["decode"].add(elapsed, len(active))
-        self._decode_seconds.append(elapsed)
+        self.monitor.stop(self._steps)
+        t1 = time.perf_counter()
+        self.telemetry["decode"].add(t1 - t0, len(active))
+        if self.tracer.enabled:
+            # one fused-step span on the engine track, mirrored onto each
+            # participating request's track
+            self.tracer.add_span("decode", t0, t1, batch=len(active), step=self._steps)
+            for state in active.values():
+                self.tracer.add_span(
+                    "decode", t0, t1, tid=request_track(state.request_id),
+                    request=state.request_id, step=self._steps,
+                )
 
         events: list[Token | Completion] = []
         for slot, state in active.items():
@@ -560,6 +1007,14 @@ class ServeEngine:
             finished_at=time.perf_counter(),
             admitted_at=state.admitted_at,
         )
+        self._completed_c.inc()
+        self._generated_c.inc(len(completion.tokens))
+        if self.tracer.enabled:
+            self.tracer.event(
+                "complete", tid=request_track(state.request_id),
+                request=state.request_id, tokens=len(completion.tokens),
+                reason=completion.finish_reason,
+            )
         self.completions[state.request_id] = completion
         self._finished.append(completion)
         return completion

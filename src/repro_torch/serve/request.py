@@ -119,9 +119,15 @@ class RequestState:
     tokens: list[int] = dataclasses.field(default_factory=list)
     #: monotonic admission order (preemption evicts the youngest first)
     admit_seq: int = -1
+    #: when the request (re-)entered the waiting queue — submit time, or
+    #: the preemption time after a requeue (feeds the "queue" trace span)
+    queued_at: float = 0.0
     #: when the scheduler *first* placed the request into a slot (fixed
     #: across preemptions — feeds ``Completion.ttft_admitted``)
     admitted_at: float | None = None
+    #: the most recent admission (re-stamped on resume — anchors the
+    #: "prefill" trace span, which covers this admission's work only)
+    last_admitted_at: float = 0.0
 
     @property
     def done(self) -> bool:

@@ -208,12 +208,25 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(prefill_chunk=8), dict(plan_dir="plans"), dict(decode_impl="pallas"),
-    dict(meter="auto"), dict(tracer=object()),
+    dict(plan_dir="plans"), dict(decode_impl="pallas"), dict(meter="auto"),
 ])
 def test_unported_engine_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(CFG, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("arch, chunk, match", [
+    ("mamba2-2.7b", 8, "SSM scan cannot do"),
+    ("zamba2-7b", 8, "SSM scan cannot do"),
+    ("llama3.2-1b", 0, "prefill_chunk must be >= 1"),
+])
+def test_prefill_chunk_refusals(arch, chunk, match):
+    """A recurrent scan cannot resume mid-prompt: SSM patterns refuse
+    chunked prefill with the reference's message, as does a chunk < 1."""
+    with pytest.raises(ValueError, match=match):
+        ServeEngine(get_config(arch).reduced(), device="cpu", prefill_chunk=chunk)
+    with pytest.raises(ValueError, match=match):
+        JServeEngine(jget(arch).reduced(), prefill_chunk=chunk)
 
 
 def test_submit_validation_and_streaming_order(rng):
