@@ -83,7 +83,24 @@ JSON line, and any failure raises (exit code != 0):
    times (once per policy), every later call a replay.  It reports prefill
    seconds, TTFT and tok/s beside phase 4's, the extra device tokens of
    the overlapped final chunks, and ``replay_vs_eager`` of both chunk
-   programs from a cloned cache (logits and the pool held to ``TOL``).
+   programs from a cloned cache (logits and the pool held to ``TOL``);
+12. offload_programs: the offload pipeline's compiled units.  The blocked
+   LU as one captured program per (n, nb, trailing update) at 2048 / nb
+   128 and 192 / nb 32: a replay bit-identical to an eager ``lu_blocked``
+   call on the same input, one capture a key, its capture seconds, replay
+   seconds beside the eager call's and ``torch.linalg.lu_factor``'s, the
+   Schur updates one replay launches and the phase's peak memory; then
+   phase 6's Fig. 5 again with every staged and block program captured
+   (``numerics_ok``: loop and block outputs agree with the CPU program's);
+13. binding: the paper's per-environment selection on the serving path.
+   ``plan_zoo`` searches llama3.2-1b's prefill and decode cells at full
+   width and depth (batch 8, seq 512) over the torch and cuda targets,
+   each trial timing replays of the cell's captured step, and commits a
+   plan a cell with every axis pinned; phase 4's trace is served under
+   the plans and again with ``decode_impl="torch"``, with each kernel's
+   launches per phase (a block bound to torch in a phase launches no
+   kernel there; the torch-bound paged attention none at all); a 2-layer
+   f32 greedy trace under the plans equals the default bindings' tokens.
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -813,10 +830,11 @@ def _serve_config(arch: str):
 
 
 def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
-                    phase: str = "main_path", report=None, **engine_kw) -> dict:
+                    phase: str = "main_path", report=None, prepare=None, **engine_kw) -> dict:
     """Full-width ``arch`` served by ``ServeEngine`` (default: llama3.2-1b
     from the paged KV cache); every kernel in ``expect`` must launch.
-    ``report(engine, out)`` checks the run further and adds to its line."""
+    ``prepare(engine)`` runs before the trace; ``report(engine, out)``
+    checks the run further and adds to its line."""
     import numpy as np
 
     import repro_torch.kernels as kernels
@@ -834,6 +852,8 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
     n_req, gen = 16, 32
     prompts = [rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
                for _ in range(n_req)]
+    if prepare is not None:
+        prepare(engine)
 
     kernels.reset_launches()
     t0 = time.perf_counter()
@@ -854,7 +874,7 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
     missing = [k for k in expect if launches.get(k, 0) <= 0]
     if missing:
         raise AssertionError(f"{phase}: {arch} never launched {missing}: {launches}")
-    missing = [f for f in NORM_FORMS[arch] if norm_forms[f] <= 0]
+    missing = [f for f in NORM_FORMS[arch] if "rmsnorm" in expect and norm_forms[f] <= 0]
     if missing:
         raise AssertionError(f"{phase}: {arch} never took rmsnorm's {missing} form: {norm_forms}")
 
@@ -1222,14 +1242,12 @@ def phase_offload(torch, n_fft: int = 256, n_lu: int = 192) -> dict:
     """The paper's function-block offload pipeline on the card, then the
     prior-work loop-offload GA and the Fig. 5 comparison.  Returns the
     launch counts of the path that runs each offload kernel, and the
-    committed libcall applications for phase 7."""
-    import functools
-
+    committed libcall applications and the inputs, for phases 7 and 12."""
     import numpy as np
 
     import repro_torch.kernels as kernels
     from repro_torch.apps import fourier, matrix
-    from repro_torch.core import Discovery, OffloadEngine, measure, planner
+    from repro_torch.core import Discovery, OffloadEngine
     from repro_torch.core.pattern_db import default_db
     from repro_torch.offload import OffloadSession
 
@@ -1278,10 +1296,27 @@ def phase_offload(torch, n_fft: int = 256, n_lu: int = 192) -> dict:
           "dtype": str(c.dtype), "max_abs_err_vs_numpy_f64": err,
           "launches": launches["matmul"]})
 
-    # Fig. 5: the prior-work loop-offload GA over the staged variants.  The
-    # searches time each candidate once, and the GA's best is a minimum
-    # over its samples, so the three versions are re-timed alike after the
-    # search (median of FIG5_REPEATS calls) before they are compared.
+    fig5 = _fig5(torch, inputs, results)
+    out = {"phase": "fig5", **fig5, "offload_launches": launches,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return {"launches": launches, "results": results, "inputs": inputs}
+
+
+def _fig5(torch, inputs: dict, results: dict) -> dict:
+    """The paper's Fig. 5: the prior-work loop-offload GA over the staged
+    variants (each offloaded stage a captured program), beside the
+    committed function blocks (``results``).  The searches time each
+    candidate once, and the GA's best is a minimum over its samples, so the
+    three versions are re-timed alike after the search (median of
+    FIG5_REPEATS calls) before they are compared.  ``numerics_ok``: the
+    loop and block outputs agree with the CPU program's (``verify``'s
+    tolerance)."""
+    import functools
+
+    from repro_torch.apps import fourier, matrix
+    from repro_torch.core import measure, planner, verify_numerics
+
     fig5 = {}
     for key, mod, build, n_genes, app in (
         ("fft", fourier, fourier.build_fft_variant, len(fourier.FFT_STAGES), "fourier_app_libcall"),
@@ -1293,28 +1328,28 @@ def phase_offload(torch, n_fft: int = 256, n_lu: int = 192) -> dict:
         ga = planner.GeneticSearch(population=4, generations=2, seed=0).search(
             space, (x,), cache=planner.MeasurementCache(), repeats=1)
         block_res = results[app]
-        secs = {
-            version: measure(fn, (x,), repeats=FIG5_REPEATS).seconds
-            for version, fn in (("cpu", getattr(mod, app)),
-                                ("loop", space.build(ga.best.candidate)),
-                                ("block", block_res.fn))
-        }
+        versions = (("cpu", getattr(mod, app)), ("loop", space.build(ga.best.candidate)),
+                    ("block", block_res.fn))
+        secs = {version: measure(fn, (x,), repeats=FIG5_REPEATS).seconds
+                for version, fn in versions}
+        want = versions[0][1](x)
+        numerics_ok = all(verify_numerics(lambda _x: want, fn, (x,)) for _, fn in versions[1:])
+        if not numerics_ok:
+            raise AssertionError(f"fig5 {key}: loop or block output disagrees with the CPU's")
         fig5[key] = {
             "n": x.shape[0], "repeats": FIG5_REPEATS,
             "cpu_seconds": secs["cpu"], "loop_seconds": secs["loop"],
             "block_seconds": secs["block"],
             "loop_speedup": secs["cpu"] / secs["loop"],
             "block_speedup": secs["cpu"] / secs["block"],
+            "numerics_ok": numerics_ok,
             "loop_genome": list(ga.best.candidate), "ga_evaluations": ga.evaluations,
             "search_samples": {"cpu": block_res.baseline_seconds, "loop": ga.best.seconds,
                                "block": block_res.best_seconds},
             "ga_search_seconds": ga.search_seconds,
             "block_search_seconds": block_res.report.search_seconds,
         }
-    out = {"phase": "fig5", **fig5, "offload_launches": launches,
-           "seconds": time.perf_counter() - t_phase}
-    emit(out)
-    return {"launches": launches, "results": results}
+    return fig5
 
 
 def phase_offload_full(torch, results: dict, n: int = 2048) -> dict:
@@ -1372,6 +1407,231 @@ def phase_offload_full(torch, results: dict, n: int = 2048) -> dict:
     return out
 
 
+#: phase 12's LU programs: (n, nb) at the paper's size and at phase 6's
+LU_PROGRAMS = ((2048, 128), (192, 32))
+
+
+def phase_offload_programs(torch, offload: dict) -> dict:
+    """The offload pipeline's compiled units.  The blocked LU as one
+    captured program per (n, nb, trailing update) at LU_PROGRAMS on the
+    cuda target: a replay against an eager ``lu_blocked`` call on the same
+    input (lu and piv bit-identical), one capture a key, its capture
+    seconds, replay seconds beside the eager call's and
+    ``torch.linalg.lu_factor``'s, the launches one replay adds (Schur
+    updates) and the phase's peak memory.  Then phase 6's Fig. 5 again,
+    every staged and block program already captured."""
+    import numpy as np
+
+    from repro_torch.apps import matrix
+    from repro_torch.kernels import lu as lu_mod
+    from repro_torch.kernels.matmul import schur_update
+
+    t_phase = time.perf_counter()
+    _free_dead_engines(torch)
+    torch.cuda.reset_peak_memory_stats()
+
+    def seconds(fn, reps: int) -> float:
+        times = []
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        return sorted(times)[len(times) // 2]
+
+    rows = []
+    for n, nb in LU_PROGRAMS:
+        a = torch.from_numpy(matrix.make_input(n).astype(np.float32)).cuda()
+        for _ in range(3):  # the key's eager call and capture, if not made yet
+            lu_g, piv_g, par_g = lu_mod.lu_program(a, nb=nb, schur=schur_update)
+        lu_e, piv_e, par_e = lu_mod.lu_blocked(a, nb=nb, schur=schur_update)
+        torch.cuda.synchronize()
+        err = float((lu_g - lu_e).abs().max())
+        if not (torch.equal(lu_g, lu_e) and torch.equal(piv_g, piv_e)
+                and torch.equal(par_g, par_e)):
+            raise AssertionError(f"LU program at n={n}: replay differs from the eager "
+                                 f"call (max abs err {err})")
+        stats = next(p for p in lu_mod.program_stats()
+                     if (p["n"], p["nb"], p["schur"]) == (n, nb, "schur_update"))
+        if stats["captures"] != 1 or stats["replays"] < 1:
+            raise AssertionError(f"LU program at n={n}: {stats}")
+        reps = 3 if n >= 1024 else 10
+        # one replay's span on the device's clock, beside its wall time
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        lu_mod.lu_program(a, nb=nb, schur=schur_update)
+        end.record()
+        torch.cuda.synchronize()
+        rows.append({
+            "n": n, "nb": nb, "max_abs_err_vs_eager": err, "bit_identical": True,
+            "replay_seconds": seconds(lambda: lu_mod.lu_program(a, nb=nb, schur=schur_update),
+                                      reps),
+            "eager_seconds": seconds(lambda: lu_mod.lu_blocked(a, nb=nb, schur=schur_update),
+                                     2 if n >= 1024 else 5),
+            "replay_device_ms": start.elapsed_time(end),
+            "cusolver_seconds": seconds(lambda: torch.linalg.lu_factor(a), reps),
+            **{k: stats[k] for k in ("calls", "eager_calls", "captures", "replays",
+                                     "capture_seconds", "launches_per_replay")},
+        })
+    fig5 = _fig5(torch, offload["inputs"], offload["results"])
+    out = {"phase": "offload_programs", "lu": rows, "fig5": fig5,
+           "lu_programs": lu_mod.program_stats(),
+           "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
+#: each serving phase's blocks, and each block's kernel
+PHASE_BLOCKS = {"prefill": ("rmsnorm", "attention"), "decode": ("rmsnorm", "paged_attention")}
+BLOCK_KERNEL = {"rmsnorm": "rmsnorm", "attention": "flash_attention",
+                "paged_attention": "paged_attention", "ssd_scan": "ssd_chunks"}
+#: phase 13's zoo cells: llama3.2-1b at full width and depth
+BINDING_BATCH, BINDING_SEQ = 8, 512
+
+
+def _count_by_phase(engine) -> dict:
+    """Wrap the engine's phase scope so each phase's kernel launches are
+    counted apart (a replay adds its launches inside the scope)."""
+    import contextlib
+
+    import repro_torch.kernels as kernels
+
+    counts = {phase: dict.fromkeys(kernels.KERNELS, 0) for phase in PHASE_BLOCKS}
+    inner = engine._phase
+
+    @contextlib.contextmanager
+    def phase(name):
+        before = kernels.launch_counts()
+        with inner(name):
+            yield
+        for k, n in kernels.launch_counts().items():
+            counts[name][k] += n - before[k]
+
+    engine._phase = phase
+    return counts
+
+
+def _check_bound_launches(phase: str, bindings: dict, by_phase: dict) -> None:
+    """A block a phase binds to ``torch`` launches no kernel from that
+    phase; one it binds to ``cuda`` launches its kernel there."""
+    for name, used in PHASE_BLOCKS.items():
+        mapping = bindings.get(name) or {}
+        for block in used:
+            n = by_phase[name][BLOCK_KERNEL[block]]
+            target = mapping.get(block)
+            if (target == "torch" and n) or (target == "cuda" and not n):
+                raise AssertionError(f"{phase}: {name} binds {block} to {target}, but "
+                                     f"{BLOCK_KERNEL[block]} launched {n} times there")
+
+
+def phase_binding(torch) -> dict:
+    """The paper's per-environment selection on the serving path.  ``plan_zoo``
+    searches llama3.2-1b's prefill and decode cells (full width and depth,
+    batch BINDING_BATCH, seq BINDING_SEQ) over the torch and cuda targets,
+    each trial timing replays of the cell's captured step, and commits a
+    plan a cell with every axis pinned.  Phase 4's trace is then served
+    under those plans, and again with ``decode_impl="torch"``; a block
+    bound to torch in a phase launches no kernel there, and the torch-bound
+    paged attention none at all.  Greedy f32 tokens of a 2-layer cut under
+    the plans equal the same engine's under the default bindings."""
+    import tempfile
+    import warnings
+
+    import numpy as np
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.blocks import registry
+    from repro_torch.core.planner import BindingSpace, PlanStore
+    from repro_torch.models import lm
+    from repro_torch.offload import OffloadSession, zoo
+    from repro_torch.serve import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    _free_dead_engines(torch)
+    targets = ("torch", "cuda")
+    cells = [("llama3.2-1b", "prefill"), ("llama3.2-1b", "decode")]
+    cfg = get_config("llama3.2-1b")
+    with tempfile.TemporaryDirectory(prefix="plans-") as plan_dir:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            results = OffloadSession.plan_zoo(
+                plan_dir, cells, reduced=False, layers=0, batch=BINDING_BATCH,
+                seq=BINDING_SEQ, targets=targets, device="cuda", quiet=False)
+            search_seconds = time.perf_counter() - t0
+        if set(results) != set(cells):
+            raise AssertionError(f"plan_zoo committed {sorted(results)} of {cells}: "
+                                 f"{[str(w.message) for w in caught]}")
+        plans, trials = {}, {}
+        for (arch, kind), res in results.items():
+            axes = zoo._cell_blocks(cfg, registry, targets, kind)
+            space = BindingSpace(lambda: None, blocks=axes)
+            stored = PlanStore(plan_dir).load(zoo.zoo_key(arch, kind))
+            if stored is None or stored.mapping != res.mapping or set(res.mapping) != set(axes):
+                raise AssertionError(f"{kind}: committed plan {stored} does not pin every "
+                                     f"axis of {axes}")
+            plans[kind] = res.mapping
+            trials[kind] = [{"binding": space.binding_of(t.candidate), "seconds": t.seconds,
+                             "compile_seconds": t.compile_seconds}
+                            for t in res.trials]
+        _free_dead_engines(torch)
+
+        served = {}
+        for label, kw in (("plans", {}), ("plans_decode_torch", {"decode_impl": "torch"})):
+            by_phase = {}
+
+            def prepare(engine, by_phase=by_phase):
+                by_phase.update(_count_by_phase(engine))
+
+            def report(engine, out, by_phase=by_phase, label=label):
+                out["bindings"] = engine.bindings()
+                out["launches"] = kernels.launch_counts()  # every kernel's, bound or not
+                out["launches_by_phase"] = by_phase
+                _check_bound_launches(label, out["bindings"], by_phase)
+                if label == "plans_decode_torch" and out["launches"]["paged_attention"]:
+                    raise AssertionError(f"{label}: paged_attention launched "
+                                         f"{out['launches']['paged_attention']} times")
+
+            bound = {phase: dict(plans[phase]) for phase in PHASE_BLOCKS}
+            if kw:
+                bound["decode"]["paged_attention"] = "torch"
+            expect = tuple(sorted({BLOCK_KERNEL[b] for phase, used in PHASE_BLOCKS.items()
+                                   for b in used if bound[phase].get(b) == "cuda"}))
+            served[label] = phase_main_path(
+                torch, phase=f"binding_{label}", expect=expect, report=report,
+                prepare=prepare, plan_dir=plan_dir, **kw)
+            _free_dead_engines(torch)
+
+        # greedy f32 tokens of a 2-layer cut: bound against default
+        f32 = dataclasses.replace(cfg, compute_dtype="float32", n_layers=2)
+        params = lm.init_params(f32, seed=1, device="cuda")
+        rng = np.random.default_rng(1)
+        lens, gens = (37, 100, 16, 70, 37, 100), (12, 6, 10, 8, 5, 7)
+        prompts = [rng.integers(0, f32.vocab_size, n).tolist() for n in lens]
+        kw = dict(n_slots=2, max_len=128, page_size=16)
+        bound, engine = _engine_trace(ServeEngine, Request, f32, params, prompts, gens,
+                                      plan_dir=plan_dir, **kw)
+        default, _ = _engine_trace(ServeEngine, Request, f32, params, prompts, gens, **kw)
+        if engine.bindings() != plans or bound != default:
+            raise AssertionError(f"f32 bound trace: bindings {engine.bindings()} (plans "
+                                 f"{plans}); tokens {bound} vs default {default}")
+    out = {"phase": "binding", "arch": cfg.name, "batch": BINDING_BATCH, "seq": BINDING_SEQ,
+           "targets": list(targets), "search_seconds": search_seconds, "plans": plans,
+           "trials": trials,
+           "served": {label: {k: o[k] for k in ("bindings", "tok_per_s", "wall_seconds",
+                                                "decode_median_ms", "ttft_p50_ms",
+                                                "ttft_p99_ms", "launches", "launches_by_phase",
+                                                "graphs")}
+                      for label, o in served.items()},
+           "f32_bound_tokens_identical": True,
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {SRC}/repro_torch not found beside this script", file=sys.stderr)
@@ -1406,6 +1666,8 @@ def main() -> int:
     phase_main_path(torch, "zamba2-7b", HYBRID_KERNELS, "hybrid")
     phase_decode_profile(torch, "zamba2-7b", sampled=False, phase="decode_profile_hybrid")
     phase_main_path_chunked(torch, main)
+    phase_offload_programs(torch, offload)
+    phase_binding(torch)
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],

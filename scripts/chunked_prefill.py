@@ -106,7 +106,7 @@ def profile_chunk(torch, engine, n: int = 5) -> dict:
     tokens = np.random.default_rng(3).integers(0, engine.cfg.vocab_size, (1, engine.prefill_chunk))
     inputs = [i32(0), i32(384), np.arange(engine.kv.max_pages, dtype=np.int32)[None],
               tokens.astype(np.int32)]
-    replays = program.replays
+    replays = program.captures.replays
     program(inputs)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -118,7 +118,7 @@ def profile_chunk(torch, engine, n: int = 5) -> dict:
         for _ in range(n):
             program(inputs)
         torch.cuda.synchronize()
-    if program.replays - replays != 2 * n + 1:
+    if program.captures.replays - replays != 2 * n + 1:
         raise AssertionError("profile_chunk: the extend calls were not all replays")
     device, events = c._device_events(prof)
     top = sorted(device.items(), key=lambda kv: -kv[1])[:12]

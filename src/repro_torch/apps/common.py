@@ -12,6 +12,13 @@ Key fidelity point: every offloaded stage pays the host<->device boundary
 transfer overhead that limits loop-level offloading in the paper and that
 function-block offloading eliminates by replacing the *whole* block with one
 device-resident implementation.
+
+The reference jits each offloaded stage.  Here each runs as a captured
+program (:class:`repro_torch.runtime.programs.Program`) per (stage, device),
+keyed by its inputs' shapes and dtypes and shared by every variant that
+offloads the stage, as the reference's jit cache is.  The transfers stay
+outside the program: the host's arrays are copied into the program's
+static inputs, and its outputs are copied back.
 """
 
 from __future__ import annotations
@@ -31,14 +38,30 @@ class Stage:
     offloaded: Callable[[Any], Any]  # tensors in / tensors out, on a device
 
 
+#: each offloaded stage's captured program: (stage fn, device) -> Program
+_PROGRAMS: dict[tuple, Any] = {}
+
+
+def stage_program(stage: Stage, device: Any) -> Any:
+    """The captured program of ``stage``'s offloaded implementation on
+    ``device`` (made at first use)."""
+    from repro_torch.runtime.programs import Program
+
+    key = (stage.offloaded, device)
+    program = _PROGRAMS.get(key)
+    if program is None:
+        program = _PROGRAMS[key] = Program(f"stage:{stage.name}", stage.offloaded, device)
+    return program
+
+
 def build_staged_variant(
     stages: Sequence[Stage], genome: Sequence[int], device: Any = None
 ) -> Callable[[Any], Any]:
     """Build the application variant selected by ``genome``.
 
     genome[i] == 1 -> stage i runs its offloaded implementation on
-    ``device`` (the CUDA card unless ``"cpu"`` is asked for), with the
-    host->device->host round trip; 0 -> naive CPU loop.
+    ``device`` (the CUDA card unless ``"cpu"`` is asked for) as a captured
+    program, with the host->device->host round trip; 0 -> naive CPU loop.
     """
     import torch
 
@@ -47,6 +70,7 @@ def build_staged_variant(
     if len(genome) != len(stages):
         raise ValueError(f"genome length {len(genome)} != stages {len(stages)}")
     device = resolve_device(device)
+    programs = [stage_program(s, device) if g else None for s, g in zip(stages, genome)]
 
     def _to_host(x: Any) -> Any:
         if isinstance(x, tuple):
@@ -55,16 +79,17 @@ def build_staged_variant(
             return x.cpu().numpy()
         return np.asarray(x)
 
-    def _to_dev(x: Any) -> Any:
+    def _canonical(x: Any) -> Any:
         if isinstance(x, tuple):
-            return tuple(_to_dev(e) for e in x)
-        return as_tensor(x, device)  # canonicalised: f64 -> f32, as the reference
+            return tuple(_canonical(e) for e in x)
+        # f64 -> f32, as the reference; the program copies it to the card
+        return as_tensor(x, "cpu")
 
     def run(x: Any) -> Any:
         state = _to_host(x)
         for i, stage in enumerate(stages):
             if genome[i]:
-                out = stage.offloaded(_to_dev(state))
+                out = programs[i](_canonical(state))  # host->device in the program's input copy
                 state = _to_host(out)  # explicit device->host transfer
             else:
                 state = stage.naive(state)

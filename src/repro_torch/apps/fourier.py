@@ -20,6 +20,7 @@ Offload paths exercised by the engine:
 
 from __future__ import annotations
 
+import functools
 import math
 
 import numpy as np
@@ -252,12 +253,18 @@ def _naive_transpose(x):
     return out
 
 
-def _dev_bitrev_rows(x):
+@functools.lru_cache(maxsize=None)
+def _dev_bitrev_gather(m: int, device):
+    """The gather index of the bit-reversal permutation on ``device``, made
+    once: a capture refuses the pageable copy that makes it, so the stage's
+    eager first call makes it, and a replay reads it."""
     import torch
 
-    m = x.shape[1]
-    idx = torch.as_tensor(np.argsort(_bit_reverse_indices(m)), device=x.device)
-    return x[:, idx]
+    return torch.as_tensor(np.argsort(_bit_reverse_indices(m)), device=device)
+
+
+def _dev_bitrev_rows(x):
+    return x[:, _dev_bitrev_gather(x.shape[1], x.device)]
 
 
 def _dev_butterfly_rows(x):

@@ -270,13 +270,12 @@ def _dev_factor(state):
     a, vv = a.clone(), vv.clone()  # updated in place below
     n = a.shape[0]
     ii = torch.arange(n, device=a.device)
-    neg_inf = torch.tensor(float("-inf"), dtype=a.dtype, device=a.device)
-    zero = torch.zeros((), dtype=a.dtype, device=a.device)
-    tiny = torch.tensor(1.0e-20, dtype=a.dtype, device=a.device)
+    # constants as Python scalars: a host tensor copied to the card would
+    # be a pageable copy, which a capture refuses
     indx = torch.zeros(n, dtype=torch.int32, device=a.device)
     d = torch.ones((), dtype=a.dtype, device=a.device)
     for j in range(n):
-        score = torch.where(ii >= j, vv * torch.abs(a[:, j]), neg_inf)
+        score = torch.where(ii >= j, vv * torch.abs(a[:, j]), float("-inf"))
         # NR keeps the *last* maximal row (>= comparison)
         imax = ((n - 1) - torch.argmax(torch.flip(score, (0,)))).view(1)
         rowj = a[j:j + 1].clone()
@@ -288,10 +287,10 @@ def _dev_factor(state):
         d = torch.where(imax[0] != j, -d, d)
         indx[j] = imax[0]
         piv = a[j, j]
-        piv = torch.where(piv == 0.0, tiny, piv)
+        piv = torch.where(piv == 0.0, 1.0e-20, piv)
         a[j, j] = piv
-        fac = torch.where(ii > j, a[:, j] / piv, zero)
-        cols = torch.where(ii > j, a[j], zero)  # only trailing columns update
+        fac = torch.where(ii > j, a[:, j] / piv, 0.0)
+        cols = torch.where(ii > j, a[j], 0.0)  # only trailing columns update
         a.sub_(torch.outer(fac, cols))
         a[:, j] = torch.where(ii > j, fac, a[:, j])
     return (a, indx, d)

@@ -12,7 +12,10 @@ target from the device of its first tensor argument: ``cuda`` for a CUDA
 tensor, ``torch`` for a CPU tensor — the counterpart of the reference's
 ``ops._auto_backend``, which picks the Pallas kernel on the accelerator.
 ``bind({"rmsnorm": "torch"})`` pins a target for a scope (``chip_smoke.py``
-uses it to compare a kernel against its plain version on the card).
+uses it to compare a kernel against its plain version on the card); an
+offload plan's mapping is bound the same way (the serve engine binds one
+per phase).  The reference's targets map one to one: ``ref`` -> ``ref``,
+``xla`` -> ``torch``, ``pallas`` -> ``cuda``.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Any, Callable, Iterator, Mapping
+from typing import Any, Callable, Iterable, Iterator, Mapping
 
 import torch
 
@@ -54,8 +57,27 @@ class FunctionBlockRegistry:
             raise ValueError(f"unknown target '{target}'; known: {TARGETS}")
         self._impls.setdefault(block, {})[target] = Impl(block, target, fn, note)
 
+    def implementation(self, block: str, target: str) -> Impl:
+        return self._impls[block][target]
+
+    def blocks(self) -> list[str]:
+        return sorted(self._impls)
+
     def targets(self, block: str) -> list[str]:
         return sorted(self._impls.get(block, {}))
+
+    def shelf_fingerprint(self, blocks: Iterable[str] | None = None) -> str:
+        """Hash of the registered implementations of the named blocks (all
+        by default): (block, target, fn source) plus bound partial
+        arguments.  Registration is import-order dependent, so persisted
+        plans use a registration-time snapshot instead
+        (``repro_torch.kernels.SHELF_FINGERPRINT``)."""
+        names = sorted(blocks) if blocks is not None else self.blocks()
+        return implementations_fingerprint(
+            (block, target, self._impls[block][target].fn)
+            for block in names
+            for target in self.targets(block)
+        )
 
     @property
     def _bindings(self) -> dict[str, str]:
@@ -78,17 +100,54 @@ class FunctionBlockRegistry:
         finally:
             self._local.bindings = saved
 
+    def current_pattern(self) -> dict[str, str]:
+        return dict(self._bindings)
+
     def bindings(self) -> tuple[tuple[str, str], ...]:
         """The bindings in force in this thread, sorted (hashable: a CUDA
         graph freezes the targets it captured)."""
         return tuple(sorted(self._bindings.items()))
 
-    def call(self, block: str, *args: Any, **kwargs: Any) -> Any:
+    def resolve(self, block: str, *args: Any) -> Callable[..., Any]:
+        """The implementation a call of ``block`` with ``args`` runs: the
+        bound target, else the target of the first tensor argument's
+        device."""
         impls = self._impls.get(block)
         if not impls:
             raise KeyError(f"unknown function block '{block}'")
         target = self._bindings.get(block) or _device_target(args)
-        return impls[target].fn(*args, **kwargs)
+        return impls[target].fn
+
+    def call(self, block: str, *args: Any, **kwargs: Any) -> Any:
+        return self.resolve(block, *args)(*args, **kwargs)
+
+
+def implementations_fingerprint(
+    impls: "Iterable[tuple[str, str, Callable[..., Any]]]",
+) -> str:
+    """Hash (block, target, fn) triples by fn *source* (plus bound partial
+    arguments), order-insensitively.  A rewritten wrapper changes the hash,
+    which invalidates stored plans measured against the old code (a
+    ``PlanStore`` fingerprint component)."""
+    import functools
+    import hashlib
+    import inspect
+
+    parts = []
+    for block, target, fn in impls:
+        bound = ""
+        while isinstance(fn, functools.partial):
+            bound += repr((fn.args, sorted((fn.keywords or {}).items())))
+            fn = fn.func
+        try:
+            src = inspect.getsource(fn)
+        except (OSError, TypeError):  # builtins / C extensions
+            src = repr(fn)
+        parts.append(f"{block}|{target}|{bound}|{src}")
+    h = hashlib.sha256()
+    for p in sorted(parts):
+        h.update(p.encode())
+    return h.hexdigest()[:16]
 
 
 # Global registry used by the models.
@@ -101,3 +160,13 @@ def call(block: str, *args: Any, **kwargs: Any) -> Any:
 
 def bind(mapping: Mapping[str, str]):
     return registry.bind(mapping)
+
+
+def register(block: str, target: str, note: str = ""):
+    """Decorator: ``@register("rmsnorm", "cuda")``."""
+
+    def deco(fn: Callable[..., Any]) -> Callable[..., Any]:
+        registry.register(block, target, fn, note)
+        return fn
+
+    return deco

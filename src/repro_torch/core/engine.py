@@ -20,9 +20,12 @@ Given a CPU application (a Python callable), the engine:
 A replacement block receives the host program's numpy arrays; it moves
 them to the engine's ``device`` — the CUDA card unless the caller passes
 ``device="cpu"`` — runs there, and its results cross back to the host
-program as numpy arrays.  The reference engine's binding selection for the
-model zoo (``select_block_pattern`` / ``measure_block_pattern``) is not
-ported yet.
+program as numpy arrays.
+
+For the model zoo the engine selects block bindings: by declaration
+(``select_block_pattern``, the dry-run case) or by measurement over listed
+patterns (``measure_block_pattern``, a shim over the session's binding
+mode).
 """
 
 from __future__ import annotations
@@ -36,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import ast_analysis, planner, similarity, substitute, verify
+from repro_torch.core.blocks import registry as block_registry
 from repro_torch.core.interface import (
     Adaptation,
     InterfaceMismatch,
@@ -354,3 +358,57 @@ class OffloadEngine:
             numerics_ok=bool(result.numerics_ok),
             offload_pattern=result.pattern,
         )
+
+    # -- framework-native path: block bindings for the model zoo ---------------
+    def select_block_pattern(
+        self, environment: str, blocks: Sequence[str] | None = None
+    ) -> dict[str, str]:
+        """Declared-environment binding selection (the dry-run case) — thin
+        wrapper over ``planner.declared_pattern``."""
+        return planner.declared_pattern(
+            environment, blocks=blocks, registry=block_registry
+        )
+
+    def measure_block_pattern(
+        self,
+        step_builder: Callable[[], Callable[..., Any]],
+        patterns: Sequence[Mapping[str, str]],
+        args: Sequence[Any],
+        repeats: int = 3,
+        cache: "planner.MeasurementCache | None" = None,
+        min_seconds: float = 0.0,
+    ) -> tuple[dict[str, str], list[tuple[dict[str, str], float]]]:
+        """Deprecated shim: measured binding selection over the listed
+        patterns, delegated to ``repro_torch.offload.OffloadSession``
+        (binding mode, exhaustive strategy, numerics stage skipped — the
+        historical contract measured only)."""
+        from repro_torch.offload import OffloadSession
+
+        space = planner.BindingSpace.from_patterns(
+            step_builder, patterns, registry=block_registry
+        )
+        # closures from one factory share a __qualname__ (the default tag):
+        # disambiguate by object identity so two models measured through
+        # the same factory never answer each other's cache lookups
+        space.tag = (
+            f"{getattr(step_builder, '__qualname__', 'step')}"
+            f"@{id(step_builder):x}"
+        )
+        cands = [space.candidate_from_mapping(dict(p)) for p in patterns]
+        session = OffloadSession(
+            space,
+            args=args,
+            strategy=planner.ExhaustiveSearch(
+                candidates=cands, include_baseline=False
+            ),
+            cache=cache,
+            repeats=repeats,
+            min_seconds=min_seconds,
+        )
+        result = session.run(verify=False, build=False)
+        by_key = {t.candidate: t.seconds for t in result.report.trials}
+        results = [
+            (dict(pat), by_key[cand]) for pat, cand in zip(patterns, cands)
+        ]
+        best = min(results, key=lambda r: r[1])[0]
+        return best, results

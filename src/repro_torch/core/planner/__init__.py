@@ -2,7 +2,10 @@
 ``repro/core/planner``).
 
   SearchSpace   *what* is being searched.  ``SubsetSpace`` is the paper's
-                binary offload-or-not choice per discovered block.
+                binary offload-or-not choice per discovered block;
+                ``BindingSpace`` generalises the GPU-vs-FPGA destination
+                choice to an n-ary choice among registered targets
+                ({ref, torch, cuda}) per function block.
   SearchStrategy  *how* the space is explored.  ``SingleThenCombine`` is the
                 paper's Step-3 procedure (§4.2); ``GeneticSearch`` is the
                 prior-work GA; ``ExhaustiveSearch`` measures a listed set.
@@ -14,8 +17,8 @@
                 fingerprint.
 
 ``Planner`` ties them together: check the store, otherwise search, then
-persist the winner.  Not ported yet: ``BindingSpace`` and
-``declared_pattern`` (the zoo binding path), the HLO cost model with
+persist the winner; ``declared_pattern`` picks a binding for a declared
+environment without measuring.  Not ported yet: the HLO cost model with
 ``CostGuidedSearch``, the parallel executors and the hardware meters.
 """
 
@@ -32,10 +35,13 @@ from repro_torch.core.planner.objectives import (  # noqa: F401
 )
 from repro_torch.core.planner.planner import (  # noqa: F401
     Planner,
+    declared_pattern,
     plan_compatible,
 )
 from repro_torch.core.planner.space import (  # noqa: F401
+    DEFAULT_TARGET,
     Axis,
+    BindingSpace,
     Candidate,
     SearchSpace,
     SubsetSpace,

@@ -33,6 +33,35 @@ def plan_compatible(space: SearchSpace, plan: Plan) -> bool:
     return True
 
 
+def declared_pattern(
+    environment: str,
+    blocks: Sequence[str] | None = None,
+    registry: Any = None,
+) -> dict[str, str]:
+    """Declared-environment binding selection (the dry-run case: no machine
+    to measure on, only a target environment declaration).
+
+    environment: "cpu" -> prefer the plain torch formulations; "cuda" ->
+    prefer the hand-written kernels where registered (the reference's
+    "tpu" -> Pallas).
+    """
+    if registry is None:
+        from repro_torch.core.blocks import registry as registry_mod
+
+        registry = registry_mod
+    pattern: dict[str, str] = {}
+    names = blocks if blocks is not None else registry.blocks()
+    for b in names:
+        targets = registry.targets(b)
+        if environment == "cuda" and "cuda" in targets:
+            pattern[b] = "cuda"
+        elif "torch" in targets:
+            pattern[b] = "torch"
+        elif targets:
+            pattern[b] = targets[0]
+    return pattern
+
+
 class Planner:
     def __init__(
         self,

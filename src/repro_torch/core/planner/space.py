@@ -1,7 +1,5 @@
 """SearchSpace — what an offload-pattern search ranges over (the port of
-``repro/core/planner/space.py``: the base class and ``SubsetSpace``; the
-reference's ``BindingSpace`` over registry targets comes with the zoo
-binding path).
+``repro/core/planner/space.py``).
 
 A *candidate* is a tuple of per-axis choice indices.  Index 0 is always the
 axis's baseline (the un-offloaded / default formulation), so the all-zeros
@@ -12,11 +10,15 @@ descriptions (``pattern`` / ``mapping_of``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from typing import Any, Callable, Iterator, Mapping, Sequence
 
 Candidate = tuple[int, ...]
+
+#: Sentinel choice label meaning "leave this block on its default binding".
+DEFAULT_TARGET = "default"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -185,3 +187,130 @@ class SubsetSpace(SearchSpace):
     def build(self, cand: Candidate) -> Callable[..., Any]:
         self.validate(cand)
         return self._build_variant(self.subset_of(cand))
+
+
+class BindingSpace(SearchSpace):
+    """Per-block choice among registered execution targets.
+
+    This generalises the paper's GPU-vs-FPGA *destination* choice: each
+    function block independently picks one of its registered targets
+    (``{ref, torch, cuda}``), so a GA genome over this space is n-ary
+    rather than binary.  ``step_builder`` is re-invoked under the candidate
+    binding and its calls run under the binding too, so a captured step
+    program keys (and freezes) the candidate's targets.
+    """
+
+    def __init__(
+        self,
+        step_builder: Callable[[], Callable[..., Any]],
+        blocks: Mapping[str, Sequence[str]] | None = None,
+        registry: Any = None,
+        baseline_target: str = "ref",
+        tag: str = "",
+    ) -> None:
+        self.tag = tag or getattr(step_builder, "__qualname__", "")
+        if registry is None:
+            from repro_torch.core.blocks import registry as registry_mod
+
+            registry = registry_mod
+        self.registry = registry
+        self.step_builder = step_builder
+        if blocks is None:
+            blocks = {b: registry.targets(b) for b in registry.blocks()}
+        axes = []
+        for name, targets in blocks.items():
+            targets = list(dict.fromkeys(targets))
+            # baseline first: the un-offloaded formulation when present
+            if baseline_target in targets:
+                targets.remove(baseline_target)
+                targets.insert(0, baseline_target)
+            axes.append(Axis(name, tuple(targets)))
+        self.axes = tuple(axes)
+        # (block, target) -> reason, filled by mark_illegal(); consulted by
+        # pruned()
+        self._illegal: dict[tuple[str, str], str] = {}
+
+    @classmethod
+    def from_patterns(
+        cls,
+        step_builder: Callable[[], Callable[..., Any]],
+        patterns: Sequence[Mapping[str, str]],
+        registry: Any = None,
+    ) -> "BindingSpace":
+        """Space covering an explicit list of binding patterns.
+
+        Blocks absent from some pattern get the ``DEFAULT_TARGET`` sentinel
+        choice (leave the registry's default binding in place).
+        """
+        blocks: dict[str, list[str]] = {}
+        for pat in patterns:
+            for name, target in pat.items():
+                blocks.setdefault(name, [])
+                if target not in blocks[name]:
+                    blocks[name].append(target)
+        for name in blocks:
+            if any(name not in pat for pat in patterns):
+                blocks[name].insert(0, DEFAULT_TARGET)
+        return cls(
+            step_builder,
+            blocks,
+            registry=registry,
+            baseline_target=DEFAULT_TARGET,
+        )
+
+    def mark_illegal(
+        self, verdicts: Mapping[tuple[str, str], str]
+    ) -> None:
+        """Record statically-illegal ``(block, target)`` bindings with their
+        reasons.  Candidates selecting any of them are reported by
+        ``pruned()`` and skipped by every search strategy.  The
+        ``DEFAULT_TARGET`` sentinel is never illegal (it is whatever the
+        registry would do anyway), and marking it is rejected."""
+        for (block, target), reason in verdicts.items():
+            if target == DEFAULT_TARGET:
+                raise ValueError(
+                    f"cannot mark default binding of '{block}' illegal"
+                )
+            self._illegal[(block, target)] = str(reason)
+
+    def pruned(self, cand: Candidate) -> str | None:
+        for a, c in zip(self.axes, cand):
+            label = a.choices[c]
+            if label == DEFAULT_TARGET:
+                continue
+            reason = self._illegal.get((a.name, label))
+            if reason is not None:
+                return f"{a.name}->{label}: {reason}"
+        return None
+
+    def binding_of(self, cand: Candidate) -> dict[str, str]:
+        """The registry binding for a candidate (all axes, sans defaults)."""
+        return {
+            a.name: a.choices[c]
+            for a, c in zip(self.axes, cand)
+            if a.choices[c] != DEFAULT_TARGET
+        }
+
+    def deploy_mapping(self, cand: Candidate) -> dict[str, str]:
+        """Persisted plans must pin *every* measured axis, baseline choices
+        included: a plan that omitted a block left on ``ref`` would deploy
+        under the registry's default (the device's target) — a binding
+        that was never the measured winner."""
+        return self.binding_of(cand)
+
+    def build(self, cand: Candidate) -> Callable[..., Any]:
+        self.validate(cand)
+        binding = self.binding_of(cand)
+        with self.registry.bind(binding):
+            fn = self.step_builder()
+
+        def run(*args: Any, **kwargs: Any) -> Any:
+            with self.registry.bind(binding):
+                return fn(*args, **kwargs)
+
+        return run
+
+    @contextlib.contextmanager
+    def bind(self, cand: Candidate):
+        with self.registry.bind(self.binding_of(cand)):
+            yield

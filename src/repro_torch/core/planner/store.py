@@ -32,6 +32,7 @@ def environment_fingerprint(extra: Mapping[str, str] | None = None) -> dict[str,
     }
     import torch
 
+    import repro_torch.kernels as shelf
     from repro_torch.kernels import build
 
     fp["torch"] = torch.__version__
@@ -39,9 +40,9 @@ def environment_fingerprint(extra: Mapping[str, str] | None = None) -> dict[str,
     if torch.cuda.is_available():
         fp["device"] = torch.cuda.get_device_name(0)
     # the kernel shelf is part of the environment: a plan measured against
-    # one set of CUDA sources must not silently bind after a kernel
-    # rewrite, so the sources (and build flags) are hashed in
-    fp["kernel_shelf"] = build.source_hash()
+    # one set of CUDA sources (and build flags) or of wrappers must not
+    # silently bind after either is rewritten, so both are hashed in
+    fp["kernel_shelf"] = f"{build.source_hash()}:{shelf.SHELF_FINGERPRINT}"
     if extra:
         fp.update(extra)
     return fp

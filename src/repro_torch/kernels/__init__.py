@@ -27,9 +27,9 @@ KERNELS = {
 }
 
 
-def _register_all() -> None:
+def _register_all() -> list[tuple]:
     r = blocks.registry
-    for block, target, fn, note in [
+    impls = [
         # one block, three forms: plain, delta= (the residual add fused) and
         # gate= (Mamba-2's gated norm); a binding of it covers all three
         ("rmsnorm", "ref", rmsnorm.rmsnorm_torch, "plain-torch oracle (ref.rmsnorm_ref)"),
@@ -66,11 +66,22 @@ def _register_all() -> None:
          "blocked LU, plain trailing update"),
         ("lu", "cuda", functools.partial(ops.lu, backend="cuda"),
          "blocked LU, csrc/matmul.cu Schur update"),
-    ]:
+    ]
+    for block, target, fn, note in impls:
         r.register(block, target, fn, note)
+    return [(block, target, fn) for block, target, fn, _ in impls]
 
 
-_register_all()
+_SHELF_IMPLS = _register_all()
+
+#: block names registered by this package: the kernel shelf
+SHELF_BLOCKS = tuple(sorted({block for block, _, _ in _SHELF_IMPLS}))
+
+#: registration-time hash of the shelf's implementations (the wrappers'
+#: and plain versions' sources); with the CUDA sources' hash it is the
+#: ``kernel_shelf`` component of a stored plan's environment fingerprint,
+#: so a rewritten wrapper or kernel invalidates plans measured before it
+SHELF_FINGERPRINT = blocks.implementations_fingerprint(_SHELF_IMPLS)
 
 
 def reset_launches() -> None:

@@ -11,10 +11,14 @@ for the matrix-calculation application.
            ``schur_update`` block: the CUDA kernel for CUDA tensors.
 
 The reference's ``fori_loop``s are Python loops over device tensors: the
-pivot row is found, swapped and eliminated on the device, with no host
-round trip per column.  The swap sequence of a panel is applied to the
-columns outside it as one gather, built on the host from the panel's
-pivots (one small device-to-host copy per panel).
+pivot row is found, swapped and eliminated on the device.  The swap
+sequence of a panel is applied to a device index vector (the reference's
+``_apply_swaps``) and then to the columns outside the panel as one gather,
+so nothing in ``lu_blocked`` reads the device from the host: it can be
+captured.  The reference jits the whole of it; :func:`lu_program` runs it
+per (n, nb, trailing update, device) as one captured program
+(:mod:`repro_torch.runtime.programs`), the input in a static buffer whose
+padding is the identity.
 
 Pivot bookkeeping matches Numerical Recipes' ``indx`` convention (imax
 per step, rows swapped in place) so the NR back-substitution consumes the
@@ -29,6 +33,7 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels.matmul import schur_update
+from repro_torch.runtime.programs import Captures
 
 
 def _panel_factor(panel: torch.Tensor, n_real_rows: int):
@@ -44,14 +49,13 @@ def _panel_factor(panel: torch.Tensor, n_real_rows: int):
     # eligible pivots: at/below the diagonal, and never a pad row for a
     # real column (pad rows may only pivot for their own pad column)
     real = ridx < n_real_rows
-    neg_inf = torch.tensor(float("-inf"), device=dev)
-    tiny = torch.tensor(1.0e-20, device=dev)
-    zero = torch.zeros((), device=dev)
+    # constants as Python scalars: a host tensor copied to the card would
+    # be a pageable copy, which a capture refuses
     piv = torch.zeros(nb, dtype=torch.int32, device=dev)
     parity = torch.ones((), dtype=panel.dtype, device=dev)
     for j in range(nb):
         eligible = (ridx >= j) & (real | (ridx == j))
-        score = torch.where(eligible, panel[:, j].abs(), neg_inf)
+        score = torch.where(eligible, panel[:, j].abs(), float("-inf"))
         imax = torch.argmax(score).view(1)  # stays on the device: no sync
         rj = panel[j:j + 1].clone()
         panel[j:j + 1] = panel.index_select(0, imax)
@@ -59,21 +63,27 @@ def _panel_factor(panel: torch.Tensor, n_real_rows: int):
         piv[j] = imax[0]
         parity = torch.where(imax[0] != j, -parity, parity)
         pivval = panel[j, j]
-        pivval = torch.where(pivval == 0.0, tiny, pivval)
+        pivval = torch.where(pivval == 0.0, 1.0e-20, pivval)
         panel[j, j] = pivval
         below = ridx > j
-        fac = torch.where(below, panel[:, j] / pivval, zero)
-        urow = torch.where(cidx > j, panel[j], zero)
+        fac = torch.where(below, panel[:, j] / pivval, 0.0)
+        urow = torch.where(cidx > j, panel[j], 0.0)
         panel.sub_(torch.outer(fac, urow))
         panel[:, j] = torch.where(below, fac, panel[:, j])
     return panel, piv, parity
 
 
-def _swap_permutation(piv: list[int], rows: int) -> list[int]:
-    """Row order after the NR swap sequence (row j <-> piv[j], in order)."""
-    perm = list(range(rows))
-    for j, i in enumerate(piv):
-        perm[j], perm[i] = perm[i], perm[j]
+def _swap_permutation(piv: torch.Tensor, rows: int) -> torch.Tensor:
+    """Row order after the NR swap sequence (row j <-> piv[j], in order),
+    on ``piv``'s device: the reference's ``_apply_swaps`` applied to an
+    index vector, which then gathers any number of columns at once."""
+    perm = torch.arange(rows, device=piv.device)
+    idx = piv.long()
+    for j in range(piv.shape[0]):
+        i = idx[j : j + 1]
+        row_j = perm[j : j + 1].clone()
+        perm[j : j + 1] = perm.index_select(0, i)
+        perm.index_copy_(0, i, row_j)
     return perm
 
 
@@ -130,9 +140,7 @@ def lu_blocked(
         parity = parity * pparity
         a[kb:, kb:kb + nb] = panel
         piv[kb:kb + nb] = ppiv + kb
-        perm = torch.tensor(
-            _swap_permutation(ppiv.tolist(), rows), device=a.device
-        )
+        perm = _swap_permutation(ppiv, rows)
         # swap rows in the columns left of and right of the panel
         if kb > 0:
             a[kb:, :kb] = a[kb:, :kb][perm]
@@ -148,3 +156,71 @@ def lu_blocked(
             a[kb:, kb + nb:] = right
 
     return a, piv, parity
+
+
+#: the captured LU programs: (n, nb, trailing update, device) -> _LUProgram
+_PROGRAMS: dict[tuple, "_LUProgram"] = {}
+
+
+class _LUProgram:
+    """``lu_blocked`` of an n x n input at one block size as a captured
+    program: the input is copied into the top-left of a static (npad,
+    npad) buffer whose padding is the identity (written once), the program
+    factors that buffer, and each call returns copies of the outputs (a
+    replay overwrites them)."""
+
+    def __init__(self, n: int, nb: int, schur: Callable[..., torch.Tensor],
+                 device: torch.device) -> None:
+        self.n, self.nb, self.schur = n, nb, schur
+        npad = -(-n // nb) * nb
+        self.static = torch.eye(npad, dtype=torch.float32, device=device)
+        self.captures = Captures()
+        self.calls = 0
+
+    def run(self) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        return lu_blocked(self.static, nb=self.nb, n_real=self.n, schur=self.schur)
+
+    def __call__(self, a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        n = self.n
+        self.static[:n, :n].copy_(a)
+        self.calls += 1
+        lu_p, piv, parity = self.captures((), self.run)
+        return lu_p[:n, :n].clone(), piv[:n].clone(), parity.clone()
+
+    def summary(self) -> dict:
+        """Calls, eager calls, captures, replays, capture seconds and the
+        launches one replay adds."""
+        captured = self.captures.keys()
+        return {
+            "n": self.n, "nb": self.nb, "schur": getattr(self.schur, "__name__", repr(self.schur)),
+            "calls": self.calls, "eager_calls": self.calls - self.captures.replays,
+            "captures": len(captured), "replays": self.captures.replays,
+            "capture_seconds": self.captures.capture_seconds,
+            "launches_per_replay": (self.captures.launches_per_replay(captured[0])
+                                    if captured else {}),
+        }
+
+
+def lu_program(
+    a: torch.Tensor,
+    *,
+    nb: int,
+    schur: Callable[..., torch.Tensor] = schur_update,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``lu_blocked`` of a square CUDA matrix (any n: identity-padded to a
+    multiple of ``nb``) through its captured program.  Returns (lu, piv,
+    parity) of the n x n input, as ``lu_blocked(...)[:n]`` would."""
+    n = a.shape[0]
+    if a.ndim != 2 or a.shape[1] != n or not a.is_cuda:
+        raise ValueError(f"lu_program takes a square CUDA matrix, got "
+                         f"{tuple(a.shape)} on {a.device}")
+    key = (n, nb, schur, a.device)
+    program = _PROGRAMS.get(key)
+    if program is None:
+        program = _PROGRAMS[key] = _LUProgram(n, nb, schur, a.device)
+    return program(a)
+
+
+def program_stats() -> list[dict]:
+    """Each captured LU program's :meth:`_LUProgram.summary`."""
+    return [program.summary() for program in _PROGRAMS.values()]

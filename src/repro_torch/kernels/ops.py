@@ -26,7 +26,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fft import complex_matmul, complex_matmul_torch, dft_matrix, fft2d_dft
-from repro_torch.kernels.lu import lu_blocked
+from repro_torch.kernels.lu import lu_blocked, lu_program
 from repro_torch.kernels.matmul import matmul as _matmul_kernel
 from repro_torch.kernels.matmul import matmul_torch, schur_update as _schur_kernel
 from repro_torch.kernels.matmul import schur_update_torch
@@ -154,22 +154,29 @@ def lu(a, *, nb: int | None = None, backend: str | None = None, device=None):
     Arbitrary n: pads to a multiple of nb with an identity extension (pad
     rows can never be chosen as pivots for real columns).  The default
     block size adapts to the problem: small matrices are panel-dominated
-    and want small blocks; large ones 128-wide panels.
+    and want small blocks; large ones 128-wide panels.  On the card the
+    factorisation runs as one captured program per (n, nb, trailing
+    update) (:func:`repro_torch.kernels.lu.lu_program`, the reference's
+    jitted ``lu_blocked``), the padding in its static input; on the CPU
+    ``lu_blocked`` runs eagerly.
     """
     a = as_tensor(a, device).to(torch.float32)
     n = a.shape[0]
     if nb is None:
         nb = 128 if n >= 512 else 32
+    be = _backend(backend, a)
+    if be == "ref":
+        raise ValueError("lu has no 'ref' backend; use 'torch' or 'cuda'")
+    schur = _schur_kernel if be == "cuda" else schur_update_torch
+    if a.is_cuda:
+        lu_p, piv, _parity = lu_program(a, nb=nb, schur=schur)
+        return lu_p, piv
     npad = ((n + nb - 1) // nb) * nb
     if npad != n:
         ap = torch.eye(npad, dtype=torch.float32, device=a.device)
         ap[:n, :n] = a
     else:
         ap = a
-    be = _backend(backend, a)
-    if be == "ref":
-        raise ValueError("lu has no 'ref' backend; use 'torch' or 'cuda'")
-    schur = _schur_kernel if be == "cuda" else schur_update_torch
     lu_p, piv, _parity = lu_blocked(ap, nb=nb, n_real=n, schur=schur)
     return lu_p[:n, :n], piv[:n]
 
@@ -178,12 +185,14 @@ def lu_nr_compat(a, *, backend: str | None = None, device=None):
     """Numerical-Recipes-shaped interface: returns (lu, indx, d).
 
     This is the DB-registered replacement for ``ludcmp`` — C-1 glue that
-    matches the host program's expected (lu, indx, d) signature.
+    matches the host program's expected (lu, indx, d) signature.  ``d``
+    (the swaps' parity) is computed on the device: nothing here waits for
+    the card.
     """
     lu_p, piv = lu(a, backend=backend, device=device)
     n = piv.shape[0]
-    swaps = int((piv != torch.arange(n, dtype=piv.dtype, device=piv.device)).sum())
-    d = torch.tensor(1.0 if swaps % 2 == 0 else -1.0, dtype=torch.float32, device=piv.device)
+    swaps = (piv != torch.arange(n, dtype=piv.dtype, device=piv.device)).sum()
+    d = torch.where(swaps % 2 == 0, 1.0, -1.0).to(torch.float32)
     return lu_p, piv.to(torch.int32), d
 
 

@@ -8,8 +8,12 @@ until idle and prints throughput and latency.  Runs on the CUDA card:
       --page-size 16 --slots 8 --max-len 1024
 
 ``--device cpu`` runs on the CPU explicitly (the tests do, with
-``--reduced``).  ``--prefill-chunk`` splits long prompts into chunks run
-between decode steps; ``--trace-out`` writes a Chrome/Perfetto trace of the
+``--reduced``).  ``--plan-dir`` binds each phase to its stored
+``zoo:<arch>:prefill`` / ``:decode`` plan (``--plan-search`` searches and
+commits the missing ones first, over ``--plan-targets``), ``--plan-key``
+names one plan for both phases, and ``--decode-impl`` pins decode's
+``paged_attention`` target.  ``--prefill-chunk`` splits long prompts into
+chunks run between decode steps; ``--trace-out`` writes a Chrome/Perfetto trace of the
 request lifecycles (inspect with ``python -m repro_torch.obs.timeline``)
 and ``--metrics-out`` a Prometheus text snapshot of the engine's metrics.
 """
@@ -109,6 +113,25 @@ def build_parser() -> argparse.ArgumentParser:
                     help="KV pool size in pages (default: capacity-equivalent, "
                          "slots * ceil(max_len/page_size); smaller over-commits)")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
+    ap.add_argument("--decode-impl", default="auto", choices=("auto", "torch", "cuda"),
+                    help="pin the paged_attention binding for the decode hot loop "
+                         "(requires --page-size): torch = page gather + dense softmax, "
+                         "cuda = the paged attention kernel; auto defers to the stored "
+                         "decode plan / the device's default")
+    ap.add_argument("--plan-dir", default=None,
+                    help="PlanStore directory with verified offload plans")
+    ap.add_argument("--plan-key", default=None,
+                    help="explicit plan key bound to BOTH phases; default is the "
+                         "stored zoo:<arch>:prefill / :decode plans")
+    ap.add_argument("--plan-search", action="store_true",
+                    help="search+commit missing zoo plans for this arch before "
+                         "binding (the verification-environment step)")
+    ap.add_argument("--plan-targets", default=None,
+                    help="targets --plan-search searches over (default: torch,cuda "
+                         "on the card, ref,torch with --device cpu)")
+    ap.add_argument("--executor", default="serial", choices=("serial",),
+                    help="measurement executor for --plan-search (only serial is "
+                         "ported)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--len-jitter", type=int, default=8,
@@ -124,11 +147,31 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
+def plan_keys_of(args: argparse.Namespace) -> "dict[str, str | None] | str | None":
+    """The engine's ``plan_keys`` from the CLI: ``--plan-key`` for both
+    phases, or (with ``--plan-search``) each phase's zoo key after the
+    missing plans are searched and committed; None leaves the engine to
+    find the stored zoo plans in ``--plan-dir``."""
+    if args.plan_key:
+        return args.plan_key
+    if args.plan_dir and args.plan_search:
+        from repro_torch.offload.zoo import DEFAULT_TARGETS, launch_plan_keys
+
+        targets = (tuple(args.plan_targets.split(",")) if args.plan_targets
+                   else DEFAULT_TARGETS[args.device])
+        return launch_plan_keys(
+            args.plan_dir, args.arch, ("prefill", "decode"), search=True,
+            targets=targets, executor=args.executor, device=args.device,
+        )
+    return None
+
+
 def main(argv: "list[str] | None" = None) -> int:
     args = build_parser().parse_args(argv)
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    plan_keys = plan_keys_of(args)
     engine = ServeEngine(
         cfg,
         n_slots=args.slots,
@@ -141,6 +184,10 @@ def main(argv: "list[str] | None" = None) -> int:
         n_pages=args.n_pages,
         seed=args.seed,
         device=args.device,
+        plan_dir=args.plan_dir,
+        plan_keys=plan_keys,
+        decode_impl=args.decode_impl,
+        quiet=False,
         # --trace-out turns tracing on for this engine; without it the
         # engine keeps the process tracer, disabled
         tracer=Tracer() if args.trace_out else None,

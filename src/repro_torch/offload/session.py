@@ -21,31 +21,36 @@ calling one before its prerequisite raises ``StageError`` — so "measured
 before analyzed" bugs fail loudly instead of silently measuring the wrong
 thing.
 
-Two kinds of target are accepted:
+Three kinds of target are accepted:
 
 * an **application callable** (the paper's existing-app path): Steps 1-2 run
   through an ``OffloadEngine`` and the search space is a ``SubsetSpace`` of
   source-substituted variants, whose replacement blocks run on ``device``
   (the CUDA card unless the caller passes ``device="cpu"``);
-* a **SearchSpace** (power users, pre-built spaces).
+* a **SearchSpace** (power users, pre-built spaces);
+* a **step builder** plus ``patterns=`` or ``blocks=`` (the framework-native
+  model-zoo path): the space is a ``BindingSpace`` over registered targets.
 
-Not ported yet (``NotImplementedError``): the binding mode over a step
-builder (``patterns=`` / ``blocks=``), the legality and resource
-pre-filters, tracing spans and ``plan_zoo``.  Trials are timed by the
-``MeasurementCache``'s serial executor; the reference's ``meter=`` and
-``executor=`` session options come with the parallel executors and the
-power meters.  The reference's zero-search ``attach`` / ``stored_binding``
-bind registry targets, which only the binding mode produces; they come
-with it.
+Production startup never runs a session at all — ``OffloadSession.attach``
+binds a previously committed plan with zero search or measurement, and
+``plan_zoo`` (:mod:`repro_torch.offload.zoo`) commits one per model cell.
+
+Not ported yet (``NotImplementedError``): the legality and resource
+pre-filters (``legality=``, ``resources=``, ``resource_hints=``), tracing
+spans (``tracer=``) and the power meters (``meter=``).  Trials are timed by
+the ``MeasurementCache``'s serial executor, the one ``executor=`` accepts.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Mapping, Sequence
 
+from repro_torch.core import blocks as blocks_mod
 from repro_torch.core import verify as verify_mod
 from repro_torch.core.planner import (
+    BindingSpace,
     MeasurementCache,
     Objective,
     Plan,
@@ -55,9 +60,11 @@ from repro_torch.core.planner import (
     SearchSpace,
     SearchStrategy,
     SingleThenCombine,
+    declared_pattern,  # noqa: F401 — re-exported lifecycle helper
     resolve_objective,
 )
 from repro_torch.core.planner.strategies import to_verification_report
+from repro_torch.metering import resolve_executor
 
 
 class StageError(RuntimeError):
@@ -116,6 +123,37 @@ class OffloadResult:
             search_seconds=0.0,
         )
 
+    def binding_context(self, registry: Any = None):
+        """Context manager entering this result's block->target binding."""
+        registry = registry or blocks_mod.registry
+        return registry.bind(self.mapping)
+
+
+def stored_binding(
+    plan_dir: str,
+    key: str,
+    match_fingerprint: bool = True,
+    registry: Any = None,
+) -> dict[str, str] | None:
+    """Fetch a committed plan's block->target mapping, or None when no plan
+    (or a plan verified under a different environment) is available.
+
+    The mapping is validated against the current block registry: a plan
+    naming a block or target that no longer exists (kernel removed or
+    renamed since the plan was verified) is treated as incompatible rather
+    than binding something that would KeyError mid-step.
+    """
+    if registry is None:
+        registry = blocks_mod.registry
+    plan = PlanStore(plan_dir).load(key, match_fingerprint=match_fingerprint)
+    if plan is None:
+        return None
+    mapping = dict(plan.mapping)
+    for block, target in mapping.items():
+        if target not in registry.targets(block):
+            return None
+    return mapping
+
 
 class OffloadSession:
     """One offload lifecycle: analyze -> discover -> plan -> verify -> commit."""
@@ -130,7 +168,10 @@ class OffloadSession:
         store: PlanStore | str | None = None,
         key: str | None = None,
         cache: MeasurementCache | None = None,
+        meter: Any = None,
+        executor: Any = None,
         engine: Any = None,
+        registry: Any = None,
         patterns: Sequence[Mapping[str, str]] | None = None,
         blocks: Mapping[str, Sequence[str]] | None = None,
         repeats: int = 3,
@@ -144,9 +185,9 @@ class OffloadSession:
         device: Any = None,
     ) -> None:
         unported = {
-            "patterns": patterns is not None, "blocks": blocks is not None,
             "legality": bool(legality), "resources": resources not in (False, None),
             "resource_hints": resource_hints is not None, "tracer": tracer is not None,
+            "meter": meter is not None,
         }
         asked = sorted(k for k, v in unported.items() if v)
         if asked:
@@ -160,16 +201,27 @@ class OffloadSession:
         self.strategy = strategy or SingleThenCombine()
         self.store = PlanStore(store) if isinstance(store, str) else store
         self.key = key
-        self.cache = cache if cache is not None else MeasurementCache()
+        executor = resolve_executor(executor)  # the serial one, or it raises
+        self.cache = cache if cache is not None else MeasurementCache(executor=executor)
+        self.registry = registry or blocks_mod.registry
         self.repeats = repeats
         self.min_seconds = min_seconds
         self.rtol = rtol
         self.force_search = force_search
         self._engine = engine
+        self._patterns = patterns
+        self._blocks = blocks
 
         if isinstance(target, SearchSpace):
             self.mode = "space"
             self._space: SearchSpace | None = target
+        elif patterns is not None or blocks is not None:
+            if not callable(target):
+                raise TypeError(
+                    "binding mode needs a zero-arg step builder as target"
+                )
+            self.mode = "binding"
+            self._space = None
         elif callable(target):
             self.mode = "app"
             self._space = None
@@ -211,11 +263,21 @@ class OffloadSession:
         """Grasp the target's structure.
 
         App mode: AST source analysis (library calls, local defs, loops)
-        via the engine.  Space mode: the axis structure — every searchable
-        position and its registered choices.
+        via the engine.  Space/binding modes: the axis structure — every
+        searchable position and its registered choices.
         """
         if self.mode == "app":
             self._analysis = self._get_engine().analyze(self.target)
+        elif self.mode == "binding":
+            space = BindingSpace(
+                self.target,
+                blocks=self._blocks,
+                registry=self.registry,
+            ) if self._patterns is None else BindingSpace.from_patterns(
+                self.target, self._patterns, registry=self.registry
+            )
+            self._space = space
+            self._analysis = {a.name: a.choices for a in space.axes}
         else:  # space
             self._analysis = {a.name: a.choices for a in self.space.axes}
         self._done.add("analyze")
@@ -234,8 +296,8 @@ class OffloadSession:
 
         App mode: DB name matching + similarity discovery, interface
         reconciliation, and construction of the ``SubsetSpace`` of
-        source-substituted variants.  Space mode: the axes with more than
-        one choice.
+        source-substituted variants.  Space/binding modes: the axes with
+        more than one choice.
         """
         self._require("discover", "analyze")
         if self.mode == "app":
@@ -364,8 +426,49 @@ class OffloadSession:
             self.verify()
         return self.commit(build=build)
 
+    # -- production attach (zero search) ---------------------------------------
+    @classmethod
+    def attach(
+        cls,
+        plan_dir: str | None,
+        key: str | None,
+        registry: Any = None,
+        quiet: bool = False,
+    ):
+        """Binding context for a previously committed plan: the zero-search
+        production path.
+
+        A no-op context when unset or when the plan is missing/incompatible
+        (default bindings then apply)."""
+        def say(msg: str) -> None:
+            if not quiet:
+                print(msg)
+
+        if not plan_dir or not key:
+            if plan_dir or key:
+                say(
+                    "offload plan ignored: both a plan dir and a plan key "
+                    f"are required (got plan_dir={plan_dir!r}, "
+                    f"plan_key={key!r})"
+                )
+            return contextlib.nullcontext()
+        mapping = stored_binding(plan_dir, key, registry=registry)
+        if mapping is None:
+            say(
+                f"plan '{key}' not found/compatible in {plan_dir}; "
+                "running with default bindings"
+            )
+            return contextlib.nullcontext()
+        say(f"bound offload plan '{key}': {mapping} (no re-measurement)")
+        registry = registry or blocks_mod.registry
+        return registry.bind(mapping)
+
     # -- zoo-wide planning ------------------------------------------------------
     @classmethod
     def plan_zoo(cls, *args: Any, **kwargs: Any):
-        """The reference's zoo-wide binding sweep: not ported yet."""
-        raise NotImplementedError("OffloadSession.plan_zoo is not ported yet")
+        """Search a BindingSpace over real prefill/decode step programs for
+        every requested (arch, kind) cell and persist a plan per cell.  See
+        ``repro_torch.offload.zoo.plan_zoo`` for parameters."""
+        from repro_torch.offload.zoo import plan_zoo
+
+        return plan_zoo(*args, **kwargs)

@@ -56,6 +56,12 @@ streaming :class:`Token` events and a final :class:`Completion` per request.
   :class:`~repro_torch.runtime.monitor.StepMonitor`, and
   :meth:`ServeEngine.metrics` for KV-pool utilization, stranded capacity
   and page fragmentation.
+* **Plan binding** — ``plan_dir`` / ``plan_keys`` bind each phase
+  (prefill, which covers the chunk programs, and decode) to a committed
+  offload plan (:func:`repro_torch.offload.zoo.plan_zoo`), and
+  ``decode_impl`` pins decode's ``paged_attention`` target.  Each program
+  call runs under its phase's binding; the binding is part of a program's
+  key, so a bound phase captures its own graphs.
 
 Caches are updated in place (the reference donates them to its jitted
 programs).  Weights are cast to the compute dtype once, at construction.
@@ -65,11 +71,12 @@ when the table changed.
 
 The engine runs on the CUDA card unless the caller passes ``device="cpu"``;
 without CUDA it raises.  Not ported yet (they raise
-``NotImplementedError``): plan binding, meters, lint and capacity planning.
+``NotImplementedError``): meters, lint and capacity planning.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Iterable, Sequence
@@ -79,9 +86,11 @@ import torch
 
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import blocks as blocks_mod
 from repro_torch.models import lm
 from repro_torch.models.attention import cache_seq_axes, insert_pages
 from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
+from repro_torch.offload.session import stored_binding
 from repro_torch.runtime.monitor import StepMonitor
 from repro_torch.serve.kv import PagePool, PageTable, PoolExhausted, pages_for
 from repro_torch.serve.programs import StepProgram
@@ -210,6 +219,14 @@ class ServeEngine:
     ``prefill_chunk`` enables chunked prefill (attention-family archs only:
     a recurrent SSM scan cannot resume across chunk boundaries).
 
+    ``plan_dir``/``plan_keys`` bind each phase to a committed offload plan:
+    with ``plan_dir`` alone the stored ``zoo:<arch>:prefill`` /
+    ``zoo:<arch>:decode`` plans are bound when present (and compatible with
+    this environment); ``plan_keys`` may name one key for both phases or a
+    ``{phase: key}`` map, and a named key that cannot bind raises.
+    ``decode_impl`` (``auto|torch|cuda``, paged cache only) pins the decode
+    step's ``paged_attention`` target over whatever the decode plan picked.
+
     ``tracer`` (a :class:`repro_torch.obs.Tracer`; default the process
     tracer, disabled) records request-lifecycle spans; ``registry`` (a
     :class:`repro_torch.obs.MetricsRegistry`; default a fresh one) holds
@@ -237,17 +254,13 @@ class ServeEngine:
         tracer: Tracer | None = None,
         registry: MetricsRegistry | None = None,
         plan_dir: str | None = None,
+        plan_keys: "dict[str, str | None] | str | None" = None,
         decode_impl: str = "auto",
         meter: Any = None,
+        quiet: bool = True,
     ) -> None:
-        asked = [
-            name for name, value in (("plan_dir", plan_dir), ("meter", meter))
-            if value is not None
-        ] + (["decode_impl"] if decode_impl != "auto" else [])
-        if asked:
-            raise NotImplementedError(
-                f"{', '.join(asked)}: not ported to repro_torch yet"
-            )
+        if meter is not None:
+            raise NotImplementedError("meter: not ported to repro_torch yet")
         if isinstance(cfg, str):
             cfg = get_config(cfg)
         if prefill_bucket is not None and "m" in cfg.pattern():
@@ -266,6 +279,16 @@ class ServeEngine:
             raise ValueError("prefill_chunk must be >= 1")
         if n_pages is not None and page_size is None:
             raise ValueError("n_pages given without page_size")
+        if decode_impl not in ("auto", "torch", "cuda"):
+            raise ValueError(
+                f"decode_impl must be auto|torch|cuda, got {decode_impl!r}"
+            )
+        if decode_impl != "auto" and page_size is None:
+            raise ValueError(
+                "decode_impl pins the paged_attention binding — it requires "
+                "the paged KV cache (page_size)"
+            )
+        self.decode_impl = decode_impl
         self.device = resolve_device(device)
         self.cfg = cfg
         self.n_slots = n_slots
@@ -332,6 +355,42 @@ class ServeEngine:
         if params is None:
             params = lm.init_params(cfg, seed=seed, device=self.device)
         self.params = lm.cast_for_compute(params, cfg)
+
+        # -- plan-aware phase dispatch ------------------------------------
+        # keys the caller named explicitly must fail loudly when they
+        # cannot bind (an explicit request is a contract, not a hint);
+        # store-derived defaults degrade with a message
+        explicit = plan_keys is not None
+        if explicit and not plan_dir:
+            raise ValueError(
+                "plan_keys given without plan_dir — both are required to "
+                "bind a committed plan"
+            )
+        self.plan_keys = self._resolve_plan_keys(plan_dir, plan_keys)
+        self._bindings: dict[str, dict[str, str] | None] = {}
+        for phase in PHASES:
+            key = self.plan_keys[phase]
+            mapping = stored_binding(plan_dir, key) if plan_dir and key else None
+            if key and mapping is None:
+                if explicit:
+                    raise ValueError(
+                        f"plan '{key}' for phase '{phase}' not "
+                        f"found/compatible in {plan_dir}"
+                    )
+                if not quiet:
+                    print(
+                        f"serve: plan '{key}' not found/compatible in "
+                        f"{plan_dir}; {phase} runs on default bindings"
+                    )
+            elif mapping and not quiet:
+                print(f"serve: {phase} bound to plan '{key}': {mapping}")
+            self._bindings[phase] = mapping
+        # an explicit decode_impl overrides whatever the stored decode plan
+        # (or the device's default) would pick for the hot loop's
+        # paged_attention block; "auto" leaves the planner's choice alone
+        if decode_impl != "auto":
+            base = self._bindings.get("decode") or {}
+            self._bindings["decode"] = {**base, "paged_attention": decode_impl}
 
         # host-side per-slot state (uploaded each decode step)
         self._last_tok = np.zeros((n_slots, 1), np.int32)
@@ -410,6 +469,41 @@ class ServeEngine:
             return min(ctx, self.prefill_chunk)
         return ctx
 
+    # -- plan resolution ------------------------------------------------------
+    def _resolve_plan_keys(
+        self,
+        plan_dir: str | None,
+        plan_keys: "dict[str, str | None] | str | None",
+    ) -> dict[str, str | None]:
+        if isinstance(plan_keys, str):
+            return {p: plan_keys for p in PHASES}
+        if plan_keys is not None:
+            unknown = set(plan_keys) - set(PHASES)
+            if unknown:
+                raise KeyError(
+                    f"unknown serve phases {sorted(unknown)}; known: {PHASES}"
+                )
+            return {p: plan_keys.get(p) for p in PHASES}
+        if plan_dir:
+            from repro_torch.offload.zoo import default_plan_key
+
+            # zoo plans are keyed by the *base* arch — a reduced config
+            # (verification-environment shape) binds the same plans
+            arch = self.cfg.name.removesuffix("-reduced")
+            return {p: default_plan_key(plan_dir, arch, p) for p in PHASES}
+        return {p: None for p in PHASES}
+
+    def _phase(self, phase: str):
+        """The scope of ``phase``'s binding (none when it has no plan)."""
+        mapping = self._bindings.get(phase)
+        if not mapping:
+            return contextlib.nullcontext()
+        return blocks_mod.registry.bind(mapping)
+
+    def bindings(self) -> dict[str, dict[str, str] | None]:
+        """Each phase's bound mapping (None: the default bindings)."""
+        return {phase: (dict(m) if m else None) for phase, m in self._bindings.items()}
+
     def _padded_len(self, length: int) -> int:
         if self.prefill_bucket:
             bucket = self.prefill_bucket
@@ -484,11 +578,12 @@ class ServeEngine:
         tokens = np.zeros((1, self._padded_len(len(context))), np.int32)
         tokens[0, : len(context)] = context
         temp, topk = self._request_knobs(state)
-        tok, _ = self.programs["prefill"](
-            [_i32(len(context) - 1), _i32(state.seed), _i32(len(state.tokens)),
-             np.asarray([temp], np.float32), _i32(topk), tokens],
-            policy=policy_of([temp], [topk]),
-        )
+        with self._phase("prefill"):
+            tok, _ = self.programs["prefill"](
+                [_i32(len(context) - 1), _i32(state.seed), _i32(len(state.tokens)),
+                 np.asarray([temp], np.float32), _i32(topk), tokens],
+                policy=policy_of([temp], [topk]),
+            )
         return tok
 
     def _sync_pages(self) -> None:
@@ -532,7 +627,8 @@ class ServeEngine:
             self._sync_pages()
         slots = list(active)
         policy = policy_of(self._temps[slots], self._topks[slots])
-        tok, _ = self.programs["decode"](self._decode_inputs(), policy=policy)
+        with self._phase("decode"):
+            tok, _ = self.programs["decode"](self._decode_inputs(), policy=policy)
         return tok
 
     def _synchronize(self) -> None:
@@ -880,16 +976,18 @@ class ServeEngine:
         t0 = time.perf_counter()
         if final:
             temp, topk = self._request_knobs(state)
-            tok, _ = self.programs["extend_sample"](
-                head + [_i32(state.seed), _i32(len(state.tokens)),
-                        np.asarray([temp], np.float32), _i32(topk), tokens],
-                policy=policy_of([temp], [topk]),
-            )
+            with self._phase("prefill"):
+                tok, _ = self.programs["extend_sample"](
+                    head + [_i32(state.seed), _i32(len(state.tokens)),
+                            np.asarray([temp], np.float32), _i32(topk), tokens],
+                    policy=policy_of([temp], [topk]),
+                )
             self.overlap_tokens += width - run
             del self._prefilling[slot]
             self._commit_slot(state, int(tok[0]), events)  # syncs the device
         else:
-            self.programs["extend"](head + [tokens])
+            with self._phase("prefill"):
+                self.programs["extend"](head + [tokens])
             self._synchronize()
             prog.pos += run
         self.telemetry["prefill"].add(time.perf_counter() - t0, run)

@@ -36,7 +36,8 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.kernels import paged_attention as pa
-from repro_torch.serve import Request, Sampler, ServeEngine, programs
+from repro_torch.runtime import programs as runtime_programs
+from repro_torch.serve import Request, Sampler, ServeEngine
 from repro_torch.serve.sampler import POLICIES
 
 CFG = get_config("llama3.2-1b").reduced()
@@ -64,7 +65,7 @@ class _NoWrites(TorchDispatchMode):
 
 
 class _DryGraph:
-    """A CUDA graph's contract on the CPU (stands in for ``programs.Graph``);
+    """A CUDA graph's contract on the CPU (stands in for ``runtime.programs.Graph``);
     a step with no outputs (``extend``) replays for its writes alone."""
 
     def __init__(self, run, pool):
@@ -82,7 +83,7 @@ class _DryGraph:
 
 
 def _graphed(engine, monkeypatch):
-    monkeypatch.setattr(programs, "Graph", _DryGraph)
+    monkeypatch.setattr(runtime_programs, "Graph", _DryGraph)
     for program in engine.programs.values():
         program.graphed = True
     return engine

@@ -244,8 +244,10 @@ def test_session_stages_and_unported_options():
         OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu", tracer=object())
     with pytest.raises(NotImplementedError, match="not ported"):
         planner.MeasurementCache(executor="device-parallel")
-    with pytest.raises(NotImplementedError):
-        OffloadSession.plan_zoo()
+    with pytest.raises(NotImplementedError, match="not ported"):
+        OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu", meter="auto")
+    with pytest.raises(NotImplementedError, match="training"):
+        OffloadSession.plan_zoo("unused", [("llama3.2-1b", "train")], device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             OffloadSession(fourier.fourier_app_libcall, args=(x,)).run()

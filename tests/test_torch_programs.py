@@ -35,6 +35,7 @@ from repro_torch.core import blocks
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.kernels import rmsnorm as rn
 from repro_torch.models import lm
+from repro_torch.runtime import programs as runtime_programs
 from repro_torch.serve import Request, ServeEngine, programs
 from repro_torch.serve import engine as engine_mod
 from repro_torch.serve.sampler import POLICIES, policy_of, sample_tokens
@@ -63,7 +64,7 @@ class _NoWrites(TorchDispatchMode):
 
 
 class DryGraph:
-    """A CUDA graph's contract on the CPU (stands in for ``programs.Graph``)."""
+    """A CUDA graph's contract on the CPU (stands in for ``runtime.programs.Graph``)."""
 
     def __init__(self, run, pool):
         self.run = run
@@ -80,7 +81,7 @@ class DryGraph:
 
 
 def _graphed(engine, monkeypatch):
-    monkeypatch.setattr(programs, "Graph", DryGraph)
+    monkeypatch.setattr(runtime_programs, "Graph", DryGraph)
     for program in engine.programs.values():
         program.graphed = True
     return engine
@@ -347,7 +348,7 @@ def test_step_program_keys_and_buffers(monkeypatch):
     """Keys by keyword, shape and binding; one static buffer; each key
     eager once, captured at its second call and replayed after; a program
     without graphs calls its function every time."""
-    monkeypatch.setattr(programs, "Graph", DryGraph)
+    monkeypatch.setattr(runtime_programs, "Graph", DryGraph)
     seen = []
 
     def fn(x, scale, *, mode):

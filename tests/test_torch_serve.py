@@ -208,7 +208,7 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(plan_dir="plans"), dict(decode_impl="pallas"), dict(meter="auto"),
+    dict(meter="auto"), dict(meter="psutil"), dict(meter="time"),
 ])
 def test_unported_engine_options_raise(kw):
     with pytest.raises(NotImplementedError, match="not ported"):
