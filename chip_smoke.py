@@ -100,7 +100,28 @@ JSON line, and any failure raises (exit code != 0):
    the plans and again with ``decode_impl="torch"``, with each kernel's
    launches per phase (a block bound to torch in a phase launches no
    kernel there; the torch-bound paged attention none at all); a 2-layer
-   f32 greedy trace under the plans equals the default bindings' tokens.
+   f32 greedy trace under the plans equals the default bindings' tokens;
+14. served f32 trace, MoE and MLA: deepseek-v2-236b at full width cut to
+   2 layers (``da``: its dense layer, then an MoE layer), kernels against
+   plain versions, paged, at exact lengths, with ``prefill_bucket=16`` and
+   with ``prefill_chunk=16`` (as phase 3);
+15. main_path_mla_moe: deepseek-v2-236b at full width cut to 4 layers
+   (``daaa``, ~27 GB of bf16 weights) served as phase 4 (the same engine
+   settings and trace; decode as graph replays), with the rmsnorm, paged
+   attention (its MLA route: the latent pool as keys and values, the rope
+   pool beside it, G = 128 rows) and flash (its CUDA-core route, qk 192 /
+   v 128) launch counts, each > 0, and one decode replay against its
+   eager call (``replay_vs_eager``);
+16. extend_mla: phase 15 with ``prefill_chunk=128``: the chunk programs
+   extend the latent and rope pools; ``extend`` captures once and replays
+   every later call; an MoE's final chunk runs at its exact width (no
+   overlapped tokens, a key per width); one replay of each chunk program
+   equals its eager call from a cloned cache;
+17. main_path_moe_residual: arctic-480b at full width cut to 1 layer
+   (~28 GB: 128 experts of d_ff 4864 beside the dense residual FFN), as
+   phase 15, flash on its wgmma route.  Phases 15-17 cut depth so the
+   weights and the init's transient f32 leaf fit the card's 80 GB
+   (``MOE_LAYERS``).
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -108,7 +129,10 @@ llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
 loop); the add form (residual add fused, its sum bit-identical to the
 plain version's) at llama's decode and prefill; the gated form (Mamba-2's
 gate and skip fused) at mamba2's decode and prefill, zamba2's decode, an
-f32 prefill and a ragged shape, x and z read in place from wider tensors.
+f32 prefill and a ragged shape, x and z read in place from wider tensors;
+and with a bf16 weight, plain at deepseek-v2's 512-wide ``kv_norm``, plain
+and add at deepseek-v2's d = 5120 and arctic-480b's d = 7168 (8 and 512
+rows each).
 
 The offload kernels (complex matmul, Schur update, matmul) are held
 against their plain versions in phase 2 at the paper's scale (2048^2 f32),
@@ -122,7 +146,11 @@ at qk 48 / v 32, deepseek-v2's qk 192 / v 128 and a bf16 D = 100).  Each
 flash and SSD row names the route it ran; each paged row names its split
 plan's ``n_splits`` (paged attention also runs with all eight slots near
 1024 positions, at B=1 with a one-page table, and on phase 11's extend
-chunk: B=1, S=128 from position 384).  Phase 5 sums the
+chunk: B=1, S=128 from position 384; and at deepseek-v2's MLA decode, B=8,
+H=128 over one 512-wide latent that is both keys and values, rope 64,
+and its S=16 (phase 14's) and S=128 (phase 16's) extend chunks from
+position 384; at arctic-480b's decode, H=56, KH=8, D=128;
+flash also at arctic's prefill, H=56 over KH=8, D=128).  Phase 5 sums the
 device time of paged attention's split and merge kernels per step.
 
 The last lines are the card as ``nvidia-smi`` reports it, the kernels'
@@ -200,9 +228,15 @@ HYBRID_KERNELS = ("rmsnorm", "ssd_chunks", "paged_attention", "flash_attention")
 #: block norm and the decode head's take the add form, Mamba-2's gate the
 #: gated form
 NORM_FORMS = {"llama3.2-1b": ("plain", "add"), "mamba2-2.7b": ("plain", "add", "gated"),
-              "zamba2-7b": ("plain", "add", "gated")}
+              "zamba2-7b": ("plain", "add", "gated"), "deepseek-v2-236b": ("plain", "add"),
+              "arctic-480b": ("plain", "add")}
 #: zamba2-7b at full width, cut to 12 layers (two shared-attention sites)
 ZAMBA2_PATTERN = "mmmmmsmmmmms"
+#: the MoE configs at full width, cut in depth to fit one card's 80 GB with
+#: their init's transient f32 leaf: deepseek-v2 to its dense layer and three
+#: MoE layers (``daaa``, ~27 GB of bf16 weights), arctic-480b to one layer
+#: (~28 GB, 26.8 of them experts; two layers' init would pass 80 GB)
+MOE_LAYERS = {"deepseek-v2-236b": 4, "arctic-480b": 1}
 
 #: calls per version when Fig. 5's cpu / loop / block are re-timed (median)
 FIG5_REPEATS = 5
@@ -372,7 +406,9 @@ def phase_kernels(torch) -> dict:
     def randn(*shape, dtype):
         return torch.randn(shape, generator=gen, device=dev, dtype=torch.float32).to(dtype)
 
-    rows["rmsnorm"] = _norm_plain_cases(torch, timer, randn) + _norm_fused_cases(torch, timer, randn)
+    rows["rmsnorm"] = (_norm_plain_cases(torch, timer, randn)
+                       + _norm_fused_cases(torch, timer, randn)
+                       + _norm_zoo_cases(torch, timer, randn))
 
     rows["paged_attention"] = _paged_cases(torch, timer, randn, gen)
 
@@ -391,6 +427,19 @@ def phase_kernels(torch) -> dict:
             nbytes=e * (2 * q.numel() + k.numel() + v.numel()),
             flops=4 * dh * h * s * (s + 1) // 2, extra=route,
         ))
+
+    # arctic-480b's prefill: H=56 over KH=8, D=128 (wgmma)
+    q = randn(1, 56, 512, 128, dtype=torch.bfloat16)
+    k, v = (randn(1, 8, 512, 128, dtype=torch.bfloat16) for _ in range(2))
+    got, route = flash_routed(flash_attention, q, k, v)
+    arctic_row = _case(
+        torch, "flash_attention", "bfloat16", [1, 56, 8, 512, 128],
+        got, flash_attention_torch(q, k, v), timer,
+        lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
+        lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
+        nbytes=2 * (2 * q.numel() + k.numel() + v.numel()),
+        flops=4 * 128 * 56 * 512 * 513 // 2, extra=route,
+    )
 
     # zamba2-7b's shared attention block: H = KH = 32, head dim 112
     zh, zd = 32, 112
@@ -435,6 +484,7 @@ def phase_kernels(torch) -> dict:
             nbytes=e * (q.numel() + k.numel() + 2 * v.numel()),
             flops=2 * (dqk + dv) * hh * s * (s + 1) // 2, extra=route,
         ))
+    rows["flash_attention"].append(arctic_row)
     rows["ssd_chunks"] = _ssd_cases(torch, timer, randn, gen)
     rows.update(_offload_kernel_cases(torch, timer, randn))
     return rows
@@ -466,6 +516,44 @@ def _norm_plain_cases(torch, timer, randn) -> list:
             lambda: F.rms_norm(x, (d,), w_lib, eps),
             nbytes=2 * n_rows * d * e + 4 * d, flops=4 * n_rows * d,
             extra={"form": "plain", "w": "float32"},
+        ))
+    return rows
+
+
+def _norm_zoo_cases(torch, timer, randn) -> list:
+    """RMSNorm with a bf16 weight (the MoE configs' parameter type) at the
+    MoE paths' widths: the plain form at deepseek-v2's latent ``kv_norm``
+    (512 wide) and at deepseek-v2's d = 5120 and arctic-480b's d = 7168;
+    the add form (the fused residual chain; s bit for bit) at 5120 and
+    7168.  Rows: decode's 8 and a 512-token prefill."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    rows, eps = [], 1e-5
+    bf16 = torch.bfloat16
+    for n_rows, d in ((8, 512), (512, 512), (8, 5120), (512, 5120), (8, 7168), (512, 7168)):
+        x = randn(n_rows, d, dtype=bf16)
+        w = (1.0 + 0.1 * randn(d, dtype=torch.float32)).to(bf16)
+        rows.append(_case(
+            torch, "rmsnorm", "bfloat16", [n_rows, d],
+            rn.rmsnorm(x, w, eps), rn.rmsnorm_torch(x, w, eps), timer,
+            lambda: rn.rmsnorm(x, w, eps), lambda: rn.rmsnorm_torch(x, w, eps),
+            lambda: F.rms_norm(x, (d,), w, eps),
+            nbytes=4 * n_rows * d + 2 * d, flops=4 * n_rows * d,
+            extra={"form": "plain", "w": "bfloat16"},
+        ))
+    for n_rows, d in ((8, 5120), (512, 5120), (8, 7168), (512, 7168)):
+        x, delta = randn(n_rows, d, dtype=bf16), randn(n_rows, d, dtype=bf16)
+        w = (1.0 + 0.1 * randn(d, dtype=torch.float32)).to(bf16)
+        got = dict(zip("sy", rn.add_rmsnorm(x, delta, w, eps)))
+        want = dict(zip("sy", rn.add_rmsnorm_torch(x, delta, w, eps)))
+        rows.append(_case(
+            torch, "rmsnorm", "bfloat16", [n_rows, d], got, want, timer,
+            lambda: rn.add_rmsnorm(x, delta, w, eps),
+            lambda: rn.add_rmsnorm_torch(x, delta, w, eps), None,
+            nbytes=2 * 4 * n_rows * d + 2 * d, flops=5 * n_rows * d,
+            tol={"s": (0.0, 0.0), "y": TOL["bfloat16"]}, extra={"form": "add", "w": "bfloat16"},
         ))
     return rows
 
@@ -552,12 +640,13 @@ def _paged_cases(torch, timer, randn, gen) -> list:
     h, kh, dh = 32, 8, 64
     dev = "cuda"
 
-    def paged_case(b, hh, kkh, s, dk, dv, lengths, dtype, dr=0, ps=16, mp=None):
+    def paged_case(b, hh, kkh, s, dk, dv, lengths, dtype, dr=0, ps=16, mp=None, latent=False):
         mp = mp or 1024 // ps
         n_pages = b * mp
         null = n_pages
         k_pool = randn(n_pages + 1, kkh, ps, dk, dtype=dtype)
-        v_pool = randn(n_pages + 1, kkh, ps, dv, dtype=dtype)
+        # latent: one pool is both keys and values, as MLA serves it
+        v_pool = k_pool if latent else randn(n_pages + 1, kkh, ps, dv, dtype=dtype)
         k_pool[null] = 1e6  # poison: masked rows must never contribute
         v_pool[null] = 1e6
         q = randn(b, hh, s, dk, dtype=dtype)
@@ -577,11 +666,13 @@ def _paged_cases(torch, timer, randn, gen) -> list:
         seen = [min(ln + si + 1, mp * ps) for ln in lengths for si in range(s)]
         n_pos = [min(ln + s, mp * ps) for ln in lengths]
         g = hh // kkh
-        # each input read once (only the K/V rows the lengths reach), the
-        # output written once; flops: q.k, q_rope.k_rope and p.v per seen row
+        # each input read once (only the K/V rows the lengths reach; a
+        # latent pool once for keys and values), the output written once;
+        # flops: q.k, q_rope.k_rope and p.v per seen row
         nbytes = (
             e * (q.numel() + b * hh * s * dv + (kw["q_rope"].numel() if dr else 0))
-            + e * sum(n_pos) * (kkh * (dk + dv) + dr) + 4 * (pages.numel() + b)
+            + e * sum(n_pos) * (kkh * (dk if latent else dk + dv) + dr)
+            + 4 * (pages.numel() + b)
         )
         flops = 2 * kkh * g * sum(seen) * (dk + dv + dr)
         # the parent of a comparison (scripts/ab_parent_change.py) has no plan
@@ -592,7 +683,8 @@ def _paged_cases(torch, timer, randn, gen) -> list:
         return _case(
             torch, "paged_attention", str(dtype).split(".")[1],
             {"B": b, "H": hh, "KH": kkh, "S": s, "Dk": dk, "Dv": dv, "Dr": dr,
-             "page_size": ps, "max_pages": mp, "lengths": list(lengths)},
+             "page_size": ps, "max_pages": mp, "lengths": list(lengths),
+             **({"latent": True} if latent else {})},
             pa.paged_attention(*args, **kw), pa.paged_attention_torch(*args, **kw), timer,
             lambda: pa.paged_attention(*args, **kw), lambda: pa.paged_attention_torch(*args, **kw),
             None, nbytes=nbytes, flops=flops, extra=extra,
@@ -613,6 +705,14 @@ def _paged_cases(torch, timer, randn, gen) -> list:
         paged_case(2, h, kh, 1, dh, dh, [16380, 9000], bf16, ps=1, mp=16384),
         # phase 11's chunk: 128 tokens extended from position 384
         paged_case(1, h, kh, 128, dh, dh, [384], bf16),
+        # deepseek-v2's MLA decode (G = 128 query rows over the 512-wide
+        # latent, keys and values, with 64 rope dims), a 16-token extend
+        # chunk from position 384 (phase 14's) and a 128-token one (phase
+        # 16's); arctic-480b's GQA decode (H=56, KH=8)
+        paged_case(8, 128, 1, 1, 512, 512, decode_lengths, bf16, dr=64, latent=True),
+        paged_case(1, 128, 1, 16, 512, 512, [384], bf16, dr=64, latent=True),
+        paged_case(1, 128, 1, CHUNK, 512, 512, [384], bf16, dr=64, latent=True),
+        paged_case(8, 56, 8, 1, 128, 128, decode_lengths, bf16),
     ]
 
 
@@ -756,9 +856,12 @@ def phase_served_f32(torch, arch: str = "llama3.2-1b", lens=(37, 100, 16, 70, 37
     from repro_torch.obs import Tracer
     from repro_torch.serve import Request, ServeEngine
 
+    _free_dead_engines(torch)
     cfg = dataclasses.replace(get_config(arch), compute_dtype="float32")
-    cfg = dataclasses.replace(cfg, n_layers=2, block_pattern=cfg.pattern()[:2] if cfg.block_pattern else None)
-    params = lm.init_params(cfg, seed=1, device="cuda")
+    cfg = cfg.cut(2)
+    # cast once: both engines then share the f32 matrices (deepseek-v2's
+    # two layers hold ~22 GB of them)
+    params = lm.cast_for_compute(lm.init_params(cfg, seed=1, device="cuda"), cfg)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in lens]
     kw = dict(dict(n_slots=2, max_len=128, page_size=16), **kw)
@@ -826,6 +929,8 @@ def _serve_config(arch: str):
     cfg = get_config(arch)
     if arch == "zamba2-7b":  # full width, depth cut to two shared sites
         cfg = dataclasses.replace(cfg, n_layers=len(ZAMBA2_PATTERN), block_pattern=ZAMBA2_PATTERN)
+    if arch in MOE_LAYERS:  # full width, depth cut (first_k_dense keeps the dense layer)
+        cfg = cfg.cut(MOE_LAYERS[arch])
     return cfg
 
 
@@ -952,12 +1057,13 @@ def phase_main_path_chunked(torch, main: dict) -> dict:
 
 def _chunk_replay_vs_eager(torch, engine, name: str) -> dict:
     """From one engine state (the cache cloned and restored in place), one
-    replay of chunk program ``name`` (its key captured while serving) and
-    one eager call of its step function on the same inputs: a 128-token
-    chunk from position 384 into slot 0, through the first pages of the
-    pool (free once the run is done).  The pool, the index and (for
-    ``extend_sample``) the logits are held to the compute type's ``TOL``;
-    the errors are printed."""
+    replay of chunk program ``name`` and one eager call of its step
+    function on the same inputs: a 128-token chunk from position 384 into
+    slot 0, through the first pages of the pool (free once the run is
+    done).  A key the run captured replays at once; one it did not (an MoE
+    final chunk's width) takes its eager call and its capture first.  The
+    pool, the index and (for ``extend_sample``) the logits are held to the
+    compute type's ``TOL``; the errors are printed."""
     import numpy as np
 
     program = engine.programs[name]
@@ -975,9 +1081,13 @@ def _chunk_replay_vs_eager(torch, engine, name: str) -> dict:
         _tree(lambda pair: pair[0].copy_(pair[1]), _zip_trees(engine.cache, saved))
 
     with torch.no_grad():
-        replays = program.summary()["replays"]
-        out_g = program(inputs, **kw)
-        if program.summary()["replays"] != replays + 1:
+        for _ in range(2):  # a new key's eager call, then its capture and replay
+            replays = program.summary()["replays"]
+            out_g = program(inputs, **kw)
+            if program.summary()["replays"] == replays + 1:
+                break
+            restore()
+        else:
             raise AssertionError(f"replay_vs_eager: {name} did not replay")
         logits_g = out_g[1].clone() if out_g is not None else None
         graph_cache = _tree(torch.clone, engine.cache)
@@ -1606,7 +1716,7 @@ def phase_binding(torch) -> dict:
             _free_dead_engines(torch)
 
         # greedy f32 tokens of a 2-layer cut: bound against default
-        f32 = dataclasses.replace(cfg, compute_dtype="float32", n_layers=2)
+        f32 = dataclasses.replace(cfg.cut(2), compute_dtype="float32")
         params = lm.init_params(f32, seed=1, device="cuda")
         rng = np.random.default_rng(1)
         lens, gens = (37, 100, 16, 70, 37, 100), (12, 6, 10, 8, 5, 7)
@@ -1630,6 +1740,68 @@ def phase_binding(torch) -> dict:
            "seconds": time.perf_counter() - t_phase}
     emit(out)
     return out
+
+
+#: flash's route on each MoE config's prefill: deepseek-v2's MLA attends
+#: at qk 192 / v 128 (the CUDA cores), arctic-480b at D = 128 (wgmma)
+MOE_FLASH_ROUTE = {"deepseek-v2-236b": "cuda_cores", "arctic-480b": "wgmma"}
+
+
+def phase_main_path_moe(torch, arch: str, phase: str, **engine_kw) -> dict:
+    """``arch`` (an MoE config, depth cut by ``MOE_LAYERS``) served as phase
+    4 serves llama: the same engine settings and trace, decode as graph
+    replays, rmsnorm, paged attention (for deepseek-v2 every launch the MLA
+    route: the latent pool as keys and values, the rope pool beside it)
+    and flash each launched, every prefill launch of flash on the config's
+    route; then one decode replay against its eager call."""
+    from repro_torch.configs import get_config
+
+    def report(engine, out):
+        routes = out["flash_routes"]
+        want = MOE_FLASH_ROUTE[arch]
+        if routes[want] != out["launches"]["flash_attention"]:
+            raise AssertionError(f"{phase}: flash routes {routes}, all {want} expected")
+        out["cut"] = f"{MOE_LAYERS[arch]} of {get_config(arch).n_layers} layers, full width"
+        check = _replay_vs_eager(torch, engine, "greedy")
+        check["bit_identical"] = all(e == 0.0 for e in check["max_abs_err"].values())
+        out["replay_vs_eager"] = [check]
+
+    return phase_main_path(torch, arch, phase=phase, report=report, **engine_kw)
+
+
+def phase_extend_mla(torch, main: dict) -> dict:
+    """deepseek-v2 (``daaa``) with ``prefill_chunk=CHUNK`` on phase 4's
+    trace: the chunk programs extend the MLA cache's latent and rope pools
+    in place.  ``extend`` captures once and replays every later call; an
+    MoE's final chunk runs at its exact width (no overlapped window), so
+    ``extend_sample`` takes a key per width, each captured at its second
+    call.  Paged attention launches more often than in ``main`` (the same
+    config unchunked), and one replay of each chunk program equals its
+    eager call from a cloned cache."""
+
+    def report(engine, out):
+        graphs = out["graphs"]
+        ext, fin = graphs["extend"], graphs["extend_sample"]
+        if ext["captures"] != 1 or ext["eager_calls"] != 1 or ext["replays"] != ext["calls"] - 1:
+            raise AssertionError(f"extend_mla: extend {ext}")
+        if fin["eager_calls"] + fin["replays"] != fin["calls"] or fin["captures"] > fin["calls"]:
+            raise AssertionError(f"extend_mla: extend_sample {fin}")
+        if engine.overlap_tokens != 0:
+            raise AssertionError(f"extend_mla: {engine.overlap_tokens} overlapped tokens")
+        if out["launches"]["paged_attention"] <= main["launches"]["paged_attention"]:
+            raise AssertionError(f"extend_mla: paged_attention launched "
+                                 f"{out['launches']['paged_attention']} times, unchunked "
+                                 f"{main['launches']['paged_attention']}")
+        out["prefill_chunk"] = CHUNK
+        out["prefill_chunks"] = engine.stats.prefill_chunks
+        out["main_path_mla_moe"] = {k: main[k] for k in (
+            "wall_seconds", "tok_per_s", "prefill_seconds", "decode_median_ms",
+            "ttft_p50_ms", "ttft_p99_ms", "launches")}
+        out["replay_vs_eager"] = [_chunk_replay_vs_eager(torch, engine, name)
+                                  for name in ("extend", "extend_sample")]
+
+    return phase_main_path(torch, "deepseek-v2-236b", phase="extend_mla", report=report,
+                           prefill_chunk=CHUNK)
 
 
 def main() -> int:
@@ -1668,6 +1840,14 @@ def main() -> int:
     phase_main_path_chunked(torch, main)
     phase_offload_programs(torch, offload)
     phase_binding(torch)
+    # MoE and MLA serving: deepseek-v2 (MLA, MoE after one dense layer) in
+    # f32 kernels-vs-plain on the paged cache, exact / bucketed / chunked,
+    # then full width cut in depth, and arctic-480b (MoE beside a dense FFN)
+    for kw in ({}, {"prefill_bucket": 16}, {"prefill_chunk": 16}):
+        phase_served_f32(torch, "deepseek-v2-236b", **kw)
+    mla = phase_main_path_moe(torch, "deepseek-v2-236b", "main_path_mla_moe")
+    phase_extend_mla(torch, mla)
+    phase_main_path_moe(torch, "arctic-480b", "main_path_moe_residual")
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],

@@ -96,4 +96,5 @@ def build_staged_variant(
         return state
 
     run.__name__ = "variant_" + "".join(str(int(b)) for b in genome)
+    run.warmup_calls = max([p.warmup_calls for p in programs if p is not None], default=1)
     return run

@@ -90,6 +90,89 @@ class ArchConfig:
             )
         return "a" * self.n_layers
 
+    def cut(self, n_layers: int) -> "ArchConfig":
+        """The first ``n_layers`` layers of the pattern at full width, a
+        depth cut (an MoE stack keeps its ``first_k_dense`` lead)."""
+        return dataclasses.replace(
+            self, n_layers=n_layers,
+            block_pattern=None if self.block_pattern is None else self.pattern()[:n_layers],
+        )
+
+    def param_count(self) -> int:
+        """Approximate parameter count (embedding + blocks + head)."""
+        d = self.d_model
+        total = self.vocab_size * d  # embedding
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        for ch in self.pattern():
+            total += self._block_params(ch)
+        total += d  # final norm
+        return total
+
+    def _attn_params(self) -> int:
+        d = self.d_model
+        if self.mla:
+            m = self.mla
+            qd = self.n_heads * (m.qk_nope_head_dim + m.qk_rope_head_dim)
+            return (
+                d * qd
+                + d * m.kv_lora_rank
+                + m.kv_lora_rank * self.n_heads * m.qk_nope_head_dim
+                + m.kv_lora_rank * self.n_heads * m.v_head_dim
+                + d * m.qk_rope_head_dim
+                + self.n_heads * m.v_head_dim * d
+            )
+        return (
+            d * self.n_heads * self.d_head
+            + 2 * d * self.n_kv_heads * self.d_head
+            + self.n_heads * self.d_head * d
+        )
+
+    def _mlp_params(self, hidden: int) -> int:
+        return 3 * self.d_model * hidden  # SwiGLU: gate, up, down
+
+    def _block_params(self, ch: str) -> int:
+        d = self.d_model
+        if ch == "m":
+            s = self.ssm
+            di = s.d_inner(d)
+            h = s.n_heads(d)
+            cd = s.conv_dim(d)
+            in_proj = d * (2 * di + 2 * s.d_state + h)
+            return in_proj + s.d_conv * cd + cd + 3 * h + di + di * d + 2 * d
+        # attention blocks
+        total = self._attn_params() + 2 * d
+        if ch == "s":
+            return total + self._mlp_params(self.d_ff)
+        if self.moe is not None and ch == "a":
+            m = self.moe
+            total += d * m.n_experts  # router
+            total += m.n_experts * self._mlp_params(m.d_expert)
+            total += m.n_shared * self._mlp_params(m.d_expert)
+            if m.dense_residual:
+                total += self._mlp_params(self.d_ff)
+        else:
+            total += self._mlp_params(self.d_ff)
+        return total
+
+    def active_param_count(self) -> int:
+        """Parameters touched per token (MoE: top_k + shared experts only)."""
+        if self.moe is None:
+            return self.param_count()
+        d = self.d_model
+        m = self.moe
+        total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
+        for ch in self.pattern():
+            if ch == "a":
+                t = self._attn_params() + 2 * d + d * m.n_experts
+                t += (m.top_k + m.n_shared) * self._mlp_params(m.d_expert)
+                if m.dense_residual:
+                    t += self._mlp_params(self.d_ff)
+                total += t
+            else:
+                total += self._block_params(ch)
+        return total
+
     def reduced(self) -> "ArchConfig":
         """Tiny same-family config for CPU tests (same rule as the
         reference's ``ArchConfig.reduced``)."""

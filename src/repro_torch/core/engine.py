@@ -105,7 +105,9 @@ def _host(x: Any) -> Any:
 
 def _device_wrap(fn: Callable[..., Any], device: torch.device) -> Callable[..., Any]:
     """Array arguments move to ``device`` (canonicalised, as the reference's
-    ``jnp.asarray`` with x64 off) before the accelerated block runs."""
+    ``jnp.asarray`` with x64 off) before the accelerated block runs.  On
+    CUDA the wrapper reports the block's ``warmup_calls`` (a block that
+    runs a captured unit there)."""
     from repro_torch.kernels.ops import as_tensor
 
     def on_device(*args: Any) -> Any:
@@ -115,6 +117,7 @@ def _device_wrap(fn: Callable[..., Any], device: torch.device) -> Callable[..., 
         ))
 
     on_device.__name__ = getattr(fn, "__name__", "offloaded")
+    on_device.warmup_calls = getattr(fn, "warmup_calls", 1) if device.type == "cuda" else 1
     return on_device
 
 
@@ -125,6 +128,7 @@ def _host_wrap(fn: Callable[..., Any]) -> Callable[..., Any]:
         return _host(fn(*args))
 
     wrapped.__name__ = getattr(fn, "__name__", "offloaded")
+    wrapped.warmup_calls = getattr(fn, "warmup_calls", 1)
     return wrapped
 
 
@@ -310,7 +314,9 @@ class OffloadEngine:
             if not mapping:
                 return app_fn
             ns = substitute.rewrite_calls(module_src, mapping)
-            return substitute.extract_function(ns, app_fn.__name__)
+            variant = substitute.extract_function(ns, app_fn.__name__)
+            variant.warmup_calls = max(getattr(f, "warmup_calls", 1) for f in mapping.values())
+            return variant
 
         space = planner.SubsetSpace(
             build_variant,

@@ -149,6 +149,7 @@ class Adaptation:
 
         adapted.__name__ = getattr(fn, "__name__", "adapted")
         adapted.__wrapped__ = fn  # type: ignore[attr-defined]
+        adapted.warmup_calls = getattr(fn, "warmup_calls", 1)  # type: ignore[attr-defined]
         return adapted
 
 

@@ -308,6 +308,7 @@ class BindingSpace(SearchSpace):
             with self.registry.bind(binding):
                 return fn(*args, **kwargs)
 
+        run.warmup_calls = getattr(fn, "warmup_calls", 1)
         return run
 
     @contextlib.contextmanager

@@ -92,9 +92,14 @@ def measure(
     """Median seconds per call; ``min_seconds`` > 0 repeats each timed
     window until it spans at least that much wall time (per-call time is
     the window divided by the call count), which stabilises sub-millisecond
-    kernels whose single-call time is dominated by timer/dispatch noise."""
+    kernels whose single-call time is dominated by timer/dispatch noise.
+
+    ``fn`` may report ``warmup_calls``, the calls it takes before it runs
+    as it will be timed (a captured unit on CUDA: its eager first call and
+    its capture); the warm-up makes at least that many, so no timed call
+    runs a capture."""
     t0 = time.perf_counter()
-    for _ in range(max(warmup, 0)):
+    for _ in range(max(warmup, getattr(fn, "warmup_calls", 0)) if warmup > 0 else 0):
         _block(fn(*args))
     warm = time.perf_counter() - t0
     times = []

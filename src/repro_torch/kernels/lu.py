@@ -33,7 +33,6 @@ from typing import Callable
 import torch
 
 from repro_torch.kernels.matmul import schur_update
-from repro_torch.runtime.programs import Captures
 
 
 def _panel_factor(panel: torch.Tensor, n_real_rows: int):
@@ -171,6 +170,9 @@ class _LUProgram:
 
     def __init__(self, n: int, nb: int, schur: Callable[..., torch.Tensor],
                  device: torch.device) -> None:
+        # imported here: runtime.programs imports this package
+        from repro_torch.runtime.programs import Captures
+
         self.n, self.nb, self.schur = n, nb, schur
         npad = -(-n // nb) * nb
         self.static = torch.eye(npad, dtype=torch.float32, device=device)

@@ -196,6 +196,11 @@ def lu_nr_compat(a, *, backend: str | None = None, device=None):
     return lu_p, piv.to(torch.int32), d
 
 
+# on CUDA a new (n, nb, trailing update) runs its program's eager call,
+# then its capture (``runtime.programs.Captures.WARMUP_CALLS``)
+lu.warmup_calls = lu_nr_compat.warmup_calls = 2
+
+
 # -- Mamba-2 SSD scan ------------------------------------------------------------
 
 

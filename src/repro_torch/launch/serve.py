@@ -8,7 +8,9 @@ until idle and prints throughput and latency.  Runs on the CUDA card:
       --page-size 16 --slots 8 --max-len 1024
 
 ``--device cpu`` runs on the CPU explicitly (the tests do, with
-``--reduced``).  ``--plan-dir`` binds each phase to its stored
+``--reduced``).  ``--layers N`` keeps the first N layers of the pattern at
+full width, a depth cut for models whose weights pass one card's memory
+(deepseek-v2-236b at 4 layers, ``daaa``; arctic-480b at 1).  ``--plan-dir`` binds each phase to its stored
 ``zoo:<arch>:prefill`` / ``:decode`` plan (``--plan-search`` searches and
 commits the missing ones first, over ``--plan-targets``), ``--plan-key``
 names one plan for both phases, and ``--decode-impl`` pins decode's
@@ -94,6 +96,8 @@ def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="keep the first N layers (a depth cut; widths stay)")
     ap.add_argument("--slots", type=int, default=4, help="KV slots = max concurrent requests")
     ap.add_argument("--max-len", type=int, default=256,
                     help="cache positions per slot (prompt + generation)")
@@ -171,6 +175,8 @@ def main(argv: "list[str] | None" = None) -> int:
     cfg = get_config(args.arch)
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = cfg.cut(args.layers)
     plan_keys = plan_keys_of(args)
     engine = ServeEngine(
         cfg,

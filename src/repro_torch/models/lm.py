@@ -1,7 +1,8 @@
 """Decoder LM over a block pattern — the port of ``repro/models/lm.py``.
 One char per layer:
 
-    'a'  attention + SwiGLU MLP
+    'a'  attention + (MoE if configured, else SwiGLU MLP)
+    'd'  attention + dense MLP (the leading dense layers of an MoE stack)
     'm'  Mamba-2 SSD block
     's'  shared-parameter attention + MLP block (Zamba2): one param set,
          applied at every 's' site; each site keeps its own KV cache
@@ -13,7 +14,9 @@ reference keys them (``blocks/g0_a/attn/wq``, ``g0_a/k``, ``g0_m/ssm``,
 loop runs the layers.  Each branch's output stays pending until the next
 norm, which adds it to the residual stream in the same launch
 (``add_rmsnorm``); the values are the reference's ``x + branch`` then
-``rmsnorm``.  MoE and MLA are not ported yet and raise.
+``rmsnorm``.  An MoE layer's Switch aux loss is dropped here: it
+matters to training only.  A batch carries ``tokens`` (B, S), or
+``embeds`` (B, S, D) for a patch-embed frontend (pixtral).
 
 Modes: ``prefill`` (fill the cache, logits), ``decode`` (one token per row
 against the cache) and ``extend`` (an S-token chunk per row, causal within
@@ -51,6 +54,7 @@ from repro_torch.models.layers import (
     mlp_forward,
     mlp_metas,
 )
+from repro_torch.models.moe import moe_forward, moe_metas
 from repro_torch.models.params import ParamMeta, torch_dtype
 from repro_torch.models.ssm import ssm_forward, ssm_metas, ssm_state_metas
 
@@ -82,13 +86,6 @@ def groups_of(cfg: ArchConfig) -> list[Group]:
     return out
 
 
-def _require_ported(cfg: ArchConfig) -> None:
-    if cfg.moe is not None:
-        raise NotImplementedError(f"{cfg.name}: MoE blocks are not ported yet")
-    if cfg.mla is not None:
-        raise NotImplementedError(f"{cfg.name}: MLA attention is not ported yet")
-
-
 # -- parameter metas ------------------------------------------------------------------
 
 
@@ -107,16 +104,19 @@ def _block_metas(cfg: ArchConfig, kind: str) -> dict:
             "ln": ParamMeta((d,), (None,), dt, init="ones"),
             "mixer": ssm_metas(cfg),
         }
-    return {
+    metas = {
         "ln1": ParamMeta((d,), (None,), dt, init="ones"),
         "attn": attn_metas(cfg),
         "ln2": ParamMeta((d,), (None,), dt, init="ones"),
-        "mlp": mlp_metas(d, cfg.d_ff, dt),
     }
+    if kind == "a" and cfg.moe is not None:
+        metas["moe"] = moe_metas(cfg)
+    else:
+        metas["mlp"] = mlp_metas(d, cfg.d_ff, dt)
+    return metas
 
 
 def build_metas(cfg: ArchConfig) -> dict:
-    _require_ported(cfg)
     groups = groups_of(cfg)
     metas: dict = {"embed": embed_metas(cfg)}
     if any(g.kind == "s" for g in groups):
@@ -140,7 +140,6 @@ def cache_metas_tree(
     attention leaf is a pool of ``n_pages`` pages plus the null page at
     index ``n_pages``; SSM state leaves stay per-slot (a recurrent state has
     no sequence axis to page)."""
-    _require_ported(cfg)
     if page_size is not None and n_pages is None:
         raise ValueError("paged cache needs both page_size and n_pages")
     caches: dict = {}
@@ -203,13 +202,16 @@ def _layer(tree: Any, i: int) -> Any:
 def _apply_attn_block(lp, x, pending, cfg, positions, cache, index, mode, pages=None,
                       slots=None, scatter=None):
     """Returns (x, pending): the residual stream with the attention output
-    added (fused into ln2) and the MLP's output, which the next norm adds."""
+    added (fused into ln2) and the FFN's output (the MoE's on an MoE
+    layer), which the next norm adds."""
     cd = torch_dtype(cfg.compute_dtype)
     x, h_in = add_rmsnorm(lp["ln1"], x, pending, cfg.norm_eps)
     attn_out, cache = attention_forward(
         lp["attn"], h_in.to(cd), cfg, positions, cache, index, mode, pages, slots, scatter
     )
     x, ff_in = add_rmsnorm(lp["ln2"], x, attn_out, cfg.norm_eps)
+    if "moe" in lp:
+        return x, moe_forward(lp["moe"], ff_in.to(cd), cfg, cd)[0]
     return x, mlp_forward(lp["mlp"], ff_in.to(cd), cd)
 
 
@@ -231,12 +233,12 @@ def _apply_mamba_block(lp, x, pending, cfg, cache, mode):
 
 def _pool_geometry(cfg: ArchConfig, cache: Any) -> tuple[int, int]:
     """(page_size, pool pages with the null page) of a paged cache's
-    attention pools."""
-    seq_axis = cache_seq_axes(cfg)["k"] + 1  # the stacked layer axis leads
+    attention pools, read from the first leaf (GQA ``k``, MLA ``c``)."""
+    leaf, seq_axis = next(iter(cache_seq_axes(cfg).items()))
     for g in groups_of(cfg):
         if g.kind != "m":
-            pool = cache[g.key]["k"]
-            return pool.shape[seq_axis], pool.shape[1]
+            pool = cache[g.key][leaf]
+            return pool.shape[seq_axis + 1], pool.shape[1]  # the layer axis leads
     raise ValueError(f"{cfg.name}: no attention pool to extend")
 
 
@@ -244,9 +246,11 @@ def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
     """All blocks.  Returns (x, pending, cache): every block's residual add
     lands in the next block's norm (``add_rmsnorm``), so the last block's
     output is still pending; None if there is no block."""
-    _require_ported(cfg)
     cd = torch_dtype(cfg.compute_dtype)
-    x = embed_lookup(params["embed"], batch["tokens"], cd)
+    if "embeds" in batch:
+        x = batch["embeds"].to(cd)
+    else:
+        x = embed_lookup(params["embed"], batch["tokens"], cd)
     b, s = x.shape[0], x.shape[1]
     steps = torch.arange(s, dtype=torch.int32, device=x.device)
 

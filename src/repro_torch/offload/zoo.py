@@ -10,9 +10,9 @@ counterpart of the reference's ``jax.jit``), wraps it in a
 ``BindingSpace`` over the function blocks that step exercises, runs a full
 ``OffloadSession`` lifecycle, and commits the winning plan to the store
 under ``zoo:<arch>:<kind>``.  A trial therefore times replays of the
-captured step, as the engine runs it: the first call of a candidate's
-program runs eagerly and captures (the measurement's warm-up), every timed
-call is a replay.
+captured step, as the engine runs it: the first two calls of a
+candidate's program run eagerly and capture (the measurement's warm-up),
+every timed call is a replay.
 
   PYTHONPATH=src python -m repro_torch.offload.zoo --plan-dir results/plans \\
       --arch llama3.2-1b --kind decode --reduced --device cpu
@@ -183,20 +183,13 @@ def _materialize(shapes: Mapping[str, tuple], cfg: Any, rng: Any, device: Any):
 
 def _captured(name: str, step: Any, device: Any):
     """``step`` as a captured program whose arguments are read in place
-    (a cell's weights and cache keep their addresses).  Its first call runs
-    the key's eager call and its capture, and returns the capture's replay:
-    every later call is a replay of the step, as the engine runs it."""
+    (a cell's weights and cache keep their addresses): its first call
+    eager, its second captured, every later call a replay of the step, as
+    the engine runs it.  A trial's warm-up takes the first two
+    (:func:`repro_torch.core.verify.measure`)."""
     from repro_torch.runtime.programs import Program
 
-    program = Program(name, step, device, static=False)
-
-    def run(*args: Any) -> Any:
-        if program.calls == 0:
-            program(*args)  # the eager call; the next one captures
-        return program(*args)
-
-    run.program = program
-    return run
+    return Program(name, step, device, static=False)
 
 
 def _cell_target(

@@ -73,6 +73,10 @@ class Captures:
     """Per-key warm-up, capture and replay (the rule above).  ``pool`` is
     the graphs' memory pool (None: a private pool per graph)."""
 
+    #: a new key's calls before it replays: its eager first call, then its
+    #: capture (a measurement warms a unit up by as many, so it times replays)
+    WARMUP_CALLS = 2
+
     def __init__(self, pool: Any = None) -> None:
         self.pool = pool
         self._seen: set = set()  # keys called once
@@ -146,6 +150,12 @@ class Program:
         self.captures = Captures(pool)
         self._buffers: dict[Hashable, list[torch.Tensor]] = {}
         self.calls = 0
+
+    @property
+    def warmup_calls(self) -> int:
+        """Calls of a new key before the program runs as it will from then
+        on (read by :func:`repro_torch.core.verify.measure`)."""
+        return Captures.WARMUP_CALLS if self.graphed else 1
 
     def key(self, args: tuple, kwargs: dict) -> tuple:
         tensors = [t for t in leaves(args) if isinstance(t, torch.Tensor)]

@@ -28,6 +28,10 @@ streaming :class:`Token` events and a final :class:`Completion` per request.
   ``[ctx - chunk, ctx)``, re-extending positions an earlier chunk wrote
   with the same values, and samples from its last position; the budget
   and telemetry still count the ``run`` new tokens, as the reference does.
+  An MoE model's final chunk runs at its exact width instead, as the
+  reference's: its router groups a chunk's tokens under a capacity set by
+  the width, so a re-extended position would not keep its values (and
+  ``extend_sample`` takes a key per final width).
   A mid-prefill slot's row of the decode step's page table is the null
   row, so decode's write for it lands in the null page.
 * **Sampling on the device** — logits never leave the card; the per-step
@@ -45,6 +49,11 @@ streaming :class:`Token` events and a final :class:`Completion` per request.
   many to pay for their captures, so they run eagerly.  The prefill fills
   one static batch-1 cache, zeroed inside the program; the insert into the
   slot stays a few eager copies.
+* **MoE and MLA models** (arctic, deepseek-v2) — bucket pads route and
+  take expert capacity as the reference's do; an MLA cache holds the
+  latent ``c`` and rope key ``kr`` per position (page inserts and seq axes
+  per leaf).  A patch-embed frontend (pixtral) has no token prompt and is
+  refused, as by the reference.
 * **SSM and hybrid models** — Mamba-2 ('m') layers carry a recurrent state
   per slot with no sequence axis, so it stays slot-indexed in the paged
   layout too; a preempted request's state is rebuilt by re-prefilling its
@@ -203,7 +212,7 @@ class _PrefillProgress:
 
 
 class ServeEngine:
-    """Request-level serving engine over the LM (dense, SSM or hybrid).
+    """Request-level serving engine over the LM (dense, MoE, MLA, SSM or hybrid).
 
     ``cfg`` is an :class:`ArchConfig` or an arch name.  ``params`` (the
     port's parameter tree, e.g. from :mod:`repro_torch.bridge`) defaults to
@@ -263,6 +272,11 @@ class ServeEngine:
             raise NotImplementedError("meter: not ported to repro_torch yet")
         if isinstance(cfg, str):
             cfg = get_config(cfg)
+        if cfg.frontend == "patch_embed":
+            raise ValueError(
+                f"{cfg.name}: patch-embed frontends have no token prompt "
+                "path; the serving engine takes token-id requests"
+            )
         if prefill_bucket is not None and "m" in cfg.pattern():
             raise ValueError(
                 "prefill_bucket pads prompts, which corrupts recurrent SSM "
@@ -965,8 +979,11 @@ class ServeEngine:
             return  # self-preempted under extreme pool pressure
         # every chunk is prefill_chunk wide (one graph key): the final one
         # ends at the context's end, re-extending the positions before
-        # prog.pos that an earlier chunk wrote (ctx > chunk, so it fits)
-        width = self.prefill_chunk
+        # prog.pos that an earlier chunk wrote (ctx > chunk, so it fits).
+        # An MoE routes each chunk's tokens as one group under a capacity
+        # set by its width, so a token's value depends on its chunk: there
+        # the final chunk runs at its exact width, as the reference's does
+        width = run if final and self.cfg.moe is not None else self.prefill_chunk
         start = ctx - width if final else prog.pos
         tokens = np.asarray([prog.context[start : start + width]], np.int32)
         pages = (self.kv.array()[slot : slot + 1] if self.paged

@@ -479,9 +479,10 @@ def test_plan_zoo_roundtrip_through_store(tmp_path):
 
 
 def test_zoo_cell_is_a_captured_program_timing_replays():
-    """A cell's builder returns the step as a captured program: its first
-    call is the key's eager call and its capture, every later call one
-    replay; the decode step starts from the cell's positions every call."""
+    """A cell's builder returns the step as a captured program (on the
+    card: its first call eager, its second captured, every later call one
+    replay; a trial's warm-up takes the first two); the decode step starts
+    from the cell's positions every call."""
     builder, args, cfg = zoo._cell_target("llama3.2-1b", "decode", reduced=True, layers=1,
                                           batch=3, seq=8, seed=0, device="cpu")
     params, tokens, cache = args
@@ -491,7 +492,7 @@ def test_zoo_cell_is_a_captured_program_timing_replays():
     again = fn(*args)[0]
     assert torch.equal(first, again)
     assert cache["index"].tolist() == [1, 2, 3]
-    assert fn.program.calls == 3  # eager, capture, then one call a call
+    assert fn.calls == 2  # one program call a call
     prefill, pargs, _ = zoo._cell_target("llama3.2-1b", "prefill", reduced=True, layers=1,
                                          batch=2, seq=8, seed=0, device="cpu")
     logits, _ = prefill()(*pargs)

@@ -140,10 +140,17 @@ def test_bridge_round_trip_and_checks(jparams):
 
 
 def test_unported_architectures_raise():
-    with pytest.raises(KeyError, match="not ported yet"):
-        tget("deepseek-v2-236b")
-    with pytest.raises(NotImplementedError, match="MLA"):
-        tlm.build_metas(dataclasses.replace(TCFG, mla=object()))
+    """Every architecture of the reference resolves in the port (none is
+    left unported); an unknown name still raises."""
+    from repro.configs import ARCH_NAMES as JNAMES
+    from repro_torch.configs import ARCH_NAMES
+
+    assert ARCH_NAMES == JNAMES
+    for name in JNAMES:
+        assert tget(name).name == name
+        assert tlm.build_metas(tget(name).reduced())
+    with pytest.raises(KeyError, match="unknown arch"):
+        tget("gpt-2")
     assert tget("llama3_2_1b") == tget("llama3.2-1b")
 
 

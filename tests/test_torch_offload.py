@@ -251,3 +251,77 @@ def test_session_stages_and_unported_options():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             OffloadSession(fourier.fourier_app_libcall, args=(x,)).run()
+
+
+# -- measurements of captured units ----------------------------------------------------
+
+
+class _StubGraph:
+    """A captured call for the CPU: capture records nothing, a replay runs."""
+
+    def __init__(self, run, pool):
+        self.run = run
+        self.outputs = None
+
+    def replay(self):
+        return self.run()
+
+
+def test_measure_times_a_captured_unit_only_after_its_capture(monkeypatch):
+    """A unit with the capture rule of ``runtime.programs.Captures`` reports
+    two warm-up calls (eager, then capture): ``measure`` makes both before
+    it times, so every timed call is a replay.  A function that reports
+    none keeps its ``warmup`` calls."""
+    from repro_torch.runtime import programs
+
+    monkeypatch.setattr(programs, "Graph", _StubGraph)
+    captures = programs.Captures()
+    calls = []
+
+    def unit():
+        replays = captures.replays
+        out = captures("key", lambda: calls.append("run"))
+        calls[-1] = "replay" if captures.replays > replays else calls[-1]
+        return out
+
+    unit.warmup_calls = programs.Captures.WARMUP_CALLS
+    m = verify.measure(unit, (), repeats=3, warmup=1)
+    assert m.repeats == 3
+    # call 1 eager, call 2 captured and replayed; the three timed calls replay
+    assert calls == ["run", "replay", "replay", "replay", "replay"]
+    assert len(captures.keys()) == 1
+
+    plain = []
+    verify.measure(lambda: plain.append(1), (), repeats=3, warmup=1)
+    assert len(plain) == 4
+    verify.measure(lambda: plain.append(1), (), repeats=2, warmup=0)
+    assert len(plain) == 6
+
+
+def test_units_report_their_warmup_through_every_wrapper():
+    """A captured program reports two warm-up calls on CUDA and one off it;
+    the wrappers a measured variant is built of (a device block, its host
+    glue and interface adaptation, a staged variant, a bound step) carry
+    the report, and a CPU variant reports one, so no CPU measurement makes
+    another call."""
+    from repro_torch.apps import common, matrix
+    from repro_torch.core import engine as core_engine
+    from repro_torch.core.interface import Adaptation
+    from repro_torch.core.planner import BindingSpace
+    from repro_torch.kernels import ops
+    from repro_torch.runtime.programs import Program
+
+    step = lambda x: x  # noqa: E731
+    assert Program("p", step, "cuda").warmup_calls == 2
+    assert Program("p", step, "cuda", graphs=False).warmup_calls == 1
+    assert Program("p", step, "cpu").warmup_calls == 1
+    on_card = core_engine._device_wrap(ops.lu_nr_compat, torch.device("cuda"))
+    assert on_card.warmup_calls == 2
+    assert core_engine._host_wrap(on_card).warmup_calls == 2
+    assert Adaptation((), (), (), (), (), True).wrap(on_card).warmup_calls == 2
+    assert core_engine._device_wrap(ops.lu_nr_compat, torch.device("cpu")).warmup_calls == 1
+    variant = common.build_staged_variant(matrix.LU_STAGES, [1] * len(matrix.LU_STAGES),
+                                          device="cpu")
+    assert variant.warmup_calls == 1
+    space = BindingSpace(lambda: Program("step", step, "cuda"), blocks={"rmsnorm": ("torch",)})
+    assert space.build(space.baseline()).warmup_calls == 2

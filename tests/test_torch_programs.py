@@ -94,6 +94,10 @@ STEP_CASES = {
     "llama_paged": ("llama3.2-1b", dict(page_size=4)),
     "mamba2_contiguous": ("mamba2-2.7b", {}),
     "zamba2_paged": ("zamba2-7b", dict(page_size=4)),
+    # MLA and MoE (deepseek-v2), MoE beside a dense residual (arctic)
+    "deepseek_paged": ("deepseek-v2-236b", dict(page_size=4)),
+    "deepseek_contiguous": ("deepseek-v2-236b", {}),
+    "arctic_paged": ("arctic-480b", dict(page_size=4)),
 }
 
 

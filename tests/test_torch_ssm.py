@@ -105,7 +105,9 @@ def test_ssm_forward_prefill_then_decode_match_reference(arch, seq, weights, rng
 
     step = rng.standard_normal((2, 1, 64)).astype(np.float32)
     if seq < 3:  # continue the reference from the port's full window
-        jstate = jax.tree.map(lambda t: jnp.asarray(t.numpy()), tstate)
+        # copies: the port's decode below writes its state in place, and
+        # JAX on the CPU may alias a numpy buffer while its call runs
+        jstate = jax.tree.map(lambda t: jnp.asarray(t.numpy().copy()), tstate)
     jout, jstate = jssm.ssm_forward(jp, jnp.asarray(step), jcfg, jstate, "decode")
     tout, tstate = tssm.ssm_forward(tp, torch.from_numpy(step), tcfg, tstate, "decode")
     np.testing.assert_allclose(tout.numpy(), np.asarray(jout), **F32_TOL)
