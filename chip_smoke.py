@@ -121,7 +121,28 @@ JSON line, and any failure raises (exit code != 0):
    (~28 GB: 128 experts of d_ff 4864 beside the dense residual FFN), as
    phase 15, flash on its wgmma route.  Phases 15-17 cut depth so the
    weights and the init's transient f32 leaf fit the card's 80 GB
-   (``MOE_LAYERS``).
+   (``MOE_LAYERS``);
+18. train_f32: llama3.2-1b at full width cut to 2 layers in f32 compute (B
+   2, S 128): the loss and every gradient leaf of ``lm.loss_fn`` through
+   the kernels (flash attention and RMSNorm, forward and backward) against
+   ``attention`` / ``rmsnorm`` bound to ``torch`` (each leaf within 1e-4 of
+   its largest |g|, the loss within 1e-5), every train-path kernel
+   launched by the first and none by the second; then three
+   ``make_train_step`` steps each way, the losses within 1e-5 relative;
+19. main_path_train: full llama3.2-1b (16 layers, f32 master weights and
+   moments, bf16 compute, full remat) for ``TRAIN_STEPS`` steps of
+   ``make_train_step`` on ``SyntheticLMData`` at B 8, S 512: every loss
+   finite, ms a step (median after the first), tok/s, peak memory, the
+   launches of flash forward and backward and of rmsnorm's plain and add
+   forms forward and backward (each > 0), one profiled step (busy share,
+   device ms by kernel, top 10); then from the trained state the loss and
+   the global grad norm through the kernels against the plain bindings,
+   to ``TRAIN_BF16_TOL``;
+20. train_loop: the training CLI's ``build`` at ``--reduced`` run by
+   ``FaultTolerantLoop`` (a checkpoint every 4 steps, a failure injected
+   at step 6) against an uninterrupted run: the restarts and the largest
+   |difference| of every leaf, the leaves that differ named; then
+   ``python -m repro_torch.launch.train --reduced`` as a process, exit 0.
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -133,6 +154,17 @@ f32 prefill and a ragged shape, x and z read in place from wider tensors;
 and with a bf16 weight, plain at deepseek-v2's 512-wide ``kv_norm``, plain
 and add at deepseek-v2's d = 5120 and arctic-480b's d = 7168 (8 and 512
 rows each).
+
+The backward kernels are held in phase 2 too: flash's backward (dq, dk,
+dv from the forward kernel's ``out`` and ``lse``, the ``lse`` itself
+against the plain forward's) at llama's train shape (B 8, H 32, KH 8, S
+512, D 64, bf16: the tensor-core route), bf16 at B 2, S 300 (its ragged
+edge), f32 at B 2, S 300 and deepseek-v2's qk 192 / v 128 (the CUDA-core
+route; each row names its route);
+RMSNorm's backward, plain and add forms, at 4096 x 2048 bf16 and f32 at d
+= 100.  Each is called twice on the same inputs, bit for bit; the library
+call is the backward alone of SDPA / ``F.rms_norm`` through autograd,
+timed eagerly.
 
 The offload kernels (complex matmul, Schur update, matmul) are held
 against their plain versions in phase 2 at the paper's scale (2048^2 f32),
@@ -215,6 +247,12 @@ SOURCES = {
         "src/repro/kernels/fft.py:90",
     ),
     "ssd_chunks": ("src/repro_torch/kernels/csrc/ssd_chunks.cu", "src/repro/kernels/ssd.py:92"),
+    # the backward kernels of the train path: no Pallas kernel of the
+    # reference has a backward; these replace its jnp VJP of the chunked
+    # attention and XLA's autodiff of the reference rmsnorm
+    "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+                            "src/repro/kernels/attention_xla.py:119"),
+    "rmsnorm_bwd": ("src/repro_torch/kernels/csrc/rmsnorm_bwd.cu", "src/repro/kernels/ref.py:33"),
 }
 
 
@@ -240,6 +278,18 @@ MOE_LAYERS = {"deepseek-v2-236b": 4, "arctic-480b": 1}
 
 #: calls per version when Fig. 5's cpu / loop / block are re-timed (median)
 FIG5_REPEATS = 5
+
+#: dw of the RMSNorm backward sums a column's terms over 4096 rows, in
+#: another order than the plain version's: each sum off by ~rows * 2^-24 *
+#: |term| (~3e-4 relative at worst), with |dw| up to ~1e2
+NORM_DW_TOL = (1e-3, 1e-4)
+#: the train phases' batch: llama3.2-1b at B = 8, S = 512 (phase 20)
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
+#: phase 20's kernels-vs-plain step in bf16: the loss (~11.8 at a random
+#: init, a mean over 4096 tokens) within 1e-3 relative, the global grad norm
+#: within 2e-2: the bindings round at other places (the wgmma forward
+#: rounds P to bf16 before P V, the plain softmax multiplies in f32)
+TRAIN_BF16_TOL = {"loss": 1e-3, "grad_norm": 2e-2}
 
 
 def emit(obj: dict) -> None:
@@ -302,6 +352,36 @@ class Timer:
 
         return self._graph_ms(body) - self._flush_ms
 
+    def eager_ms(self, fn) -> float:
+        """As :meth:`ms`, but the ``reps`` calls run eagerly between CUDA
+        events (a library backward runs through autograd's engine, which
+        does not capture here).  The card first sleeps ~20 ms
+        (``torch.cuda._sleep``), so the host enqueues the whole window
+        ahead of it and no launch gap is timed.  Median of 5."""
+        torch = self.torch
+
+        def window(body) -> float:
+            for _ in range(2):
+                body()
+            times = []
+            for _ in range(5):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                torch.cuda._sleep(40_000_000)  # cycles: ~20 ms at the H100's ~1.98 GHz
+                start.record()
+                for _ in range(self.reps):
+                    body()
+                end.record()
+                torch.cuda.synchronize()
+                times.append(start.elapsed_time(end))
+            return sorted(times)[2] / self.reps
+
+        def body():
+            self.flush.zero_()
+            fn()
+
+        return window(body) - window(self.flush.zero_)
+
 
 def bound_ms(nbytes: float, flops: float, peak: str) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -358,10 +438,12 @@ def phase_device(torch) -> dict:
 
 
 def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbytes, flops,
-          tol=None, peak=None, extra=None):
+          tol=None, peak=None, extra=None, library_eager=None):
     """``got`` and ``want`` are one tensor, or dicts of named outputs that
     are each held to ``tol[name]``.  The bound takes the peak of ``peak``
-    (default: the inputs' type); ``extra`` adds keys to the printed row."""
+    (default: the inputs' type); ``extra`` adds keys to the printed row.
+    ``library_eager`` is a library call timed eagerly (a backward through
+    autograd) in place of ``library``."""
     if isinstance(got, dict):
         errs = {k: compare(torch, got[k], want[k], dtype, tol[k]) for k in got}
         err = max(errs.values())
@@ -375,6 +457,9 @@ def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbyt
         "bound_ms": bound, "bound_by": by,
         "library_ms": timer.ms(library) if library is not None else None,
     }
+    if library_eager is not None:
+        row["library_ms"] = timer.eager_ms(library_eager)
+        row["library_timing"] = "eager"
     if errs:
         row["max_abs_err_by_output"] = errs
     row.update(extra or {})
@@ -485,8 +570,119 @@ def phase_kernels(torch) -> dict:
             flops=2 * (dqk + dv) * hh * s * (s + 1) // 2, extra=route,
         ))
     rows["flash_attention"].append(arctic_row)
+    rows["flash_attention_bwd"] = _flash_bwd_cases(torch, timer, randn)
+    rows["rmsnorm_bwd"] = _norm_bwd_cases(torch, timer, randn)
     rows["ssd_chunks"] = _ssd_cases(torch, timer, randn, gen)
     rows.update(_offload_kernel_cases(torch, timer, randn))
+    return rows
+
+
+def _repeat_identical(torch, name: str, run) -> None:
+    """Two calls on the same inputs give the same bits (no atomics, fixed
+    reduction orders: the train loop's restart is held to the bit)."""
+    first, second = run(), run()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{name}: two calls on the same inputs differ")
+
+
+def _flash_bwd_cases(torch, timer, randn) -> list:
+    """The flash backward kernel against its plain version
+    (``attention_chunked.flash_attention_bwd_torch``, the reference's
+    ``_core_bwd``) on the forward kernel's own ``out`` and ``lse`` (the
+    forward's ``lse`` itself held against the plain forward's): llama's
+    train shape (B 8, H 32, KH 8, S 512, D 64, bf16; the headline; the
+    tensor-core route), bf16 and f32 at B 2 and a ragged S 300 (the
+    tensor-core route's masked edge; the CUDA cores), and deepseek-v2's MLA
+    prefill (qk 192 / v 128, H = KH = 128, S 512, bf16: 32-row tiles).  The library call is the
+    backward alone of ``F.scaled_dot_product_attention`` (causal, GQA),
+    through ``torch.autograd.grad`` from a kept graph."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import attention as fa
+    from repro_torch.kernels.attention_chunked import _chunked_fwd_core, flash_attention_bwd_torch
+
+    rows = []
+    for b, h, kh, s, d, dv, dtype in ((8, 32, 8, 512, 64, 64, torch.bfloat16),
+                                      (2, 32, 8, 300, 64, 64, torch.bfloat16),
+                                      (2, 32, 8, 300, 64, 64, torch.float32),
+                                      (1, 128, 128, 512, 192, 128, torch.bfloat16)):
+        q, k = randn(b, h, s, d, dtype=dtype), randn(b, kh, s, d, dtype=dtype)
+        v, do = randn(b, kh, s, dv, dtype=dtype), randn(b, h, s, dv, dtype=dtype)
+        out, lse = fa._flash_cuda(q, k, v, True, with_lse=True)
+        args = (q, k, v, out, lse, do)
+        before = dict(fa.flash_attention_bwd.routes)
+        got = dict(zip(("dq", "dk", "dv"), fa.flash_attention_bwd(*args)), lse=lse)
+        (route,) = [r for r, n in fa.flash_attention_bwd.routes.items() if n > before[r]]
+        want = dict(zip(("dq", "dk", "dv"), flash_attention_bwd_torch(*args)),
+                    lse=_chunked_fwd_core(q, k, v, True, s, s)[1].reshape(b, h, s))
+        _repeat_identical(torch, "flash_attention_bwd", lambda: fa.flash_attention_bwd(*args))
+        ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+        lib_out = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True, enable_gqa=kh != h)
+
+        def library():
+            torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
+
+        e, name = q.element_size(), str(dtype).split(".")[1]
+        pairs = b * h * s * (s + 1) // 2  # causal (query, key) pairs
+        rows.append(_case(
+            torch, "flash_attention_bwd", name,
+            {"B": b, "H": h, "KH": kh, "S": s, "Dqk": d, "Dv": dv}, got, want, timer,
+            lambda: fa.flash_attention_bwd(*args), lambda: flash_attention_bwd_torch(*args),
+            None, tol={**{k_: TOL[name] for k_ in ("dq", "dk", "dv")}, "lse": TOL["float32"]},
+            # reads q, k, v, out, do, lse; writes dq, dk, dv
+            nbytes=e * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel())
+            + 4 * lse.numel(),
+            # five products over the causal pairs: S and dK, dQ over D; dP, dV over Dv
+            flops=2 * pairs * (3 * d + 2 * dv),
+            extra={"route": route, "repeat_bit_identical": True}, library_eager=library,
+        ))
+    return rows
+
+
+def _norm_bwd_cases(torch, timer, randn) -> list:
+    """The RMSNorm backward kernel against its plain version
+    (``rmsnorm_bwd_torch``), plain and add forms at llama's train shape
+    (4096 rows of 2048, bf16 x, f32 w; plain is the headline) and f32 at a
+    ragged d = 100 (512 rows, the scalar path).  dx is held to the type's
+    ``TOL``, dw (f32) to ``NORM_DW_TOL``.  The library call is
+    ``F.rms_norm``'s backward (weight in x's type) through
+    ``torch.autograd.grad`` from a kept graph."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import rmsnorm as rn
+
+    rows, eps = [], 1e-5
+    for n_rows, d, dtype, form in ((4096, 2048, torch.bfloat16, "plain"),
+                                   (4096, 2048, torch.bfloat16, "add"),
+                                   (512, 100, torch.float32, "plain"),
+                                   (512, 100, torch.float32, "add")):
+        x, dy = randn(n_rows, d, dtype=dtype), randn(n_rows, d, dtype=dtype)
+        ds = randn(n_rows, d, dtype=dtype) if form == "add" else None
+        w = 1.0 + 0.1 * randn(d, dtype=torch.float32)
+        name = str(dtype).split(".")[1]
+        got = dict(zip(("dx", "dw"), rn.rmsnorm_bwd(x, dy, w, eps, ds=ds)))
+        want = dict(zip(("dx", "dw"), rn.rmsnorm_bwd_torch(x, dy, w, eps, ds=ds)))
+        _repeat_identical(torch, "rmsnorm_bwd", lambda: rn.rmsnorm_bwd(x, dy, w, eps, ds=ds))
+        xl = x.detach().clone().requires_grad_(True)
+        wl = w.to(dtype).requires_grad_(True)
+        lib_out = F.rms_norm(xl, (d,), wl, eps)
+
+        def library():
+            torch.autograd.grad(lib_out, (xl, wl), dy, retain_graph=True)
+
+        e = x.element_size()
+        n_in = 3 if form == "add" else 2  # x, dy (, ds)
+        rows.append(_case(
+            torch, "rmsnorm_bwd", name, [n_rows, d], got, want, timer,
+            lambda: rn.rmsnorm_bwd(x, dy, w, eps, ds=ds),
+            lambda: rn.rmsnorm_bwd_torch(x, dy, w, eps, ds=ds), None,
+            tol={"dx": TOL[name], "dw": NORM_DW_TOL},
+            nbytes=(n_in + 1) * n_rows * d * e + 2 * 4 * d, flops=12 * n_rows * d,
+            peak="float32",
+            extra={"form": form, "w": "float32", "repeat_bit_identical": True},
+            library_eager=library,
+        ))
     return rows
 
 
@@ -1804,6 +2000,270 @@ def phase_extend_mla(torch, main: dict) -> dict:
                            prefill_chunk=CHUNK)
 
 
+#: the train path's kernel launches, each of which main_path_train needs
+TRAIN_COUNTERS = ("flash_attention", "flash_attention_bwd", "rmsnorm/plain", "rmsnorm/add",
+                  "rmsnorm_bwd/plain", "rmsnorm_bwd/add")
+#: the bindings that take the train path's blocks off the kernels
+PLAIN_TRAIN = {"attention": "torch", "rmsnorm": "torch"}
+
+
+def _train_inputs(torch, cfg, batch: int, seq: int, step: int = 0) -> dict:
+    from repro_torch.data.pipeline import SyntheticLMData
+
+    data = SyntheticLMData(cfg.vocab_size, seq, batch, seed=0)
+    return {k: torch.from_numpy(v).to("cuda") for k, v in data.batch_at(step).items()}
+
+
+def _loss_and_grads(torch, params, batch, cfg):
+    """(loss, the gradient leaves) of ``lm.loss_fn`` at ``params``."""
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    total, _ = lm.loss_fn(params, batch, cfg)
+    grads = torch.autograd.grad(total, leaves)
+    return total.detach(), grads
+
+
+def _clone_tree(torch, tree):
+    return _tree(lambda t: t.detach().clone(), tree)
+
+
+def phase_train_f32(torch) -> dict:
+    """llama3.2-1b at full width cut to 2 layers in f32 compute (B 2, S
+    128): the first step's loss and every gradient leaf through the
+    kernels (flash and RMSNorm forward and backward) against the same with
+    ``attention`` and ``rmsnorm`` bound to ``torch`` (each leaf within 1e-4
+    of its largest |g|), then three ``make_train_step`` steps from the same
+    weights each way, the losses within 1e-5 relative."""
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import blocks
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW
+
+    _free_dead_engines(torch)
+    t0 = time.perf_counter()
+    cfg = dataclasses.replace(get_config("llama3.2-1b"), compute_dtype="float32").cut(2)
+    params = lm.init_params(cfg, seed=1, device="cuda")
+    batch = _train_inputs(torch, cfg, 2, 128)
+    kernels.reset_launches()
+    loss_k, grads_k = _loss_and_grads(torch, params, batch, cfg)
+    counted = kernels.counters()
+    with blocks.bind(PLAIN_TRAIN):
+        loss_p, grads_p = _loss_and_grads(torch, params, batch, cfg)
+    plain_counted = {k: n - counted[k] for k, n in kernels.counters().items()}
+    missing = [c for c in TRAIN_COUNTERS if counted[c] <= 0]
+    if missing or any(plain_counted[c] for c in TRAIN_COUNTERS):
+        raise AssertionError(f"train_f32: kernel launches {counted}, plain run {plain_counted}")
+    worst = 0.0
+    for gk, gp in zip(grads_k, grads_p):
+        scale = float(gp.abs().max())
+        err = float((gk - gp).abs().max())
+        if err > 1e-4 * max(scale, 1e-30):
+            raise AssertionError(f"train_f32: a gradient leaf differs by {err:.3g} (max |g| {scale:.3g})")
+        worst = max(worst, err / max(scale, 1e-30))
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    if loss_err > 1e-5:
+        raise AssertionError(f"train_f32: loss {float(loss_k)} vs plain {float(loss_p)}")
+
+    hyper = TrainHyper(base_lr=1e-3, warmup_steps=2, total_steps=16)
+    losses = {}
+    for name, binding in (("kernels", {}), ("plain", PLAIN_TRAIN)):
+        opt = AdamW(moment_dtype=cfg.opt_dtype)
+        step = make_train_step(cfg, opt, hyper)
+        p = _clone_tree(torch, params)
+        state = opt.init(p)
+        losses[name] = []
+        with blocks.bind(binding):
+            for i in range(3):
+                p, state, metrics = step(p, state, _train_inputs(torch, cfg, 2, 128, i))
+                losses[name].append(float(metrics["loss"]))
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"], losses["plain"])]
+    if max(rel) > 1e-5:
+        raise AssertionError(f"train_f32: losses {losses}")
+    out = {"phase": "train_f32", "arch": cfg.name, "layers": 2, "batch": 2, "seq": 128,
+           "first_loss_rel_err": loss_err, "max_grad_err_over_max_abs_g": worst,
+           "grad_leaves": len(grads_k), "losses": losses, "loss_rel_err": rel,
+           "launches": {c: counted[c] for c in TRAIN_COUNTERS},
+           "flash_routes": {r: counted[f"flash_attention/{r}"] for r in ("cuda_cores", "wgmma")},
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def phase_main_path_train(torch) -> dict:
+    """The train path: full llama3.2-1b (16 layers, d 2048, vocab 128256;
+    f32 master weights and moments, bf16 compute, full remat) for
+    ``TRAIN_STEPS`` steps of ``make_train_step`` on ``SyntheticLMData`` at B
+    8, S 512.  Every loss finite; ms a step (median after the first), tok/s,
+    peak memory; the launches of flash forward and backward and of
+    rmsnorm's plain and add forms forward and backward, each > 0; one
+    profiled step (busy share, device ms by kernel); then, from the
+    trained state, the loss and the global gradient norm through the
+    kernels against ``attention`` / ``rmsnorm`` bound to ``torch``, held
+    to ``TRAIN_BF16_TOL``."""
+    import math
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import blocks
+    from repro_torch.data.pipeline import SyntheticLMData
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW
+
+    _free_dead_engines(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = get_config("llama3.2-1b")
+    t0 = time.perf_counter()
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    opt = AdamW(moment_dtype=cfg.opt_dtype)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, TrainHyper(warmup_steps=2, total_steps=TRAIN_STEPS))
+    data = SyntheticLMData(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=0)
+    batches = [{k: torch.from_numpy(v).to("cuda") for k, v in data.batch_at(i).items()}
+               for i in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+
+    kernels.reset_launches()
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batches[i])
+        losses.append(float(metrics["loss"]))  # reads the loss: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counted = {c: kernels.counters()[c] for c in TRAIN_COUNTERS}
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"main_path_train: losses {losses}")
+    missing = [c for c, n in counted.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"main_path_train: never launched {missing}: {counted}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    median = float(np.median(step_ms[1:]))
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        params, state, metrics = step_fn(params, state, batches[TRAIN_STEPS])
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+    profiled_wall = (time.perf_counter() - t0) * 1e3
+    device, events = _device_events(prof)
+    total = sum(device.values())
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:10]
+
+    # one step's loss and gradient from the trained state, each binding
+    batch = batches[0]
+    loss_k, grads = _loss_and_grads(torch, params, batch, cfg)
+    norm_k = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads)))
+    del grads
+    with blocks.bind(PLAIN_TRAIN):
+        loss_p, grads = _loss_and_grads(torch, params, batch, cfg)
+    norm_p = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads)))
+    del grads
+    check = {"loss": float(loss_k), "plain_loss": float(loss_p),
+             "loss_rel_err": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+             "grad_norm": norm_k, "plain_grad_norm": norm_p,
+             "grad_norm_rel_err": abs(norm_k - norm_p) / norm_p, "tol": TRAIN_BF16_TOL}
+    if (check["loss_rel_err"] > TRAIN_BF16_TOL["loss"]
+            or check["grad_norm_rel_err"] > TRAIN_BF16_TOL["grad_norm"]):
+        raise AssertionError(f"main_path_train: kernels against plain: {check}")
+    out = {
+        "phase": "main_path_train", "arch": cfg.name, "layers": cfg.n_layers,
+        "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "compute_dtype": cfg.compute_dtype, "param_dtype": cfg.param_dtype,
+        "moment_dtype": cfg.opt_dtype, "remat": cfg.remat, "setup_seconds": setup,
+        "losses": losses, "step_ms": step_ms, "median_step_ms": median,
+        "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
+        "peak_memory_gb": peak, "launches": counted,
+        "flash_routes": dict(kernels.KERNELS["flash_attention"].routes),
+        "flash_bwd_routes": dict(kernels.KERNELS["flash_attention_bwd"].routes),
+        "profiled_step": {
+            "wall_ms": profiled_wall, "device_ms": total,
+            "device_busy_share": total / profiled_wall, "device_events": events,
+            "top_device_ms": {k[:80]: v for k, v in top},
+            "flash_bwd_device_ms": sum(v for k, v in device.items()
+                                       if any(n in k for n in ("dkdv_", "dq_kernel", "dq_tc"))),
+            "norm_bwd_device_ms": sum(v for k, v in device.items()
+                                      if "norm_bwd_kernel" in k or "dw_kernel" in k),
+        },
+        "kernels_vs_plain": check,
+    }
+    emit(out)
+    return out
+
+
+def phase_train_loop(torch) -> dict:
+    """The training CLI's ``build`` at ``--reduced`` on the card, run by
+    ``FaultTolerantLoop`` with a checkpoint every 4 steps and an injected
+    failure at step 6, against an uninterrupted run: the restarts and the
+    largest |difference| of every leaf (parameters and moments; on the
+    card the embedding's backward scatter-adds with atomics, so a leaf may
+    differ: they are named).  Then ``python -m repro_torch.launch.train``
+    as a process, which must exit 0."""
+    import os
+    import tempfile
+
+    from repro_torch.checkpoint.manager import CheckpointManager, flatten
+    from repro_torch.launch import train
+    from repro_torch.runtime.fault import FaultTolerantLoop, InjectedFailure
+
+    t0 = time.perf_counter()
+    argv = ["--arch", "llama3.2-1b", "--reduced", "--steps", "10", "--batch", "2", "--seq", "16"]
+    results = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, fail_at in (("clean", None), ("failed", 6)):
+            args = train.build_parser().parse_args(argv)
+            _, data, step_fn, params, opt_state, device = train.build(args)
+            fails = {fail_at} - {None}
+
+            def hook(step, fails=fails):
+                if step in fails:
+                    fails.discard(step)
+                    raise InjectedFailure(f"node lost at step {step}")
+
+            def one_step(state, batch, step, step_fn=step_fn, device=device):
+                b = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
+                p, o, _ = step_fn(state["params"], state["opt"], b)
+                return {"params": p, "opt": o}
+
+            loop = FaultTolerantLoop(one_step, data.batch_at,
+                                     CheckpointManager(os.path.join(tmp, name)),
+                                     ckpt_every=4, failure_hook=hook)
+            results[name] = loop.run({"params": params, "opt": opt_state}, args.steps)
+        clean, failed = (flatten(results[k].state) for k in ("clean", "failed"))
+        diffs = {k: float((clean[k].detach().float() - failed[k].detach().float()).abs().max())
+                 for k in clean}
+        if results["failed"].restarts != 1:
+            raise AssertionError(f"train_loop: {results['failed'].restarts} restarts")
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        proc = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b",
+             "--reduced", "--steps", "6", "--batch", "2", "--seq", "16",
+             "--ckpt-dir", os.path.join(tmp, "cli")],
+            cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
+        )
+    if proc.returncode != 0:
+        raise AssertionError(f"train_loop: the train CLI exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    out = {"phase": "train_loop", "arch": "llama3.2-1b-reduced", "steps": 10, "ckpt_every": 4,
+           "fail_at": 6, "restarts": results["failed"].restarts,
+           "completed_steps": results["failed"].completed_steps,
+           "max_abs_diff": max(diffs.values()),
+           "leaves_that_differ": sorted(k for k, v in diffs.items() if v != 0.0),
+           "leaves": len(diffs), "cli_stdout_tail": proc.stdout.splitlines()[-3:],
+           "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
 def main() -> int:
     if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
         print(f"chip_smoke: {SRC}/repro_torch not found beside this script", file=sys.stderr)
@@ -1848,10 +2308,18 @@ def main() -> int:
     mla = phase_main_path_moe(torch, "deepseek-v2-236b", "main_path_mla_moe")
     phase_extend_mla(torch, mla)
     phase_main_path_moe(torch, "arctic-480b", "main_path_moe_residual")
+    # training: llama3.2-1b's train step through the forward and backward
+    # kernels, f32 against the plain bindings, at full size, and the loop
+    phase_train_f32(torch)
+    train = phase_main_path_train(torch)
+    phase_train_loop(torch)
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],
-                "ssd_chunks": ssm["launches"]["ssd_chunks"]}
+                "ssd_chunks": ssm["launches"]["ssd_chunks"],
+                "flash_attention_bwd": train["launches"]["flash_attention_bwd"],
+                "rmsnorm_bwd": (train["launches"]["rmsnorm_bwd/plain"]
+                                + train["launches"]["rmsnorm_bwd/add"])}
     summary = []
     for name, (source, replaces) in SOURCES.items():
         head = rows[name][0]  # the main path's headline shape

@@ -8,7 +8,10 @@ axis; caches ``g0_a/k``, ``index``), which the port's trees share.
 
 bfloat16 arrays (``ml_dtypes.bfloat16`` from the reference) arrive as their
 16-bit patterns and keep their bits; the inverses return float32 for a
-bfloat16 tensor, which holds every bfloat16 value exactly.
+bfloat16 tensor, which holds every bfloat16 value exactly.  An optimizer
+state crosses as its three parts (``mu`` and ``nu`` shaped as the
+parameters, in the moment dtype, and the step count), so both AdamWs can
+start from the same moments.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import lm
 from repro_torch.models.params import ParamMeta, torch_dtype
+from repro_torch.optim.adamw import OptState
 
 
 def _to_torch(a: np.ndarray, device) -> torch.Tensor:
@@ -37,18 +41,20 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     return t.numpy()
 
 
-def _convert(tree: Any, metas: Any, device, path: str = "") -> Any:
+def _convert(tree: Any, metas: Any, device, path: str = "", dtype=None) -> Any:
+    """``tree`` checked key by key and shape by shape against ``metas``, in
+    each meta's dtype (or ``dtype``)."""
     if isinstance(metas, ParamMeta):
         if isinstance(tree, dict):
             raise ValueError(f"{path}: expected an array, got a subtree")
         t = _to_torch(tree, device)
         if tuple(t.shape) != metas.shape:
             raise ValueError(f"{path}: shape {tuple(t.shape)} != {metas.shape}")
-        return t.to(torch_dtype(metas.dtype))
+        return t.to(dtype or torch_dtype(metas.dtype))
     if not isinstance(tree, dict) or set(tree) != set(metas):
         got = sorted(tree) if isinstance(tree, dict) else type(tree).__name__
         raise ValueError(f"{path or '/'}: keys {got} != {sorted(metas)}")
-    return {k: _convert(tree[k], metas[k], device, f"{path}/{k}") for k in metas}
+    return {k: _convert(tree[k], metas[k], device, f"{path}/{k}", dtype) for k in metas}
 
 
 def params_from_numpy(tree: Any, cfg: ArchConfig, device="cpu") -> Any:
@@ -82,3 +88,21 @@ def params_to_numpy(params: Any) -> Any:
 
 
 cache_to_numpy = params_to_numpy  # caches are the same kind of tree
+
+
+def opt_state_from_numpy(mu: Any, nu: Any, step: Any, cfg: ArchConfig,
+                         moment_dtype: str = "float32", device="cpu") -> OptState:
+    """The reference's ``OptState`` parts (``mu`` / ``nu`` as nested dicts
+    of numpy arrays, ``step`` a scalar) -> the port's, the moments checked
+    against the parameters' metas and held in ``moment_dtype``."""
+    metas, dt = lm.build_metas(cfg), torch_dtype(moment_dtype)
+    return OptState(
+        mu=_convert(mu, metas, device, dtype=dt),
+        nu=_convert(nu, metas, device, dtype=dt),
+        step=torch.tensor(int(np.asarray(step)), dtype=torch.int32, device=device),
+    )
+
+
+def opt_state_to_numpy(state: OptState) -> tuple[Any, Any, int]:
+    """Inverse of :func:`opt_state_from_numpy`: ``(mu, nu, step)``."""
+    return params_to_numpy(state.mu), params_to_numpy(state.nu), int(state.step)

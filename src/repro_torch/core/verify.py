@@ -30,20 +30,23 @@ import torch
 
 
 def _block(x: Any) -> None:
-    """Wait for the device work behind ``x``: PyTorch returns from a CUDA
-    call before the card finishes, so without this ``measure`` would time
-    the launches only."""
-    if isinstance(x, torch.Tensor):
-        if x.is_cuda:
-            torch.cuda.synchronize(x.device)
-    elif isinstance(x, (tuple, list)):
-        for e in x:
-            _block(e)
+    """Wait for the device work behind ``x`` (any tree :func:`flatten`
+    takes): PyTorch returns from a CUDA call before the card finishes, so
+    without this ``measure`` would time the launches only."""
+    for leaf in flatten(x)[0]:
+        if isinstance(leaf, torch.Tensor) and leaf.is_cuda:
+            torch.cuda.synchronize(leaf.device)
+            return
 
 
 def flatten(x: Any) -> tuple[list[Any], Any]:
-    """Leaves and structure of nested tuples / lists / dicts (the port's
-    counterpart of ``jax.tree.flatten`` for ``verify_numerics``)."""
+    """Leaves and structure of nested tuples / lists / dicts / dataclasses
+    (the port's counterpart of ``jax.tree.flatten`` for
+    ``verify_numerics``; a train step returns an ``OptState``)."""
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        fields = {f.name: getattr(x, f.name) for f in dataclasses.fields(x)}
+        leaves, tree = flatten(fields)
+        return leaves, (type(x).__name__, tree)
     if isinstance(x, (tuple, list)):
         leaves: list[Any] = []
         kids = []

@@ -24,7 +24,14 @@ KERNELS = {
     "schur_update": matmul.schur_update,
     "complex_matmul": fft.complex_matmul,
     "ssd_chunks": ssd.ssd_chunks,
+    # the backward kernels, which the train step's autograd launches
+    "flash_attention_bwd": attention.flash_attention_bwd,
+    "rmsnorm_bwd": rmsnorm.rmsnorm_bwd,
 }
+
+#: the counters kept per route or form beside a kernel's launches
+_SUBCOUNTS = {"flash_attention": "routes", "flash_attention_bwd": "routes", "rmsnorm": "forms",
+              "rmsnorm_bwd": "forms"}
 
 
 def _register_all() -> list[tuple]:
@@ -88,7 +95,9 @@ def reset_launches() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
     attention.flash_attention.routes = dict.fromkeys(attention.ROUTES, 0)
+    attention.flash_attention_bwd.routes = dict.fromkeys(attention.BWD_ROUTES, 0)
     rmsnorm.rmsnorm.forms = dict.fromkeys(rmsnorm.FORMS, 0)
+    rmsnorm.rmsnorm_bwd.forms = dict.fromkeys(rmsnorm.BWD_FORMS, 0)
 
 
 def launch_counts() -> dict[str, int]:
@@ -97,11 +106,12 @@ def launch_counts() -> dict[str, int]:
 
 def counters() -> dict[str, int]:
     """Every launch counter by name: each kernel's launches, flash's per
-    route and rmsnorm's per form.  A CUDA graph replay runs no wrapper, so
-    a step program adds what its capture counted at every replay."""
+    route and rmsnorm's (forward and backward) per form.  A CUDA graph
+    replay runs no wrapper, so a step program adds what its capture counted
+    at every replay."""
     out = launch_counts()
-    out.update({f"flash_attention/{r}": n for r, n in attention.flash_attention.routes.items()})
-    out.update({f"rmsnorm/{f}": n for f, n in rmsnorm.rmsnorm.forms.items()})
+    for name, attr in _SUBCOUNTS.items():
+        out.update({f"{name}/{k}": n for k, n in getattr(KERNELS[name], attr).items()})
     return out
 
 
@@ -111,7 +121,5 @@ def add_counters(delta: dict[str, int]) -> None:
         name, _, sub = key.partition("/")
         if not sub:
             KERNELS[name].launches += n
-        elif name == "flash_attention":
-            attention.flash_attention.routes[sub] += n
         else:
-            rmsnorm.rmsnorm.forms[sub] += n
+            getattr(KERNELS[name], _SUBCOUNTS[name])[sub] += n

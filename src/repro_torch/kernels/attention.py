@@ -1,6 +1,9 @@
-"""Causal flash-attention forward: the CUDA kernel's wrapper
+"""Causal flash attention: the forward kernel's wrapper
 (``csrc/flash_attention.cu``, the port of ``repro/kernels/attention.py``'s
-``flash_attention_pallas``) and its plain version.
+``flash_attention_pallas``), the backward kernel's
+(``csrc/flash_attention_bwd.cu``, the port of ``attention_xla.py``'s
+``_core_bwd``), the autograd Function that joins them, and their plain
+versions.
 
 Both take q (B, H, Sq, D), k (B, KH, Skv, D) and v (B, KH, Skv, Dv) and
 return (B, H, Sq, Dv); query head ``h`` reads kv head ``h // (H // KH)``,
@@ -15,12 +18,19 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import build
+from repro_torch.kernels.attention_chunked import flash_attention_bwd_torch
 
 _NEG = -1e30
 #: the CUDA-core route's largest head dim, for q/k and for v (16 a lane)
 MAX_HEAD_DIM = 512
+#: the backward kernel's largest head dim, for q/k and for v
+MAX_BWD_HEAD_DIM = 256
 #: the kernel's routes, by the code the C entry point takes
 ROUTES = ("cuda_cores", "wgmma")
+#: the backward kernel's routes, by the code its C entry point takes
+BWD_ROUTES = ("cuda_cores", "mma")
+#: the largest head dim the backward's tensor-core route takes
+MAX_MMA_BWD_HEAD_DIM = 64
 
 
 def flash_attention_torch(
@@ -52,15 +62,11 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "wgmma" if tma else "cuda_cores"
 
 
-def flash_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
-) -> torch.Tensor:
-    """The CUDA kernel for CUDA tensors, the plain version for CPU ones.
-
-    The route comes from :func:`flash_route` (D, Dv <= 512 on the CUDA
-    cores); ``flash_attention.routes`` counts the launches of each."""
-    if q.device.type == "cpu":
-        return flash_attention_torch(q, k, v, causal)
+def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+                with_lse: bool) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """One launch of the forward kernel: (out, lse), lse (B, H, Sq) f32 the
+    rows' log-sum-exp of their scaled scores when ``with_lse`` (else None,
+    and the kernel writes none)."""
     build.check_cuda("flash_attention", q, k, v)
     b, h, sq, d = q.shape
     _, kh, skv, _ = k.shape
@@ -75,19 +81,125 @@ def flash_attention(
     if max(d, dv) > MAX_HEAD_DIM:
         raise ValueError(f"flash_attention: head dims {d}, {dv} exceed {MAX_HEAD_DIM}")
     out = q.new_empty((b, h, sq, dv))
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0 or skv == 0:
-        return out
+        return out, lse
     route = flash_route(q, k, v)
     build.launch(
         "repro_flash_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        None if lse is None else lse.data_ptr(),
         b, h, kh, sq, skv, d, dv, int(causal), 1.0 / d ** 0.5,
         build.dtype_code(q), ROUTES.index(route), build.stream_of(q),
     )
     flash_attention.launches += 1
     flash_attention.routes[route] += 1
-    return out
+    return out, lse
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """The ``cuda`` target under autograd: the forward kernel (writing
+    ``lse``), then the backward kernel (``csrc/flash_attention_bwd.cu``)
+    on the saved ``(q, k, v, out, lse)``, as ``attention_xla``'s custom
+    VJP saves them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        out, lse = _flash_cuda(q, k, v, causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do.contiguous(), ctx.causal)
+        return dq, dk, dv, None
+
+
+def flash_bwd_route(*operands: torch.Tensor) -> str:
+    """The backward kernel's route for these operands (q, k, v first): bf16
+    with D and Dv multiples of 16 up to ``MAX_MMA_BWD_HEAD_DIM`` and 16-byte
+    aligned operands runs on the tensor cores (mma.sync), the rest on the
+    CUDA cores."""
+    d, dv = operands[0].shape[-1], operands[2].shape[-1]
+    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    mma = (operands[0].dtype == torch.bfloat16 and d % 16 == 0 and dv % 16 == 0
+           and max(d, dv) <= MAX_MMA_BWD_HEAD_DIM and aligned)
+    return "mma" if mma else "cuda_cores"
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = True
+) -> torch.Tensor:
+    """The CUDA kernel for CUDA tensors, the plain version for CPU ones.
+
+    The route comes from :func:`flash_route` (D, Dv <= 512 on the CUDA
+    cores); ``flash_attention.routes`` counts the launches of each.  Under
+    autograd (grad mode on, an input requiring grad) the call goes through
+    :class:`FlashAttentionFn`, whose backward is the backward kernel (head
+    dims up to ``MAX_BWD_HEAD_DIM``, a sequence attending to itself)."""
+    if q.device.type == "cpu":
+        return flash_attention_torch(q, k, v, causal)
+    if build.wants_grad(q, k, v):
+        if max(q.shape[-1], v.shape[-1]) > MAX_BWD_HEAD_DIM:
+            raise ValueError(
+                f"flash_attention: the backward kernel takes head dims up to "
+                f"{MAX_BWD_HEAD_DIM}, got {q.shape[-1]}, {v.shape[-1]}")
+        if causal and q.shape[2] != k.shape[2]:
+            raise ValueError("flash_attention: a causal gradient needs Sq == Skv")
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return _flash_cuda(q, k, v, causal, with_lse=False)[0]
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+    lse: torch.Tensor, do: torch.Tensor, causal: bool = True,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the forward from its saved ``out`` and ``lse`` and the
+    output's gradient ``do``: the backward kernel for CUDA tensors, its
+    plain version (``attention_chunked.flash_attention_bwd_torch``) for CPU
+    ones.  dK and dV are summed over each kv head's query heads.  The route
+    comes from :func:`flash_bwd_route`; ``flash_attention_bwd.routes``
+    counts the launches of each."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_torch(q, k, v, out, lse, do, causal)
+    return _flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
+
+
+def _flash_attention_bwd_cuda(q, k, v, out, lse, do, causal):
+    build.check_cuda("flash_attention_bwd", q, k, v, out, lse, do)
+    b, h, sq, d = q.shape
+    _, kh, skv, _ = k.shape
+    dv = v.shape[-1]
+    if (k.shape != (b, kh, skv, d) or v.shape != (b, kh, skv, dv) or h % kh
+            or out.shape != (b, h, sq, dv) or do.shape != out.shape
+            or lse.shape != (b, h, sq)):
+        raise ValueError(
+            f"flash_attention_bwd: q {tuple(q.shape)}, k {tuple(k.shape)}, v "
+            f"{tuple(v.shape)}, out {tuple(out.shape)}, lse {tuple(lse.shape)}, "
+            f"do {tuple(do.shape)} do not fit"
+        )
+    if any(t.dtype != q.dtype for t in (k, v, out, do)) or lse.dtype != torch.float32:
+        raise TypeError("flash_attention_bwd: q, k, v, out and do share one dtype; lse is f32")
+    if max(d, dv) > MAX_BWD_HEAD_DIM:
+        raise ValueError(f"flash_attention_bwd: head dims {d}, {dv} exceed {MAX_BWD_HEAD_DIM}")
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() and k.numel():
+        route = flash_bwd_route(q, k, v, do, dq, dk, dvv)
+        build.launch(
+            "repro_flash_attention_bwd",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+            b, h, kh, sq, skv, d, dv, int(causal), 1.0 / d ** 0.5,
+            build.dtype_code(q), BWD_ROUTES.index(route), build.stream_of(q),
+        )
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.routes[route] += 1
+    return dq, dk, dvv
 
 
 flash_attention.launches = 0
 flash_attention.routes = dict.fromkeys(ROUTES, 0)
+flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)

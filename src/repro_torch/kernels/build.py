@@ -48,8 +48,15 @@ ENTRY_POINTS = {
     # workspace_elems, B, H, KH, S, Dk, Dv, Dr, page_size, max_pages,
     # pool_pages, pages_per_split, n_splits, scale, dtype, stream
     "repro_paged_attention": [_P] * 9 + [_L] + [_I] * 12 + [_F, _I, _P],
-    # q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, dtype, route, stream
-    "repro_flash_attention": [_P] * 4 + [_I] * 8 + [_F, _I, _I, _P],
+    # q, k, v, out, lse (or null), B, H, KH, Sq, Skv, D, Dv, causal, scale,
+    # dtype, route, stream
+    "repro_flash_attention": [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P],
+    # q, k, v, out, lse, do, dq, dk, dv, B, H, KH, Sq, Skv, D, Dv, causal,
+    # scale, dtype, route, stream
+    "repro_flash_attention_bwd": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
+    # x, dy, ds (or null), w, dx, partial, dw, rows, d, eps, dtype, w_dtype,
+    # rows_per_cta, tpr, nv, stream
+    "repro_rmsnorm_bwd": [_P] * 7 + [_I] * 2 + [_F] + [_I] * 5 + [_P],
     # a, b, out, M, N, K, stream
     "repro_matmul": [_P] * 3 + [_I] * 3 + [_P],
     # c, a, b, out, M, N, K, stream
@@ -209,6 +216,27 @@ def tma_operand(t: torch.Tensor, shape: tuple[int, ...] | None = None) -> torch.
     out = t.new_zeros(shape)
     out[tuple(slice(0, n) for n in t.shape)] = t
     return out
+
+
+def wants_grad(*tensors: torch.Tensor | None) -> bool:
+    """Whether autograd will differentiate a call on these tensors: grad
+    mode is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def refuse_grad(name: str, block: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would differentiate through a kernel that has no
+    backward: its output has no gradient path, so every gradient through
+    it would silently be lost.  The message names the shelf block whose
+    ``torch`` target (the plain version, which autograd differentiates)
+    can be bound in its place."""
+    if wants_grad(*tensors):
+        raise RuntimeError(
+            f"{name}: the CUDA kernel has no backward, so autograd cannot take a "
+            f"gradient through it; bind the '{block}' block's 'torch' target "
+            f"(repro_torch.core.blocks.bind({{'{block}': 'torch'}})) or wait for its "
+            "backward kernel (ROADMAP A10)"
+        )
 
 
 def check_float32(name: str, *tensors: torch.Tensor) -> None:

@@ -9,6 +9,10 @@
 // causal mask aligned at the start (key j visible to query i iff j <= i,
 // as in the TPU kernel), softmax in f32, out = p . v in q's dtype.  Unlike
 // the TPU kernel, ragged edges are masked here, so any Sq / Skv works.
+// Where the caller gives an lse buffer (B, H, Sq) f32 (training: the
+// backward kernel, csrc/flash_attention_bwd.cu, recomputes probabilities
+// from it), each row's log-sum-exp of its scaled scores is written there,
+// as attention_xla.py's _core_fwd saves it; serving passes none.
 //
 // Bound on the H100: bytes at short prompts, operations at long ones.
 // Causal attention does ~2 * Sq * Skv * D * H flops (half of the dense
@@ -84,9 +88,9 @@ constexpr float kNeg = -1e30f;
 template <typename T, int DV>
 __global__ void __launch_bounds__(kWarps * 32)
 flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int H,
-                       int KH, int Sq, int Skv, int D, int Dv, int causal,
-                       float scale) {
+                       const T* __restrict__ v, T* __restrict__ out,
+                       float* __restrict__ lse, int H, int KH, int Sq, int Skv,
+                       int D, int Dv, int causal, float scale) {
   extern __shared__ float smem[];
   float* qs = smem;                 // kBQ x D
   float* ks = qs + kBQ * D;         // kBKV x (D + 1)
@@ -179,6 +183,9 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int qi = q0 + rr * kWarps + warp;
     if (qi >= Sq) continue;
     const float lv = l[rr] == 0.f ? 1.f : l[rr];
+    if (lse != nullptr && lane == 0) {
+      lse[(static_cast<size_t>(b) * H + h) * Sq + qi] = m[rr] + logf(lv);
+    }
 #pragma unroll
     for (int i = 0; i < DV; ++i) {
       const int d = lane + 32 * i;
@@ -191,8 +198,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
 template <typename T, int DV>
 cudaError_t launch_dv(const void* q, const void* k, const void* v, void* out,
-                      int B, int H, int KH, int Sq, int Skv, int D, int Dv,
-                      int causal, float scale, cudaStream_t stream) {
+                      float* lse, int B, int H, int KH, int Sq, int Skv, int D,
+                      int Dv, int causal, float scale, cudaStream_t stream) {
   const size_t smem =
       sizeof(float) * (kBQ * D + kBKV * (D + 1) + kBKV * Dv);
   if (smem > 48 * 1024) {
@@ -204,8 +211,8 @@ cudaError_t launch_dv(const void* q, const void* k, const void* v, void* out,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   flash_attention_kernel<T, DV><<<grid, kWarps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), H, KH, Sq, Skv, D, Dv,
-      causal, scale);
+      static_cast<const T*>(v), static_cast<T*>(out), lse, H, KH, Sq, Skv, D,
+      Dv, causal, scale);
   return cudaSuccess;
 }
 
@@ -214,15 +221,17 @@ cudaError_t launch_dv(const void* q, const void* k, const void* v, void* out,
 // to 128 take 4 a lane, as the first f32 kernel did
 template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int KH, int Sq, int Skv, int D, int Dv,
-                   int causal, float scale, cudaStream_t stream) {
+                   float* lse, int B, int H, int KH, int Sq, int Skv, int D,
+                   int Dv, int causal, float scale, cudaStream_t stream) {
   const int per_lane = (Dv + 31) / 32;
   if (per_lane <= 4)
-    return launch_dv<T, 4>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, stream);
+    return launch_dv<T, 4>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal, scale,
+                           stream);
   if (per_lane <= 8)
-    return launch_dv<T, 8>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, stream);
-  return launch_dv<T, kMaxDimPerLane>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale,
-                                      stream);
+    return launch_dv<T, 8>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal, scale,
+                           stream);
+  return launch_dv<T, kMaxDimPerLane>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal,
+                                      scale, stream);
 }
 
 }  // namespace cc
@@ -240,6 +249,7 @@ constexpr int kStages = 2;
 constexpr int kRow = 128;  // bytes of a swizzled row: 64 bf16 head dims
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // NB column boxes of 64 head dims, BKV keys per tile
 template <int NB>
@@ -278,8 +288,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_kernel(const __grid_constant__ CUtensorMap q_map,
              const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map,
-             __nv_bfloat16* __restrict__ out, int H, int KH, int Sq, int Skv,
-             int D, int causal, float scale_log2) {
+             __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H,
+             int KH, int Sq, int Skv, int D, int causal, float scale_log2) {
   using C = Cfg<NB>;
   constexpr int kBKV = C::kBKV;
   extern __shared__ uint8_t smem_raw[];
@@ -420,6 +430,11 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
     if (l[r] == 0.f) l[r] = 1.f;
+    // m is in log2 units (scores times scale * log2 e): lse = (m + log2 l) ln 2
+    const int row = r0 + 8 * r;
+    if (lse != nullptr && lane % 4 == 0 && row < Sq) {
+      lse[(static_cast<size_t>(b) * H + h) * Sq + row] = (m[r] + log2f(l[r])) * kLn2;
+    }
   }
 #pragma unroll
   for (int i = 0; i < C::kO; i += 2) {
@@ -446,8 +461,8 @@ cudaError_t map_3d(CUtensorMap* map, const void* base, int D, int S, int BH,
 
 template <int NB>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
-                   int B, int H, int KH, int Sq, int Skv, int D, int causal,
-                   float scale, cudaStream_t stream) {
+                   float* lse, int B, int H, int KH, int Sq, int Skv, int D,
+                   int causal, float scale, cudaStream_t stream) {
   using C = Cfg<NB>;
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = map_3d(&q_map, q, D, Sq, B * H, kBM);
@@ -458,8 +473,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out,
   if (smem_err != cudaSuccess) return smem_err;
   const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
   flash_kernel<NB><<<grid, kThreads, C::kSmem, stream>>>(
-      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), H, KH, Sq, Skv,
-      D, causal, scale * kLog2e);
+      q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, H, KH, Sq,
+      Skv, D, causal, scale * kLog2e);
   return cudaSuccess;
 }
 
@@ -472,7 +487,8 @@ constexpr int kRouteWgmma = 1;
 }  // namespace
 
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* out, int B, int H,
+                                     const void* v, void* out, void* lse_out,
+                                     int B, int H,
                                      int KH, int Sq, int Skv, int D, int Dv,
                                      int causal, float scale, int dtype,
                                      int route, void* stream) {
@@ -482,6 +498,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return cudaErrorInvalidValue;
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* lse = static_cast<float*>(lse_out);  // null: not asked for
   cudaError_t err;
   if (route == kRouteWgmma) {
     // what TMA can load: bf16, one head dim for q, k and v, at most two
@@ -492,14 +509,15 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
       return cudaErrorInvalidValue;
     }
     err = D <= 64
-              ? tc::launch<1>(q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, s)
-              : tc::launch<2>(q, k, v, out, B, H, KH, Sq, Skv, D, causal, scale, s);
+              ? tc::launch<1>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, causal, scale, s)
+              : tc::launch<2>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, causal, scale, s);
   } else if (route != kRouteCudaCores) {
     return cudaErrorInvalidValue;
   } else if (dtype == repro::kBFloat16) {
-    err = cc::launch<__nv_bfloat16>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, s);
+    err = cc::launch<__nv_bfloat16>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal, scale,
+                                    s);
   } else if (dtype == repro::kFloat32) {
-    err = cc::launch<float>(q, k, v, out, B, H, KH, Sq, Skv, D, Dv, causal, scale, s);
+    err = cc::launch<float>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal, scale, s);
   } else {
     return cudaErrorInvalidValue;
   }

@@ -66,6 +66,7 @@ def complex_matmul(
     check_tiles(m, n, k, block_m, block_n, block_k)
     if ar.device.type == "cpu":
         return complex_matmul_torch(ar, ai, br, bi)
+    build.refuse_grad("complex_matmul", "fft2d", ar, ai, br, bi)
     build.check_cuda("complex_matmul", ar, ai, br, bi)
     build.check_float32("complex_matmul", ar, ai, br, bi)
     (ar, ai), (br, bi), _ = tma_operands([ar, ai], [br, bi])

@@ -82,6 +82,7 @@ def matmul(
     check_tiles(m, n, k, block_m, block_n, block_k)
     if a.device.type == "cpu":
         return matmul_torch(a, b)
+    build.refuse_grad("matmul", "matmul", a, b)
     build.check_cuda("matmul", a, b)
     build.check_float32("matmul", a, b)
     (a,), (b,), _ = tma_operands([a], [b])
@@ -117,6 +118,7 @@ def schur_update(
         raise ValueError("shapes must tile by the block sizes; pad first")
     if c.device.type == "cpu":
         return schur_update_torch(c, a, b)
+    build.refuse_grad("schur_update", "lu", c, a, b)
     build.check_cuda("schur_update", c, a, b)
     build.check_float32("schur_update", c, a, b)
     (a,), (b,), c = tma_operands([a], [b], c)

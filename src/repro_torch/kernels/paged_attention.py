@@ -271,6 +271,7 @@ def paged_attention(
     mp = pages.shape[1]
     rope = q_rope is not None
     operands = [q, k_pool, v_pool, pages, index] + ([q_rope, kr_pool] if rope else [])
+    build.refuse_grad("paged_attention", "paged_attention", *operands)
     build.check_cuda("paged_attention", *operands)
     if (q_rope is None) != (kr_pool is None):
         raise ValueError("paged_attention: q_rope and kr_pool come together")

@@ -15,6 +15,13 @@ A wrapper runs its plain version only for a CPU tensor; a CUDA tensor
 launches the kernel or raises.  ``rmsnorm`` and ``rmsnorm_torch`` take the
 fused forms as keywords (``delta=``, ``gate=(x, d_skip, z)``), so the
 shelf's one ``rmsnorm`` block, and any binding of it, covers all three.
+
+Under autograd (grad mode on, an input requiring grad) the plain and add
+forms on CUDA tensors go through :class:`RMSNormFn` / :class:`AddRMSNormFn`:
+the forward kernel, then the backward kernel (``csrc/rmsnorm_bwd.cu``,
+:func:`rmsnorm_bwd`); :func:`rmsnorm_bwd_torch` is its plain version.  The
+gated form has no backward kernel and refuses a gradient (bind ``rmsnorm``
+to ``torch`` to train an SSM on the card).
 """
 
 from __future__ import annotations
@@ -29,6 +36,11 @@ from repro_torch.kernels import build
 from repro_torch.kernels.ref import rmsnorm_ref
 
 FORMS = ("plain", "add", "gated")
+#: the forms with a backward kernel
+BWD_FORMS = ("plain", "add")
+#: CTAs of the backward kernel's first pass, at most (each takes
+#: ceil(rows / BWD_CTAS) rows and writes one f32 row of dw partials)
+BWD_CTAS = 512
 #: elements a thread loads at a time, the most threads of a CTA and the
 #: chunks a thread keeps in registers (``csrc/rmsnorm.cu``: kChunk,
 #: kCtaThreads, kRegChunks)
@@ -74,6 +86,25 @@ def gated_rmsnorm_torch(y: torch.Tensor, x: torch.Tensor, d_skip: torch.Tensor,
     return (g * torch.rsqrt(ms + eps) * w.float()).to(z.dtype)
 
 
+def rmsnorm_bwd_torch(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+                      ds: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of the backward kernel: (dx, dw) of
+    ``rmsnorm_ref(x, w)`` for the output gradient ``dy``, per row in f32,
+    ``dx = r (w dy) - x r^3 mean(x w dy)`` with ``r = rsqrt(mean(x^2) +
+    eps)``, plus ``ds`` (the add form: the gradient of the sum output)
+    before the cast to x's type; ``dw`` sums ``dy x r`` over the rows, in
+    w's type."""
+    xf, dyf, wf = x.float(), dy.float(), w.float()
+    r = torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
+    wdy = wf * dyf
+    c = r * r * r * torch.mean(xf * wdy, dim=-1, keepdim=True)
+    dx = r * wdy - xf * c
+    if ds is not None:
+        dx = dx + ds.float()
+    dw = (dyf * xf * r).reshape(-1, x.shape[-1]).sum(dim=0)
+    return dx.to(x.dtype), dw.to(w.dtype)
+
+
 def rmsnorm_torch(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
                   delta: torch.Tensor | None = None, gate: tuple | None = None):
     """The plain versions behind one signature, as :func:`rmsnorm`."""
@@ -116,6 +147,43 @@ def _launch(form: str, out: torch.Tensor, w: torch.Tensor, rows: int, seq: int, 
     rmsnorm.forms[form] += 1
 
 
+class RMSNormFn(torch.autograd.Function):
+    """The plain form's ``cuda`` target under autograd: the forward kernel,
+    then the backward kernel on the saved ``x``."""
+
+    @staticmethod
+    def forward(ctx, x, w, eps):
+        ctx.save_for_backward(x, w)
+        ctx.eps = eps
+        return _rmsnorm_cuda(x, w, eps)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(x, dy, w, ctx.eps)
+        return dx, dw, None
+
+
+class AddRMSNormFn(torch.autograd.Function):
+    """The add form's ``cuda`` target under autograd: ``(s, y)`` from the
+    forward kernel; the backward kernel takes the saved sum ``s``, the
+    norm's gradient and the sum's own (the residual stream's), and gives
+    their total to both ``x`` and ``delta``."""
+
+    @staticmethod
+    def forward(ctx, x, delta, w, eps):
+        s, y = _add_rmsnorm_cuda(x, delta, w, eps)
+        ctx.save_for_backward(s, w)
+        ctx.eps = eps
+        return s, y
+
+    @staticmethod
+    def backward(ctx, ds, dy):
+        s, w = ctx.saved_tensors
+        dx, dw = rmsnorm_bwd(s, dy, w, ctx.eps, ds=ds)
+        return dx, dx, dw, None
+
+
 def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
             delta: torch.Tensor | None = None, gate: tuple | None = None):
     """x (..., d) float32/bfloat16, w (d,) float32/bfloat16 -> x.dtype.
@@ -129,6 +197,8 @@ def rmsnorm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-6, *,
         return gated_rmsnorm(x, *gate, w, eps)
     if x.device.type == "cpu":
         return rmsnorm_ref(x, w, eps)
+    if build.wants_grad(x, w):
+        return RMSNormFn.apply(x, w, eps)
     return _rmsnorm_cuda(x, w, eps)
 
 
@@ -150,6 +220,8 @@ def add_rmsnorm(x: torch.Tensor, delta: torch.Tensor, w: torch.Tensor,
     squares it, and written beside the norm's output (nothing in place)."""
     if x.device.type == "cpu":
         return add_rmsnorm_torch(x, delta, w, eps)
+    if build.wants_grad(x, delta, w):
+        return AddRMSNormFn.apply(x, delta, w, eps)
     return _add_rmsnorm_cuda(x, delta, w, eps)
 
 
@@ -185,6 +257,7 @@ def gated_rmsnorm(y: torch.Tensor, x: torch.Tensor, d_skip: torch.Tensor, z: tor
 
 
 def _gated_rmsnorm_cuda(y, x, d_skip, z, w, eps):
+    build.refuse_grad("gated_rmsnorm", "rmsnorm", y, x, d_skip, z, w)
     build.check_cuda("gated_rmsnorm", d_skip, w)
     if any(t.device != w.device for t in (y, x, z)):
         raise ValueError(f"gated_rmsnorm: every operand must be on {w.device}")
@@ -209,6 +282,49 @@ def _gated_rmsnorm_cuda(y, x, d_skip, z, w, eps):
     return out
 
 
+def rmsnorm_bwd(x: torch.Tensor, dy: torch.Tensor, w: torch.Tensor, eps: float = 1e-6,
+                ds: torch.Tensor | None = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(dx, dw) of the plain form at ``x`` (of the add form at its sum, with
+    ``ds`` the sum output's gradient): the backward kernel for CUDA
+    tensors, :func:`rmsnorm_bwd_torch` for CPU ones.  x, dy and ds (..., d)
+    share x's type; dx comes in x's type, dw in w's."""
+    if x.device.type == "cpu":
+        return rmsnorm_bwd_torch(x, dy, w, eps, ds)
+    return _rmsnorm_bwd_cuda(x, dy, w, eps, ds)
+
+
+def _rmsnorm_bwd_cuda(x, dy, w, eps, ds):
+    dy = dy.contiguous()
+    ds = None if ds is None else ds.contiguous()
+    build.check_cuda("rmsnorm_bwd", x, dy, w, *([] if ds is None else [ds]))
+    d = x.shape[-1]
+    for name, t in (("dy", dy), ("ds", ds)):
+        if t is not None and (t.dtype != x.dtype or t.shape != x.shape):
+            raise ValueError(f"rmsnorm_bwd: {name} must be {x.dtype} {tuple(x.shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    _check_param("rmsnorm_bwd: w", w, d)
+    dx, dw = torch.empty_like(x), torch.empty_like(w)
+    rows = x.numel() // d if d else 0
+    if not rows:
+        return dx, dw.zero_()
+    per_cta = -(-rows // BWD_CTAS)
+    partial = torch.empty((-(-rows // per_cta), d), dtype=torch.float32, device=x.device)
+    plan = norm_plan(d)
+    form = "plain" if ds is None else "add"
+    build.launch(
+        "repro_rmsnorm_bwd", x.data_ptr(), dy.data_ptr(), None if ds is None else ds.data_ptr(),
+        w.data_ptr(), dx.data_ptr(), partial.data_ptr(), dw.data_ptr(), rows, d, eps,
+        build.dtype_code(x), build.dtype_code(w), per_cta, plan.tpr, plan.nv,
+        build.stream_of(x),
+    )
+    rmsnorm_bwd.launches += 1
+    rmsnorm_bwd.forms[form] += 1
+    return dx, dw
+
+
 #: every launch of the kernel, and the launches of each form
 rmsnorm.launches = 0
 rmsnorm.forms = dict.fromkeys(FORMS, 0)
+#: every launch of the backward kernel, and the launches of each form
+rmsnorm_bwd.launches = 0
+rmsnorm_bwd.forms = dict.fromkeys(BWD_FORMS, 0)

@@ -94,6 +94,7 @@ def ssd_chunks(x, dt, a, bmat, cmat, *, chunk: int = 128):
     a = a.reshape(h).float()
     if x.device.type == "cpu":
         return ssd_chunks_torch(x, dt, a, bmat, cmat, chunk=chunk)
+    build.refuse_grad("ssd_chunks", "ssd_scan", x, dt, a, bmat, cmat)
     build.check_cuda("ssd_chunks", a, dt)
     for t in (x, bmat, cmat):
         if t.device != a.device:

@@ -104,3 +104,15 @@ def lm_logits(
     else:
         w = p["lm_head"].to(compute_dtype)
     return x.to(compute_dtype) @ w
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross entropy in f32; logits (B, S, V), labels (B, S).
+    The same terms as the reference's one-hot contraction (the max shift
+    held constant, ``log sum exp(shifted) - shifted[label]``), taking the
+    label's logit by a gather: the port has no vocab-sharded logits."""
+    logits = logits.float()
+    shifted = logits - logits.amax(dim=-1, keepdim=True).detach()
+    logz = torch.log(torch.exp(shifted).sum(dim=-1))
+    gold = shifted.gather(-1, labels.long()[..., None])[..., 0]
+    return (logz - gold).mean()

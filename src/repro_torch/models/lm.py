@@ -14,11 +14,14 @@ reference keys them (``blocks/g0_a/attn/wq``, ``g0_a/k``, ``g0_m/ssm``,
 loop runs the layers.  Each branch's output stays pending until the next
 norm, which adds it to the residual stream in the same launch
 (``add_rmsnorm``); the values are the reference's ``x + branch`` then
-``rmsnorm``.  An MoE layer's Switch aux loss is dropped here: it
-matters to training only.  A batch carries ``tokens`` (B, S), or
-``embeds`` (B, S, D) for a patch-embed frontend (pixtral).
+``rmsnorm``.  A batch carries ``tokens`` (B, S), or ``embeds`` (B, S, D)
+for a patch-embed frontend (pixtral), and for training ``labels`` (B, S).
 
-Modes: ``prefill`` (fill the cache, logits), ``decode`` (one token per row
+Modes: ``train`` (:func:`loss_fn`: the loss, with each MoE layer's Switch
+aux loss summed and weighted by ``moe.aux_loss_coef``; with ``cfg.remat ==
+"full"`` each layer and the head with its cross entropy are checkpointed
+and recomputed in the backward, as the reference's ``jax.checkpoint``),
+``prefill`` (fill the cache, logits), ``decode`` (one token per row
 against the cache) and ``extend`` (an S-token chunk per row, causal within
 the chunk).  ``cache["index"]`` is per-slot (B,): rows decode at their own
 positions (continuous batching); a paged cache also carries
@@ -34,9 +37,11 @@ import dataclasses
 from typing import Any
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 import repro_torch.kernels  # noqa: F401  (registers the function blocks)
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import blocks
 from repro_torch.models import params as pm
 from repro_torch.models.attention import (
     attention_forward,
@@ -48,6 +53,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import (
     add_rmsnorm,
+    cross_entropy,
     embed_lookup,
     embed_metas,
     lm_logits,
@@ -191,6 +197,18 @@ def cast_for_compute(params: Any, cfg: ArchConfig) -> Any:
 # -- block application ----------------------------------------------------------------
 
 
+def _unbind(tree: Any, n: int) -> list:
+    """The ``n`` layers of a stacked parameter tree, as views.  Under
+    autograd one ``unbind`` a leaf gives one backward that stacks the
+    layers' gradients once; indexing each layer apart would give each of
+    the ``n`` selects a backward that fills and adds a stack-sized zero
+    tensor (``n`` times the stack's bytes, read and written, a step)."""
+    if isinstance(tree, dict):
+        per_key = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(tree.unbind(0))
+
+
 def _layer(tree: Any, i: int) -> Any:
     """Layer ``i`` of a stacked tree (views: in-place cache writes land in
     the stacked tensors)."""
@@ -201,9 +219,10 @@ def _layer(tree: Any, i: int) -> Any:
 
 def _apply_attn_block(lp, x, pending, cfg, positions, cache, index, mode, pages=None,
                       slots=None, scatter=None):
-    """Returns (x, pending): the residual stream with the attention output
-    added (fused into ln2) and the FFN's output (the MoE's on an MoE
-    layer), which the next norm adds."""
+    """Returns (x, pending, aux): the residual stream with the attention
+    output added (fused into ln2), the FFN's output (the MoE's on an MoE
+    layer), which the next norm adds, and the MoE's aux loss (None on a
+    dense layer)."""
     cd = torch_dtype(cfg.compute_dtype)
     x, h_in = add_rmsnorm(lp["ln1"], x, pending, cfg.norm_eps)
     attn_out, cache = attention_forward(
@@ -211,8 +230,8 @@ def _apply_attn_block(lp, x, pending, cfg, positions, cache, index, mode, pages=
     )
     x, ff_in = add_rmsnorm(lp["ln2"], x, attn_out, cfg.norm_eps)
     if "moe" in lp:
-        return x, moe_forward(lp["moe"], ff_in.to(cd), cfg, cd)[0]
-    return x, mlp_forward(lp["mlp"], ff_in.to(cd), cd)
+        return (x, *moe_forward(lp["moe"], ff_in.to(cd), cfg, cd))
+    return x, mlp_forward(lp["mlp"], ff_in.to(cd), cd), None
 
 
 def _apply_mamba_block(lp, x, pending, cfg, cache, mode):
@@ -225,10 +244,26 @@ def _apply_mamba_block(lp, x, pending, cfg, cache, mode):
     cd = torch_dtype(cfg.compute_dtype)
     x, h_in = add_rmsnorm(lp["ln"], x, pending, cfg.norm_eps)
     out, _ = ssm_forward(lp["mixer"], h_in.to(cd), cfg, cache, mode)
-    return x, out
+    return x, out, None
 
 
 # -- forward / serve ----------------------------------------------------------------------
+
+
+def _remat(fn, *args):
+    """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
+    recomputed in the backward.  The recompute runs under the block
+    bindings in force now: on the card autograd runs the backward on its
+    own device thread, where this thread's bindings (thread-local) are not,
+    and the recompute would otherwise take other targets than the forward
+    did."""
+    bound = blocks.registry.current_pattern()
+
+    def run(*a):
+        with blocks.bind(bound):
+            return fn(*a)
+
+    return checkpoint(run, *args, use_reentrant=False)
 
 
 def _pool_geometry(cfg: ArchConfig, cache: Any) -> tuple[int, int]:
@@ -243,9 +278,14 @@ def _pool_geometry(cfg: ArchConfig, cache: Any) -> tuple[int, int]:
 
 
 def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
-    """All blocks.  Returns (x, pending, cache): every block's residual add
-    lands in the next block's norm (``add_rmsnorm``), so the last block's
-    output is still pending; None if there is no block."""
+    """All blocks.  Returns (x, pending, cache, aux): every block's residual
+    add lands in the next block's norm (``add_rmsnorm``), so the last
+    block's output is still pending (None if there is no block); aux is the
+    MoE layers' aux losses summed in layer order (f32; train mode only,
+    None otherwise or without an MoE layer).  In ``train`` mode with
+    ``cfg.remat == "full"`` (and grad mode on) each layer runs under
+    ``torch.utils.checkpoint``, carrying ``(x, pending)``: the backward
+    recomputes the layer from its inputs."""
     cd = torch_dtype(cfg.compute_dtype)
     if "embeds" in batch:
         x = batch["embeds"].to(cd)
@@ -269,26 +309,36 @@ def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
         index = None
         positions = steps[None, :].expand(b, s)
 
+    remat = mode == "train" and cfg.remat == "full" and torch.is_grad_enabled()
     pending = None
+    aux = None
     for g in groups_of(cfg):
         gcache = cache[g.key] if cache is not None else None
+        gparams = None if g.kind == "s" else _unbind(params["blocks"][g.key], g.count)
         for i in range(g.count):
             lcache = _layer(gcache, i) if gcache is not None else None
             # each 's' site applies the one shared set to its own cache
-            lp = params["shared_block"] if g.kind == "s" else _layer(params["blocks"][g.key], i)
+            lp = params["shared_block"] if g.kind == "s" else gparams[i]
             if g.kind == "m":
-                x, pending = _apply_mamba_block(lp, x, pending, cfg, lcache, mode)
+                def block(x, pending, lp=lp, lcache=lcache):
+                    return _apply_mamba_block(lp, x, pending, cfg, lcache, mode)
             else:
-                x, pending = _apply_attn_block(
-                    lp, x, pending, cfg, positions, lcache, index, mode, pages, slots, scatter
-                )
-    return x, pending, cache
+                def block(x, pending, lp=lp, lcache=lcache):
+                    return _apply_attn_block(lp, x, pending, cfg, positions, lcache, index,
+                                             mode, pages, slots, scatter)
+            if remat:
+                x, pending, layer_aux = _remat(block, x, pending)
+            else:
+                x, pending, layer_aux = block(x, pending)
+            if mode == "train" and layer_aux is not None:
+                aux = layer_aux if aux is None else aux + layer_aux
+    return x, pending, cache, aux
 
 
 def backbone(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cache: Any = None):
     """All blocks, no head.  Returns (hidden (B, S, D), cache), the last
     block's residual add applied: the one add of a forward left unfused."""
-    x, pending, cache = _blocks(params, batch, cfg, mode, cache)
+    x, pending, cache, _ = _blocks(params, batch, cfg, mode, cache)
     return (x if pending is None else x + pending.to(x.dtype)), cache
 
 
@@ -302,7 +352,7 @@ def head(params: Any, x: torch.Tensor, cfg: ArchConfig,
 
 def forward(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cache: Any = None):
     """Returns (logits, cache).  Every residual add lands in a norm."""
-    x, pending, cache = _blocks(params, batch, cfg, mode, cache)
+    x, pending, cache, _ = _blocks(params, batch, cfg, mode, cache)
     s = x.shape[1]
     logits = head(params, x, cfg, pending)
     if cache is not None:  # in place: a CUDA graph replay writes the caller's tensor
@@ -311,6 +361,31 @@ def forward(params: Any, batch: dict, cfg: ArchConfig, mode: str = "train", cach
         else:  # prefill: every row's cache now holds s tokens
             cache["index"].fill_(s)
     return logits, cache
+
+
+def loss_fn(params: Any, batch: dict, cfg: ArchConfig):
+    """``(total, {"loss", "ce", "aux"})`` of a batch with ``labels`` (B, S):
+    the mean next-token cross entropy in f32 plus ``moe.aux_loss_coef``
+    times the MoE layers' summed aux loss, as the reference's ``loss_fn``.
+    ``params`` are the f32 master weights, cast to the compute dtype at
+    each use (never :func:`cast_for_compute`).  With ``cfg.remat ==
+    "full"`` the head and its cross entropy are checkpointed too: the (B,
+    S, V) logits are recomputed in the backward, not held."""
+    x, pending, _, aux = _blocks(params, batch, cfg, "train", None)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    labels = batch["labels"]
+
+    def head_loss(x, pending):
+        return cross_entropy(head(params, x, cfg, pending), labels)
+
+    if cfg.remat == "full" and torch.is_grad_enabled():
+        ce = _remat(head_loss, x, pending)
+    else:
+        ce = head_loss(x, pending)
+    coef = cfg.moe.aux_loss_coef if cfg.moe else 0.0
+    total = ce + coef * aux
+    return total, {"loss": total, "ce": ce, "aux": aux}
 
 
 def prefill(params: Any, batch: dict, cfg: ArchConfig, cache: Any):

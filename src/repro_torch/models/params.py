@@ -81,3 +81,10 @@ def init_params(
 
     return build(metas)
 
+
+
+def count_params(metas: Any) -> int:
+    """Number of parameters a meta tree materialises."""
+    if isinstance(metas, ParamMeta):
+        return math.prod(metas.shape)
+    return sum(count_params(v) for v in metas.values())

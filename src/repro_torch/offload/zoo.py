@@ -4,23 +4,25 @@ port of ``repro/offload/zoo.py``).
 The serve engine and CLI only *load* plans; this module is the
 verification-environment side that produces them for the model zoo.  For
 every requested (arch, kind) cell it builds the *real* step — prefill or
-decode, the functions the engine's programs run — as a captured step
+decode, the functions the engine's programs run, as a captured step
 program (:class:`repro_torch.runtime.programs.Program`, the port's
-counterpart of the reference's ``jax.jit``), wraps it in a
-``BindingSpace`` over the function blocks that step exercises, runs a full
-``OffloadSession`` lifecycle, and commits the winning plan to the store
-under ``zoo:<arch>:<kind>``.  A trial therefore times replays of the
-captured step, as the engine runs it: the first two calls of a
-candidate's program run eagerly and capture (the measurement's warm-up),
-every timed call is a replay.
+counterpart of the reference's ``jax.jit``); or the trainer's
+``make_train_step`` — wraps it in a ``BindingSpace`` over the function
+blocks that step exercises, runs a full ``OffloadSession`` lifecycle, and
+commits the winning plan to the store under ``zoo:<arch>:<kind>``.  A
+prefill or decode trial therefore times replays of the captured step, as
+the engine runs it: the first two calls of a candidate's program run
+eagerly and capture (the measurement's warm-up), every timed call is a
+replay.  A train step is not captured: its trials time eager steps after
+one warm-up call, each on a copy of the cell's weights and moments (the
+step updates in place; the reference's jitted step is pure).
 
   PYTHONPATH=src python -m repro_torch.offload.zoo --plan-dir results/plans \\
       --arch llama3.2-1b --kind decode --reduced --device cpu
 
 On the card the CLI searches ``--targets torch,cuda`` by default; with
 ``--device cpu`` it searches ``ref,torch`` (a kernel wrapper given a CPU
-tensor runs its plain version).  The ``train`` kind is not ported: the port
-has no training step yet.
+tensor runs its plain version).
 """
 
 from __future__ import annotations
@@ -56,8 +58,6 @@ _DECODE_BLOCKS_BY_LAYER_KIND = {
 }
 
 ZOO_KINDS = ("train", "prefill", "decode")
-#: the kinds whose step the port has
-PORTED_KINDS = ("prefill", "decode")
 
 #: the CLI's default targets per device
 DEFAULT_TARGETS = {"cuda": ("torch", "cuda"), "cpu": ("ref", "torch")}
@@ -205,7 +205,9 @@ def _cell_target(
 ):
     """(step_builder, args, cfg) for one zoo cell: the engine's own
     prefill / decode functions over seeded weights cast for compute, and
-    a builder that returns them as a captured program."""
+    a builder that returns them as a captured program; or the train step
+    (``TrainHyper(warmup_steps=2, total_steps=16)``, as the reference's
+    cell) over f32 master weights and fresh moments, eager."""
     import numpy as np
     import torch
 
@@ -215,11 +217,6 @@ def _cell_target(
 
     if kind not in ZOO_KINDS:
         raise ValueError(f"unknown cell kind '{kind}'; known: {ZOO_KINDS}")
-    if kind not in PORTED_KINDS:
-        raise NotImplementedError(
-            f"zoo cell kind '{kind}': training is not ported to repro_torch yet "
-            f"(ported kinds: {PORTED_KINDS})"
-        )
     device = resolve_device(device)
     cfg = get_config(arch)
     if reduced:
@@ -232,8 +229,10 @@ def _cell_target(
             else cfg.pattern()[:layers],
         )
     rng = np.random.default_rng(seed)
-    params = lm.cast_for_compute(lm.init_params(cfg, seed=seed, device=device), cfg)
     name = f"zoo:{cfg.name}:{kind}"
+    if kind == "train":
+        return _train_cell(cfg, rng, batch, seq, seed, device)
+    params = lm.cast_for_compute(lm.init_params(cfg, seed=seed, device=device), cfg)
 
     if kind == "prefill":
         batch_tree = _materialize({"tokens": (batch, seq)}, cfg, rng, device)
@@ -279,6 +278,41 @@ def _cell_target(
     return builder, args, cfg
 
 
+def _train_cell(cfg: Any, rng: Any, batch: int, seq: int, seed: int, device: Any):
+    """The train cell: ``make_train_step`` over the f32 master weights, its
+    batch (``embeds`` for a patch-embed frontend, as the reference's
+    ``input_specs``) and labels.  Each call steps a copy of the weights and
+    moments, so every trial (and the numerics stage) starts from the cell's
+    state, as the reference's pure step does."""
+    import numpy as np
+    import torch
+
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW, OptState, tree_map
+
+    params = lm.init_params(cfg, seed=seed, device=device)
+    opt = AdamW(moment_dtype=cfg.opt_dtype)
+    step = make_train_step(cfg, opt, TrainHyper(warmup_steps=2, total_steps=16))
+    tree = _materialize({"labels": (batch, seq)}, cfg, rng, device)
+    if cfg.frontend == "patch_embed":
+        embeds = rng.standard_normal((batch, seq, cfg.d_model)).astype(np.float32)
+        tree["embeds"] = torch.from_numpy(embeds).to(device)
+    else:
+        tree.update(_materialize({"tokens": (batch, seq)}, cfg, rng, device))
+
+    def train(p, o, b):
+        copy = lambda t: t.detach().clone()  # noqa: E731
+        return step(tree_map(copy, p),
+                    OptState(tree_map(copy, o.mu), tree_map(copy, o.nu), o.step.clone()), b)
+
+    def builder():
+        return train
+
+    train.warmup_calls = 1  # eager: one warm-up call, no capture
+    return builder, (params, opt.init(params), tree), cfg
+
+
 def plan_zoo(
     store: PlanStore | str,
     cells: Sequence[tuple[str, str]] | None = None,
@@ -305,9 +339,8 @@ def plan_zoo(
 ) -> dict[tuple[str, str], OffloadResult]:
     """Search and persist an offload plan for every (arch, kind) cell.
 
-    ``cells`` defaults to every registered architecture x every ported
-    step kind (prefill, decode; a ``train`` cell raises
-    ``NotImplementedError``).  Already-stored compatible plans short-cut to
+    ``cells`` defaults to every registered architecture x every step kind
+    (train, prefill, decode).  Already-stored compatible plans short-cut to
     zero measurements (pass ``force_search=True`` to re-measure).
     ``device`` is where the cells run (the CUDA card unless ``"cpu"``).
     ``executor`` accepts the serial executor only; ``meter``, ``legality``
@@ -321,15 +354,10 @@ def plan_zoo(
     from repro_torch.metering import resolve_executor
 
     if cells is None:
-        cells = [(a, k) for a in ARCH_NAMES for k in PORTED_KINDS]
+        cells = [(a, k) for a in ARCH_NAMES for k in ZOO_KINDS]
     for _, kind in cells:
         if kind not in ZOO_KINDS:
             raise ValueError(f"unknown cell kind '{kind}'; known: {ZOO_KINDS}")
-        if kind not in PORTED_KINDS:
-            raise NotImplementedError(
-                f"zoo cell kind '{kind}': training is not ported to repro_torch "
-                f"yet (ported kinds: {PORTED_KINDS})"
-            )
     unported = {"meter": meter is not None, "legality": bool(legality),
                 "resources": resources not in (False, None)}
     asked = sorted(k for k, v in unported.items() if v)
@@ -396,7 +424,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap.add_argument("--arch", default="all",
                     help="comma-separated arch names, or 'all'")
     ap.add_argument("--kind", default="all",
-                    help="comma-separated step kinds (prefill,decode)")
+                    help="comma-separated step kinds (train,prefill,decode)")
     ap.add_argument("--reduced", action=argparse.BooleanOptionalAction,
                     default=True,
                     help="search reduced configs (--no-reduced for the full "
@@ -422,7 +450,7 @@ def main(argv: Sequence[str] | None = None) -> None:
     from repro_torch.configs import ARCH_NAMES
 
     archs = ARCH_NAMES if args.arch == "all" else args.arch.split(",")
-    kinds = PORTED_KINDS if args.kind == "all" else tuple(args.kind.split(","))
+    kinds = ZOO_KINDS if args.kind == "all" else tuple(args.kind.split(","))
     targets = (tuple(args.targets.split(",")) if args.targets
                else DEFAULT_TARGETS[args.device])
     cells = [(a, k) for a in archs for k in kinds]

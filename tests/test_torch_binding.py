@@ -436,11 +436,18 @@ def test_default_plan_key_requires_stored_plan(tmp_path):
 
 
 def test_zoo_train_kind_and_unported_options_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="training"):
-        zoo.plan_zoo(str(tmp_path), [("llama3.2-1b", "train")], device="cpu")
-    with pytest.raises(NotImplementedError, match="training"):
-        zoo._cell_target("llama3.2-1b", "train", reduced=True, layers=1, batch=1, seq=8,
-                         seed=0, device="cpu")
+    """The train cell is ported: it searches and commits a plan (an eager
+    step a trial, one warm-up call); the unported options still raise."""
+    builder, args, _ = zoo._cell_target("llama3.2-1b", "train", reduced=True, layers=1,
+                                        batch=1, seq=8, seed=0, device="cpu")
+    assert builder().warmup_calls == 1
+    store = str(tmp_path / "train")
+    results = zoo.plan_zoo(store, [("llama3.2-1b", "train")], layers=1, batch=1, seq=8,
+                           targets=("ref", "torch"), device="cpu")
+    assert results[("llama3.2-1b", "train")].plan is not None
+    assert zoo.default_plan_key(store, "llama3.2-1b", "train") == "zoo:llama3.2-1b:train"
+    (tmp_path / "train" / "zoo_llama3.2-1b_train.json").unlink()
+    (tmp_path / "train").rmdir()
     for kw in (dict(meter="auto"), dict(legality=True), dict(resources=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             zoo.plan_zoo(str(tmp_path), [("llama3.2-1b", "decode")], device="cpu", **kw)

@@ -589,8 +589,10 @@ def test_flash_route_is_picked_by_the_wrapper_passed_and_counted(monkeypatch):
     tatt.flash_attention(*qkv(64, 64, device="meta"))
     out = tatt.flash_attention(*qkv(192, 128, device="meta"))
     assert tuple(out.shape) == (1, 4, 8, 128)
-    assert [args[14] for _, args in calls] == [tatt.ROUTES.index("wgmma"),
+    # the route code follows q, k, v, out, lse and the eight sizes
+    assert [args[15] for _, args in calls] == [tatt.ROUTES.index("wgmma"),
                                                tatt.ROUTES.index("cuda_cores")]
+    assert [args[4] for _, args in calls] == [None, None]  # serving asks for no lse
     assert tatt.flash_attention.routes == {"cuda_cores": 1, "wgmma": 1}
     assert launch_counts()["flash_attention"] == 2
     kernels.reset_launches()
@@ -608,7 +610,7 @@ def test_kernel_sources_carry_their_notes_and_hash(tmp_path, monkeypatch):
     kernel_sources = {p.name for p in build.sources() if "__global__" in p.read_text()}
     assert kernel_sources == {
         "rmsnorm.cu", "paged_attention.cu", "flash_attention.cu", "matmul.cu",
-        "complex_matmul.cu", "ssd_chunks.cu",
+        "complex_matmul.cu", "ssd_chunks.cu", "flash_attention_bwd.cu", "rmsnorm_bwd.cu",
     }
     for name in kernel_sources:
         text = (build.CSRC / name).read_text()

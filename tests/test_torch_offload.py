@@ -246,8 +246,9 @@ def test_session_stages_and_unported_options():
         planner.MeasurementCache(executor="device-parallel")
     with pytest.raises(NotImplementedError, match="not ported"):
         OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu", meter="auto")
-    with pytest.raises(NotImplementedError, match="training"):
-        OffloadSession.plan_zoo("unused", [("llama3.2-1b", "train")], device="cpu")
+    with pytest.raises(NotImplementedError, match="not ported"):
+        OffloadSession.plan_zoo("unused", [("llama3.2-1b", "train")], device="cpu",
+                                meter="auto")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             OffloadSession(fourier.fourier_app_libcall, args=(x,)).run()
