@@ -158,9 +158,10 @@ rows each).
 The backward kernels are held in phase 2 too: flash's backward (dq, dk,
 dv from the forward kernel's ``out`` and ``lse``, the ``lse`` itself
 against the plain forward's) at llama's train shape (B 8, H 32, KH 8, S
-512, D 64, bf16: the tensor-core route), bf16 at B 2, S 300 (its ragged
-edge), f32 at B 2, S 300 and deepseek-v2's qk 192 / v 128 (the CUDA-core
-route; each row names its route);
+512, D 64, bf16: the wgmma route), bf16 at B 2, S 300 (its ragged edge),
+zamba2's D 112 and arctic's D 128 (wgmma, two column boxes), f32 at B 2,
+S 300 and deepseek-v2's qk 192 / v 128 (the CUDA-core route; each row
+names its route);
 RMSNorm's backward, plain and add forms, at 4096 x 2048 bf16 and f32 at d
 = 100.  Each is called twice on the same inputs, bit for bit; the library
 call is the backward alone of SDPA / ``F.rms_norm`` through autograd,
@@ -592,11 +593,14 @@ def _flash_bwd_cases(torch, timer, randn) -> list:
     ``_core_bwd``) on the forward kernel's own ``out`` and ``lse`` (the
     forward's ``lse`` itself held against the plain forward's): llama's
     train shape (B 8, H 32, KH 8, S 512, D 64, bf16; the headline; the
-    tensor-core route), bf16 and f32 at B 2 and a ragged S 300 (the
-    tensor-core route's masked edge; the CUDA cores), and deepseek-v2's MLA
-    prefill (qk 192 / v 128, H = KH = 128, S 512, bf16: 32-row tiles).  The library call is the
-    backward alone of ``F.scaled_dot_product_attention`` (causal, GQA),
-    through ``torch.autograd.grad`` from a kept graph."""
+    wgmma route), bf16 and f32 at B 2 and a ragged S 300 (the wgmma
+    route's padded edge; the CUDA cores), deepseek-v2's MLA prefill (qk
+    192 / v 128, H = KH = 128, S 512, bf16: the CUDA cores' 32-row tiles),
+    and on the wgmma route zamba2's shared attention (H = KH = 32, D 112:
+    two column boxes, zero-filled past 112) and arctic's (H 56, KH 8, D
+    128).  Each row names its route and is called twice, bit for bit.  The
+    library call is the backward alone of ``F.scaled_dot_product_attention``
+    (causal, GQA), through ``torch.autograd.grad`` from a kept graph."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import attention as fa
@@ -606,7 +610,9 @@ def _flash_bwd_cases(torch, timer, randn) -> list:
     for b, h, kh, s, d, dv, dtype in ((8, 32, 8, 512, 64, 64, torch.bfloat16),
                                       (2, 32, 8, 300, 64, 64, torch.bfloat16),
                                       (2, 32, 8, 300, 64, 64, torch.float32),
-                                      (1, 128, 128, 512, 192, 128, torch.bfloat16)):
+                                      (1, 128, 128, 512, 192, 128, torch.bfloat16),
+                                      (1, 32, 32, 512, 112, 112, torch.bfloat16),
+                                      (1, 56, 8, 512, 128, 128, torch.bfloat16)):
         q, k = randn(b, h, s, d, dtype=dtype), randn(b, kh, s, d, dtype=dtype)
         v, do = randn(b, kh, s, dv, dtype=dtype), randn(b, h, s, dv, dtype=dtype)
         out, lse = fa._flash_cuda(q, k, v, True, with_lse=True)
@@ -2158,6 +2164,13 @@ def phase_main_path_train(torch) -> dict:
     device, events = _device_events(prof)
     total = sum(device.values())
     top = sorted(device.items(), key=lambda kv: -kv[1])[:10]
+    # the wgmma route's delta pass, dK / dV and dQ (flash_bwd_*): every
+    # backward launch so far (the 10 steps and the profiled one) took it
+    flash_bwd = {k: v for k, v in device.items() if "flash_bwd_" in k}
+    flash_bwd_routes = dict(kernels.KERNELS["flash_attention_bwd"].routes)
+    if not flash_bwd or flash_bwd_routes["cuda_cores"] or not flash_bwd_routes["wgmma"]:
+        raise AssertionError(f"main_path_train: flash backward routes {flash_bwd_routes}, "
+                             f"device kernels {sorted(flash_bwd)}")
 
     # one step's loss and gradient from the trained state, each binding
     batch = batches[0]
@@ -2184,13 +2197,13 @@ def phase_main_path_train(torch) -> dict:
         "tok_per_s": TRAIN_BATCH * TRAIN_SEQ / (median / 1e3),
         "peak_memory_gb": peak, "launches": counted,
         "flash_routes": dict(kernels.KERNELS["flash_attention"].routes),
-        "flash_bwd_routes": dict(kernels.KERNELS["flash_attention_bwd"].routes),
+        "flash_bwd_routes": flash_bwd_routes,
         "profiled_step": {
             "wall_ms": profiled_wall, "device_ms": total,
             "device_busy_share": total / profiled_wall, "device_events": events,
             "top_device_ms": {k[:80]: v for k, v in top},
-            "flash_bwd_device_ms": sum(v for k, v in device.items()
-                                       if any(n in k for n in ("dkdv_", "dq_kernel", "dq_tc"))),
+            "flash_bwd_device_ms": sum(flash_bwd.values()),
+            "flash_bwd_device_ms_by_kernel": {k[:80]: v for k, v in flash_bwd.items()},
             "norm_bwd_device_ms": sum(v for k, v in device.items()
                                       if "norm_bwd_kernel" in k or "dw_kernel" in k),
         },

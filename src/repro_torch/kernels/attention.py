@@ -28,9 +28,12 @@ MAX_BWD_HEAD_DIM = 256
 #: the kernel's routes, by the code the C entry point takes
 ROUTES = ("cuda_cores", "wgmma")
 #: the backward kernel's routes, by the code its C entry point takes
-BWD_ROUTES = ("cuda_cores", "mma")
-#: the largest head dim the backward's tensor-core route takes
-MAX_MMA_BWD_HEAD_DIM = 64
+BWD_ROUTES = ("cuda_cores", "wgmma")
+#: the largest head dim the backward's wgmma route takes (two column boxes)
+MAX_WGMMA_BWD_HEAD_DIM = 128
+#: the wgmma route's tile rows: its workspace pads Sq to a multiple
+BWD_TILE = 64
+_LOG2E = 1.4426950408889634
 
 
 def flash_attention_torch(
@@ -119,14 +122,38 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_bwd_route(*operands: torch.Tensor) -> str:
     """The backward kernel's route for these operands (q, k, v first): bf16
-    with D and Dv multiples of 16 up to ``MAX_MMA_BWD_HEAD_DIM`` and 16-byte
-    aligned operands runs on the tensor cores (mma.sync), the rest on the
-    CUDA cores."""
+    with D and Dv multiples of 8 up to ``MAX_WGMMA_BWD_HEAD_DIM`` and
+    16-byte aligned operands (what TMA loads) runs on wgmma, the rest on
+    the CUDA cores."""
     d, dv = operands[0].shape[-1], operands[2].shape[-1]
     aligned = all(t.data_ptr() % 16 == 0 for t in operands)
-    mma = (operands[0].dtype == torch.bfloat16 and d % 16 == 0 and dv % 16 == 0
-           and max(d, dv) <= MAX_MMA_BWD_HEAD_DIM and aligned)
-    return "mma" if mma else "cuda_cores"
+    tma = (operands[0].dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0
+           and max(d, dv) <= MAX_WGMMA_BWD_HEAD_DIM and aligned)
+    return "wgmma" if tma else "cuda_cores"
+
+
+def bwd_delta_torch(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """The delta pass's plain version: ``rowsum(do * out)`` in f32, (B, H,
+    Sq), the reference ``_core_bwd``'s ``dsum``."""
+    return (do.float() * out.float()).sum(-1)
+
+
+def bwd_workspace_shape(b: int, h: int, sq: int) -> tuple[int, int, int]:
+    """The wgmma route's workspace: (B * H, 2, Sq padded to ``BWD_TILE``)
+    f32, row 0 the lse in log2 units, row 1 delta."""
+    return b * h, 2, -(-sq // BWD_TILE) * BWD_TILE
+
+
+def bwd_workspace_torch(out: torch.Tensor, lse: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
+    """What the delta pass writes into the workspace: ``lse * log2 e`` and
+    delta for each row, and past Sq ``+inf`` and 0, so that a padded row's
+    probability ``exp2(s - inf)`` is exactly 0."""
+    b, h, sq = lse.shape
+    ws = torch.zeros(bwd_workspace_shape(b, h, sq), dtype=torch.float32, device=lse.device)
+    ws[:, 0] = float("inf")
+    ws[:, 0, :sq] = lse.reshape(b * h, sq) * _LOG2E
+    ws[:, 1, :sq] = bwd_delta_torch(out, do).reshape(b * h, sq)
+    return ws
 
 
 def flash_attention(
@@ -161,7 +188,8 @@ def flash_attention_bwd(
     plain version (``attention_chunked.flash_attention_bwd_torch``) for CPU
     ones.  dK and dV are summed over each kv head's query heads.  The route
     comes from :func:`flash_bwd_route`; ``flash_attention_bwd.routes``
-    counts the launches of each."""
+    counts the launches of each.  The wgmma route's delta pass writes into
+    a workspace allocated here (:func:`bwd_workspace_shape`)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_torch(q, k, v, out, lse, do, causal)
     return _flash_attention_bwd_cuda(q, k, v, out, lse, do, causal)
@@ -186,11 +214,16 @@ def _flash_attention_bwd_cuda(q, k, v, out, lse, do, causal):
         raise ValueError(f"flash_attention_bwd: head dims {d}, {dv} exceed {MAX_BWD_HEAD_DIM}")
     dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() and k.numel():
-        route = flash_bwd_route(q, k, v, do, dq, dk, dvv)
+        route = flash_bwd_route(q, k, v, out, do, dq, dk, dvv)
+        ws = None
+        if route == "wgmma":  # the delta pass's rows: (lse, delta) of each query
+            ws = torch.empty(bwd_workspace_shape(b, h, sq), dtype=torch.float32,
+                             device=q.device)
         build.launch(
             "repro_flash_attention_bwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+            None if ws is None else ws.data_ptr(), 0 if ws is None else ws.numel(),
             b, h, kh, sq, skv, d, dv, int(causal), 1.0 / d ** 0.5,
             build.dtype_code(q), BWD_ROUTES.index(route), build.stream_of(q),
         )

@@ -51,9 +51,10 @@ ENTRY_POINTS = {
     # q, k, v, out, lse (or null), B, H, KH, Sq, Skv, D, Dv, causal, scale,
     # dtype, route, stream
     "repro_flash_attention": [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P],
-    # q, k, v, out, lse, do, dq, dk, dv, B, H, KH, Sq, Skv, D, Dv, causal,
-    # scale, dtype, route, stream
-    "repro_flash_attention_bwd": [_P] * 9 + [_I] * 8 + [_F, _I, _I, _P],
+    # q, k, v, out, lse, do, dq, dk, dv, workspace (or null),
+    # workspace_elems, B, H, KH, Sq, Skv, D, Dv, causal, scale, dtype, route,
+    # stream
+    "repro_flash_attention_bwd": [_P] * 10 + [_L] + [_I] * 8 + [_F, _I, _I, _P],
     # x, dy, ds (or null), w, dx, partial, dw, rows, d, eps, dtype, w_dtype,
     # rows_per_cta, tpr, nv, stream
     "repro_rmsnorm_bwd": [_P] * 7 + [_I] * 2 + [_F] + [_I] * 5 + [_P],

@@ -278,11 +278,6 @@ __device__ __forceinline__ void mma_pv(float (&d)[64], const uint32_t (&a)[4], u
   mma_bf16_rs_n128(d, a, b, 1);
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);  // lo -> low half
-  return *reinterpret_cast<const uint32_t*>(&p);
-}
-
 template <int NB>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const __grid_constant__ CUtensorMap q_map,
@@ -448,26 +443,15 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// 3-D map (D, S, B * heads) over a (B, heads, S, D) bf16 tensor
-cudaError_t map_3d(CUtensorMap* map, const void* base, int D, int S, int BH,
-                   int box_rows) {
-  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
-                            static_cast<uint64_t>(BH)};
-  const uint64_t strides[2] = {2ull * D, 2ull * D * S};
-  const uint32_t box[3] = {64, static_cast<uint32_t>(box_rows), 1};
-  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides,
-                  box, CU_TENSOR_MAP_SWIZZLE_128B);
-}
-
 template <int NB>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int H, int KH, int Sq, int Skv, int D,
                    int causal, float scale, cudaStream_t stream) {
   using C = Cfg<NB>;
   CUtensorMap q_map, k_map, v_map;
-  cudaError_t err = map_3d(&q_map, q, D, Sq, B * H, kBM);
-  if (err == cudaSuccess) err = map_3d(&k_map, k, D, Skv, B * KH, C::kBKV);
-  if (err == cudaSuccess) err = map_3d(&v_map, v, D, Skv, B * KH, C::kBKV);
+  cudaError_t err = map_heads(&q_map, q, D, Sq, B * H, kBM);
+  if (err == cudaSuccess) err = map_heads(&k_map, k, D, Skv, B * KH, C::kBKV);
+  if (err == cudaSuccess) err = map_heads(&v_map, v, D, Skv, B * KH, C::kBKV);
   if (err != cudaSuccess) return err;
   static const cudaError_t smem_err = allow_smem(flash_kernel<NB>, C::kSmem);
   if (smem_err != cudaSuccess) return smem_err;

@@ -19,15 +19,18 @@
 // Bound on the H100: at llama3.2-1b's train shape (B = 8, H = 32, KH = 8, S
 // = 512, D = 64, bf16) the five products of the causal half take ~21.5
 // GFLOP against ~84 MB of operands, so operations on the tensor cores (~0.02
-// ms at 989 TFLOP/s) and bytes (~0.025 ms) are about even.
+// ms at 989 TFLOP/s) and bytes (~0.025 ms) are about even.  The wgmma route
+// recomputes S and dP in its dq kernel: seven products, ~30 GFLOP.
 //
-// Two routes, the wrapper's choice (kernels/attention.py, flash_bwd_route),
-// each two kernels with no atomics, every output written once and every sum
-// in a fixed order, so a call is bit for bit repeatable (the train loop's
+// Two routes, the wrapper's choice (kernels/attention.py, flash_bwd_route).
+// Neither uses atomics: every output is written once and every sum runs in
+// a fixed order, so a call is bit for bit repeatable (the train loop's
 // restart is held to the bit):
-//  * bf16 with D and Dv multiples of 16 up to 64 (llama's train shape):
-//    mma.sync m16n8k16 on the tensor cores (the `tc` namespace below);
-//  * f32 and every other shape: the CUDA cores (the `cc` namespace).
+//  * bf16 with D and Dv multiples of 8 up to 128 and 16-byte aligned
+//    operands (llama's, zamba2's and arctic's train shapes): wgmma with TMA
+//    loads, three kernels (the `wg` namespace below);
+//  * f32 and every other shape: the CUDA cores, two kernels (the `cc`
+//    namespace).
 //
 // CUDA cores.
 //  * dk, dv: one CTA per (key block, kv head, batch).  The key block's K and
@@ -48,6 +51,7 @@
 #include <cstdint>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -386,350 +390,535 @@ cudaError_t launch_dims(const void* q, const void* k, const void* v, const void*
 
 }  // namespace cc
 
-// -- bf16 on the tensor cores: mma.sync m16n8k16 -------------------------------------
+
+// -- bf16 on wgmma + TMA ---------------------------------------------------------------
 //
-// The FlashAttention-2 backward's shape on mma.sync.  Tiles of 64 keys and
-// 64 queries in shared memory as bf16, rows padded by 16 bytes (so the 8
-// rows an ldmatrix reads fall in distinct banks); 4 warps a CTA, each the
-// M = 16 rows of its products.  dk, dv: a warp owns 16 of the CTA's keys
-// and computes S^T = K Q^T and dP^T = V dO^T for them against each query
-// block (A from K / V, B from Q / dO by ldmatrix), P^T and dS^T on the
-// accumulator fragments, then dV += P^T dO and dK += dS^T Q with P^T and
-// dS^T, rounded to bf16, as A operands straight from the registers (B by
-// ldmatrix.trans).  dq: a warp owns 16 of the CTA's queries (q and do as A
-// fragments held in registers) and walks the key blocks: S = Q K^T, dP =
-// dO V^T, then dQ += dS K.  Accumulation is f32 throughout; no tile of P
-// or dS goes through shared memory.
+// Three kernels on PyTorch's stream, each CTA one consumer warpgroup (M =
+// 64 rows of every product) and one producer warp that issues TMA loads
+// (3-D maps (head dim, S, B * heads): a box past S or the head dim is
+// zero-filled, never the next head's rows; head dims load in boxes of 64,
+// one 128-byte swizzled row, so D up to 128 takes two).
+//  * flash_bwd_delta: delta = rowsum(do * out) in f32, once a call, into a
+//    workspace the wrapper allocates, rows (b h, 0, i) = lse * log2 e and
+//    (b h, 1, i) = delta, Sq padded to 64; padded rows get +inf and 0, so
+//    their probabilities are exactly 0 with no mask.  8 lanes a row, each
+//    with 16-byte loads of out and do all issued before any is used, 4
+//    rows a warp.  Neither later kernel reads out.
+//  * flash_bwd_dkdv: one CTA per (key tile of 64, kv head, batch), the
+//    heaviest (first) key tiles first.  K and V are loaded once; each (query
+//    head of the group, query block on or below the diagonal) streams its
+//    Q and dO tiles and its 64-row slice of the workspace through a ring of
+//    two stages on full / empty mbarriers.  S^T = K Q^T and dP^T = V dO^T
+//    are SS wgmma (both K-major); P^T = exp2(S^T scale log2 e - lse2) and
+//    dS^T = P^T (dP^T - delta) are formed on the accumulator fragments (the
+//    causal mask only on the diagonal tile, keys past Skv on the ragged
+//    one); then dV += P^T dO and dK += dS^T Q are RS wgmma, P^T and dS^T
+//    rounded to bf16 in registers as the A operands and dO and Q read
+//    MN-major from the tiles that served as the score products' K-major B.
+//    dV's product runs while dS^T is formed.  dK and dV stay in f32
+//    registers over the whole group and are written once, in bf16, dK times
+//    scale.
+//  * flash_bwd_dq: one CTA per (query tile of 64, head, batch), the heaviest
+//    (last) tiles first.  Q, dO and the workspace slice are loaded once; K
+//    and V tiles up to the diagonal stream through the ring.  S = Q K^T and
+//    dP = dO V^T (SS), dS in registers, dQ += dS K (RS, K read MN-major);
+//    dQ is written once, times scale.  It reads nothing dK / dV writes, so
+//    it launches as a programmatic (PDL) dependent of dK / dV and fills the
+//    SMs that grid's tail frees (0.122 -> 0.115 ms at llama's train shape on
+//    the H100); it waits for dK / dV at its end, so what follows on the
+//    stream sees all three outputs.
+// Every sum runs in one order: the group's heads, then query blocks, in
+// the dK / dV CTA; key blocks in the dQ CTA; k16 steps within a product.
 
-namespace tc {
+namespace wg {
 
+using namespace repro::hopper;
 using bf16 = __nv_bfloat16;
-constexpr int kBM = 64;      // keys or queries a tile
-constexpr int kThreads = 128;  // 4 warps, 16 rows each
-constexpr int kMaxD = 64;    // head dims, q/k and v: multiples of 16 up to 64
-constexpr int kLd = kMaxD + 8;  // the widest padded row (bf16 elements)
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
+constexpr int kBM = 64;  // a CTA's keys or queries, and a streamed tile's rows
+constexpr int kConsumers = 128;
+constexpr int kThreads = kConsumers + 32;  // and one producer warp
+constexpr int kStages = 2;
+constexpr int kRow = 128;               // bytes of a swizzled row: 64 bf16 head dims
+constexpr int kBox = kBM * kRow;        // a 64-row box of 64 head dims
+constexpr int kRowsBytes = 2 * kBM * 4;  // a tile's lse2 and delta slices
+constexpr int kRowsSlot = 1024;         // ... padded: tiles stay 1024-byte aligned
+constexpr int kMaxD = 128;
+constexpr int kDeltaThreads = 256;  // the delta pass: 8 lanes a row
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
+// Sq rounded up to whole tiles: the workspace's row length
+__host__ __device__ constexpr int padded(int sq) { return (sq + kBM - 1) / kBM * kBM; }
 
-__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
+// NK, NV: column boxes of q / k's and of v / do's head dims (1 or 2)
+template <int NK, int NV>
+struct Cfg {
+  static constexpr int kK = NK * kBox;  // a q or k tile
+  static constexpr int kV = NV * kBox;  // a v or do tile
+  static constexpr int kBars = (2 * kStages + 1) * 8;
+  // dK / dV: K, V resident; stages of (Q, dO, rows)
+  static constexpr int kKVStage = kK + kV + kRowsSlot;
+  static constexpr int kKVBarOffset = kK + kV + kStages * kKVStage;
+  static constexpr int kKVSmem = kKVBarOffset + kBars + 1024;
+  // dQ: Q, dO, rows resident; stages of (K, V)
+  static constexpr int kQStage = kK + kV;
+  static constexpr int kQBarOffset = kK + kV + kRowsSlot + kStages * kQStage;
+  static constexpr int kQSmem = kQBarOffset + kBars + 1024;
+  // dK / dV CTAs an SM: two where its two f32 accumulators take one box each
+  static constexpr int kKVMinBlocks = NK + NV == 2 ? 2 : 1;
+};
 
-// d += a . b for one m16n8k16 tile, bf16 in, f32 accumulator
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo -> low half
-  return *reinterpret_cast<const uint32_t*>(&v);
-}
-
-// rows [row0, row0 + 64) of a (n_rows, width) bf16 matrix into dst (64 x
-// ld), 16 bytes a load, zeros past n_rows (width % 8 == 0)
-__device__ __forceinline__ void stage(bf16* dst, int ld, const bf16* src, int row0, int n_rows,
-                                      int width) {
-  const int chunks = width / 8;
-  for (int i = threadIdx.x; i < kBM * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i - r * chunks) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < n_rows) {
-      v = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(row0 + r) * width + c);
-    }
-    *reinterpret_cast<uint4*>(dst + r * ld + c) = v;
-  }
-}
-
-// a query block's lse and delta = rowsum(do * out): warp w the rows 16 w ..
-// 16 w + 15 (do already staged)
-__device__ __forceinline__ void stage_rows(float* lse_s, float* delta_s, const float* lse,
-                                           const bf16* out, const bf16* dOs, int ldv, int row0,
-                                           int Sq, int Dv) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int r = 16 * warp; r < 16 * warp + 16; ++r) {
-    const int i = row0 + r;
-    float acc = 0.f;
-    if (i < Sq) {
-      for (int d = lane; d < Dv; d += 32) {
-        acc += __bfloat162float(dOs[r * ldv + d]) *
-               __bfloat162float(out[static_cast<size_t>(i) * Dv + d]);
+__global__ void __launch_bounds__(kDeltaThreads)
+flash_bwd_delta(const bf16* __restrict__ out, const bf16* __restrict__ dout,
+                const float* __restrict__ lse, float* __restrict__ rows, int Sq, int sq_pad,
+                int Dv) {
+  // B * H * sq_pad rows, a multiple of the CTA's 32: every lane reaches the shuffles
+  const int r = blockIdx.x * (kDeltaThreads / 8) + threadIdx.x / 8;
+  const int sub = threadIdx.x % 8;
+  const int bh = r / sq_pad, i = r - bh * sq_pad;
+  float acc = 0.f;
+  if (i < Sq) {
+    const size_t base = (static_cast<size_t>(bh) * Sq + i) * Dv;
+    uint4 o[2], g[2];  // 16-byte chunks sub and sub + 8 of the row (Dv <= 128)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int c = 8 * (sub + 8 * j);
+      o[j] = g[j] = make_uint4(0u, 0u, 0u, 0u);
+      if (c < Dv) {
+        o[j] = *reinterpret_cast<const uint4*>(out + base + c);
+        g[j] = *reinterpret_cast<const uint4*>(dout + base + c);
       }
     }
-    acc = repro::warp_sum(acc);
-    if (lane == 0) {
-      delta_s[r] = acc;
-      lse_s[r] = i < Sq ? lse[i] : 0.f;
-    }
-  }
-}
-
-// acc[nt] (8 n-tiles: the 64 rows of M, as columns) += A (16 rows of T at
-// row m0) . M^T over k-steps of 16 up to `width`: A by ldmatrix from T, B
-// by ldmatrix from M's rows
-__device__ __forceinline__ void rows_dot(float (&acc)[8][4], const bf16* T, int m0,
-                                         const bf16* M, int ld, int width, int lane) {
 #pragma unroll
-  for (int ks = 0; ks < kMaxD / 16; ++ks) {
-    if (16 * ks >= width) break;
-    uint32_t a[4];
-    ldsm_x4(a, T + (m0 + (lane & 15)) * ld + 16 * ks + 8 * (lane >> 4));
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, M + (16 * np + (lane & 7) + 8 * (lane >> 4)) * ld + 16 * ks +
-                     8 * ((lane >> 3) & 1));
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// the same with the A fragments given (held in registers)
-__device__ __forceinline__ void frag_dot(float (&acc)[8][4], const uint32_t (&a)[kMaxD / 16][4],
-                                         const bf16* M, int ld, int width, int lane) {
-#pragma unroll
-  for (int ks = 0; ks < kMaxD / 16; ++ks) {
-    if (16 * ks >= width) break;
-#pragma unroll
-    for (int np = 0; np < 4; ++np) {
-      uint32_t b[4];
-      ldsm_x4(b, M + (16 * np + (lane & 7) + 8 * (lane >> 4)) * ld + 16 * ks +
-                     8 * ((lane >> 3) & 1));
-      mma(acc[2 * np], a[ks], b[0], b[1]);
-      mma(acc[2 * np + 1], a[ks], b[2], b[3]);
-    }
-  }
-}
-
-// acc (n-tiles over `width` columns) += X (16 x 64, as accumulator fragments
-// x: rows this warp's, columns the 64 rows of M) . M (64 x width, row-major):
-// X rounded to bf16 as A operands, M by ldmatrix.trans
-__device__ __forceinline__ void acc_dot(float (&acc)[kMaxD / 8][4], const float (&x)[8][4],
-                                        const bf16* M, int ld, int width, int lane) {
-#pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
-    const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                           pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                           pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                           pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-    for (int np = 0; np < kMaxD / 16; ++np) {
-      if (16 * np >= width) break;
-      uint32_t b[4];
-      ldsm_x4_t(b, M + (16 * kk + (lane & 7) + 8 * ((lane >> 3) & 1)) * ld + 16 * np +
-                       8 * (lane >> 4));
-      mma(acc[2 * np], a, b[0], b[1]);
-      mma(acc[2 * np + 1], a, b[2], b[3]);
-    }
-  }
-}
-
-// a warp's 16 x width accumulator (rows row0 + g, row0 + g + 8) to dst rows
-__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[kMaxD / 8][4], int row0,
-                                           int n_rows, int width, int lane) {
-  const int g = lane >> 2, c2 = 2 * (lane & 3);
-#pragma unroll
-  for (int nt = 0; nt < kMaxD / 8; ++nt) {
-    const int col = 8 * nt + c2;
-    if (col >= width) break;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = row0 + g + 8 * h;
-      if (row < n_rows) {
-        *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(row) * width + col) =
-            __floats2bfloat162_rn(acc[nt][2 * h], acc[nt][2 * h + 1]);
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-dkdv_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-        const bf16* __restrict__ out, const float* __restrict__ lse,
-        const bf16* __restrict__ dout, bf16* __restrict__ dk, bf16* __restrict__ dv,
-        const Dims dm) {
-  __shared__ __align__(16) bf16 Ks[kBM * kLd];
-  __shared__ __align__(16) bf16 Vs[kBM * kLd];
-  __shared__ __align__(16) bf16 Qs[kBM * kLd];
-  __shared__ __align__(16) bf16 dOs[kBM * kLd];
-  __shared__ float lse_s[kBM], delta_s[kBM];
-  const int ldk = dm.D + 8, ldv = dm.Dv + 8;
-  const int kb = blockIdx.x, kh = blockIdx.y, b = blockIdx.z;
-  const int k0 = kb * kBM, G = dm.H / dm.KH;
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, c2 = 2 * (lane & 3), m0 = 16 * warp;
-  const size_t kvh = static_cast<size_t>(b) * dm.KH + kh;
-  stage(Ks, ldk, k + kvh * dm.Skv * dm.D, k0, dm.Skv, dm.D);
-  stage(Vs, ldv, v + kvh * dm.Skv * dm.Dv, k0, dm.Skv, dm.Dv);
-
-  float acc_k[kMaxD / 8][4], acc_v[kMaxD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < kMaxD / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_k[nt][e] = acc_v[nt][e] = 0.f;
-  }
-  const int nq = (dm.Sq + kBM - 1) / kBM;
-  const int qb0 = dm.causal ? kb : 0;  // a query block before the keys sees none
-  for (int hq = 0; hq < G; ++hq) {
-    const size_t qh = static_cast<size_t>(b) * dm.H + kh * G + hq;
-    for (int qb = qb0; qb < nq; ++qb) {
-      const int q0 = qb * kBM;
-      __syncthreads();  // the last block's tiles are consumed
-      stage(Qs, ldk, q + qh * dm.Sq * dm.D, q0, dm.Sq, dm.D);
-      stage(dOs, ldv, dout + qh * dm.Sq * dm.Dv, q0, dm.Sq, dm.Dv);
-      __syncthreads();
-      stage_rows(lse_s, delta_s, lse + qh * dm.Sq, out + qh * dm.Sq * dm.Dv, dOs, ldv, q0,
-                 dm.Sq, dm.Dv);
-      __syncthreads();
-      // S^T (this warp's 16 keys x the 64 queries) and dP^T
-      float s[8][4], dp[8][4];
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-      }
-      rows_dot(s, Ks, m0, Qs, ldk, dm.D, lane);
-      rows_dot(dp, Vs, m0, dOs, ldv, dm.Dv, lane);
-      // element e of n-tile nt: key k0 + m0 + g + 8 (e / 2), query q0 + 8 nt + c2 + e % 2
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int j = k0 + m0 + g + 8 * (e >> 1);
-          const int ql = 8 * nt + c2 + (e & 1), i = q0 + ql;
-          const bool valid = i < dm.Sq && j < dm.Skv && (!dm.causal || j <= i);
-          const float p = valid ? expf(s[nt][e] * dm.scale - lse_s[ql]) : 0.f;
-          s[nt][e] = p;
-          dp[nt][e] = p * (dp[nt][e] - delta_s[ql]) * dm.scale;
-        }
-      }
-      acc_dot(acc_v, s, dOs, ldv, dm.Dv, lane);   // dV += P^T dO
-      acc_dot(acc_k, dp, Qs, ldk, dm.D, lane);    // dK += dS^T Q (scale folded)
-    }
-  }
-  store_rows(dk + kvh * dm.Skv * dm.D, acc_k, k0 + m0, dm.Skv, dm.D, lane);
-  store_rows(dv + kvh * dm.Skv * dm.Dv, acc_v, k0 + m0, dm.Skv, dm.Dv, lane);
-}
-
-__global__ void __launch_bounds__(kThreads)
-dq_tc(const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-      const bf16* __restrict__ out, const float* __restrict__ lse,
-      const bf16* __restrict__ dout, bf16* __restrict__ dq, const Dims dm) {
-  __shared__ __align__(16) bf16 Qs[kBM * kLd];
-  __shared__ __align__(16) bf16 dOs[kBM * kLd];
-  __shared__ __align__(16) bf16 Ks[kBM * kLd];
-  __shared__ __align__(16) bf16 Vs[kBM * kLd];
-  __shared__ float lse_s[kBM], delta_s[kBM];
-  const int ldk = dm.D + 8, ldv = dm.Dv + 8;
-  const int qb = gridDim.x - 1 - blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int q0 = qb * kBM, kh = h / (dm.H / dm.KH);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, c2 = 2 * (lane & 3), m0 = 16 * warp;
-  const size_t qh = static_cast<size_t>(b) * dm.H + h;
-  const size_t kvh = static_cast<size_t>(b) * dm.KH + kh;
-  stage(Qs, ldk, q + qh * dm.Sq * dm.D, q0, dm.Sq, dm.D);
-  stage(dOs, ldv, dout + qh * dm.Sq * dm.Dv, q0, dm.Sq, dm.Dv);
-  __syncthreads();
-  stage_rows(lse_s, delta_s, lse + qh * dm.Sq, out + qh * dm.Sq * dm.Dv, dOs, ldv, q0, dm.Sq,
-             dm.Dv);
-  __syncthreads();
-  // this warp's 16 query rows: q and do as A fragments, lse and delta
-  uint32_t qa[kMaxD / 16][4], da[kMaxD / 16][4];
-#pragma unroll
-  for (int ks = 0; ks < kMaxD / 16; ++ks) {
-    if (16 * ks < dm.D) ldsm_x4(qa[ks], Qs + (m0 + (lane & 15)) * ldk + 16 * ks + 8 * (lane >> 4));
-    if (16 * ks < dm.Dv) {
-      ldsm_x4(da[ks], dOs + (m0 + (lane & 15)) * ldv + 16 * ks + 8 * (lane >> 4));
-    }
-  }
-  const float lse_r[2] = {lse_s[m0 + g], lse_s[m0 + g + 8]};
-  const float delta_r[2] = {delta_s[m0 + g], delta_s[m0 + g + 8]};
-
-  float acc_q[kMaxD / 8][4];
-#pragma unroll
-  for (int nt = 0; nt < kMaxD / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc_q[nt][e] = 0.f;
-  }
-  const int nk = (dm.Skv + kBM - 1) / kBM;
-  // causal: key blocks past the query block's last row are masked whole
-  const int nk_end = dm.causal ? min(nk, qb + 1) : nk;
-  for (int kb = 0; kb < nk_end; ++kb) {
-    const int k0 = kb * kBM;
-    __syncthreads();  // the last key block is consumed
-    stage(Ks, ldk, k + kvh * dm.Skv * dm.D, k0, dm.Skv, dm.D);
-    stage(Vs, ldv, v + kvh * dm.Skv * dm.Dv, k0, dm.Skv, dm.Dv);
-    __syncthreads();
-    float s[8][4], dp[8][4];
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = dp[nt][e] = 0.f;
-    }
-    frag_dot(s, qa, Ks, ldk, dm.D, lane);
-    frag_dot(dp, da, Vs, ldv, dm.Dv, lane);
-    // element e of n-tile nt: query q0 + m0 + g + 8 (e / 2), key k0 + 8 nt + c2 + e % 2
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int j = 0; j < 2; ++j) {
+      const __nv_bfloat162* op = reinterpret_cast<const __nv_bfloat162*>(&o[j]);
+      const __nv_bfloat162* gp = reinterpret_cast<const __nv_bfloat162*>(&g[j]);
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int i = q0 + m0 + g + 8 * (e >> 1);
-        const int j = k0 + 8 * nt + c2 + (e & 1);
-        const bool valid = i < dm.Sq && j < dm.Skv && (!dm.causal || j <= i);
-        const float p = valid ? expf(s[nt][e] * dm.scale - lse_r[e >> 1]) : 0.f;
-        dp[nt][e] = p * (dp[nt][e] - delta_r[e >> 1]) * dm.scale;
+        const float2 a = __bfloat1622float2(op[e]), b = __bfloat1622float2(gp[e]);
+        acc = fmaf(a.x, b.x, acc);
+        acc = fmaf(a.y, b.y, acc);
       }
     }
-    acc_dot(acc_q, dp, Ks, ldk, dm.D, lane);  // dQ += dS K (scale folded)
   }
-  store_rows(dq + qh * dm.Sq * dm.D, acc_q, q0 + m0, dm.Sq, dm.D, lane);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 1);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 2);
+  acc += __shfl_xor_sync(0xffffffffu, acc, 4);
+  if (sub == 0) {
+    float* row = rows + static_cast<size_t>(bh) * 2 * sq_pad;
+    row[i] = i < Sq ? lse[static_cast<size_t>(bh) * Sq + i] * kLog2e
+                    : __int_as_float(0x7f800000);  // +inf: p = 0
+    row[sq_pad + i] = acc;
+  }
 }
 
+// d (64 x 64) = A B^T over the NB column boxes at a and b, both 64-row
+// tiles read K-major.  Every k16 step runs, also those past the head dim
+// (zero-filled, they add 0): skipping steps at run time made ptxas
+// serialize the wgmmas (C7515), ~25% of the call at llama's shape.
+template <int NB>
+__device__ __forceinline__ void mma_ss(float (&d)[32], const uint8_t* a, const uint8_t* b) {
+#pragma unroll
+  for (int kk = 0; kk < 4 * NB; ++kk) {
+    const int off = (kk / 4) * kBox + (kk % 4) * 32;  // 32 bytes of a row a step
+    mma_bf16_ss_n64(d, desc_sw128(a + off), desc_sw128(b + off), kk > 0);
+  }
+}
+
+__device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  mma_bf16_rs_n64(d, a, b, 1);
+}
+__device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
+  mma_bf16_rs_n128(d, a, b, 1);
+}
+
+// d (64 x 64 NB) += X T: X's A operands (4 k16 steps over T's 64 rows), T
+// a 64-row tile of NB column boxes read MN-major
+template <int R>
+__device__ __forceinline__ void mma_acc(float (&d)[R], const uint32_t (&a)[4][4],
+                                        const uint8_t* t) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) mma_rs(d, a[kk], desc_sw128(t + kk * 16 * kRow, kBox));
+}
+
+// a 64 x 64 accumulator fragment as bf16 A operands: k16 step kk is its
+// registers 8 kk .. 8 kk + 7, in pairs
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) a[kk][j] = pack_bf16(x[8 * kk + 2 * j], x[8 * kk + 2 * j + 1]);
+  }
+}
+
+template <int R>
+__device__ __forceinline__ void fence_a(uint32_t (&a)[4][R]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) fence_regs(a[kk]);
+}
+
+// a 64 x 64 NB f32 accumulator (rows row0 + 16 warp + lane / 4 (+ 8)) times
+// `mul` to dst rows of `width` columns, bf16
+template <int R>
+__device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[R], int row0,
+                                           int n_rows, int width, float mul) {
+  const int lane = threadIdx.x % 32;
+  const int r0 = row0 + 16 * (threadIdx.x / 32) + lane / 4;
+#pragma unroll
+  for (int i = 0; i < R; i += 2) {
+    const int row = r0 + 8 * ((i / 2) % 2);
+    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    if (row < n_rows && col < width) {  // width % 8 == 0, so col + 1 < width too
+      *reinterpret_cast<__nv_bfloat162*>(dst + static_cast<size_t>(row) * width + col) =
+          __floats2bfloat162_rn(acc[i] * mul, acc[i + 1] * mul);
+    }
+  }
+}
+
+template <int NK, int NV>
+__global__ void __launch_bounds__(kThreads, Cfg<NK, NV>::kKVMinBlocks)
+flash_bwd_dkdv(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map,
+               const __grid_constant__ CUtensorMap rows_map, bf16* __restrict__ dk,
+               bf16* __restrict__ dv, const Dims dm) {
+  using C = Cfg<NK, NV>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = smem;
+  uint8_t* vs = ks + C::kK;
+  uint8_t* stages = vs + C::kV;  // stage s: Q, dO, then the rows slice
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kKVBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* kv_full = empty + kStages;
+
+  const int kh = blockIdx.x, b = blockIdx.y, kb = blockIdx.z;  // key tile 0 is the heaviest
+  const int k0 = kb * kBM, G = dm.H / dm.KH;
+  const int nq = (dm.Sq + kBM - 1) / kBM;
+  const int qb0 = dm.causal ? kb : 0;  // a query block before the key tile sees none of it
+  const int per_head = max(nq - qb0, 0);
+  const int n_it = G * per_head;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  // the dQ grid (no reader of dK / dV) may start on the SMs this grid's tail frees
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  __syncthreads();
+
+  if (tid >= kConsumers) {  // producer warp: one thread issues the loads
+    if (tid == kConsumers) {
+      const int kvh = b * dm.KH + kh;
+      mbar_expect_tx(kv_full, C::kK + C::kV);
+#pragma unroll
+      for (int c = 0; c < NK; ++c) tma_load_3d(ks + c * kBox, &k_map, kv_full, 64 * c, k0, kvh);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) tma_load_3d(vs + c * kBox, &v_map, kv_full, 64 * c, k0, kvh);
+      for (int t = 0; t < n_it; ++t) {
+        const int s = t % kStages;
+        const int bh = b * dm.H + kh * G + t / per_head;
+        const int q0 = (qb0 + t % per_head) * kBM;
+        uint8_t* st = stages + s * C::kKVStage;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::kK + C::kV + kRowsBytes);
+#pragma unroll
+        for (int c = 0; c < NK; ++c) tma_load_3d(st + c * kBox, &q_map, &full[s], 64 * c, q0, bh);
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          tma_load_3d(st + C::kK + c * kBox, &do_map, &full[s], 64 * c, q0, bh);
+        }
+        tma_load_2d(st + C::kK + C::kV, &rows_map, &full[s], q0, 2 * bh);
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int key0 = k0 + 16 * warp + lane / 4;  // this thread's keys: key0, key0 + 8
+  const float scale_log2 = dm.scale * kLog2e;
+  float dk_acc[32 * NK], dv_acc[32 * NV];
+#pragma unroll
+  for (int i = 0; i < 32 * NK; ++i) dk_acc[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 32 * NV; ++i) dv_acc[i] = 0.f;
+  mbar_wait(kv_full, 0);
+
+  for (int t = 0; t < n_it; ++t) {
+    const int s = t % kStages;
+    const int q0 = (qb0 + t % per_head) * kBM;
+    const uint8_t* qs = stages + s * C::kKVStage;
+    const uint8_t* dos = qs + C::kK;
+    const float* lse2 = reinterpret_cast<const float*>(dos + C::kV);
+    const float* delta = lse2 + kBM;
+    mbar_wait(&full[s], (t / kStages) & 1);
+
+    // S^T (keys x queries) and dP^T: register i at key key0 + 8 ((i / 2) %
+    // 2), query q0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+    float st[32], dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) st[i] = dpt[i] = 0.f;
+    wgmma_fence();  // each product its own stage: S^T's registers are read while dP^T runs
+    mma_ss<NK>(st, ks, qs);
+    wgmma_commit();
+    wgmma_fence();
+    mma_ss<NV>(dpt, vs, dos);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(st);
+
+    const bool edge = (dm.causal && k0 + kBM - 1 > q0) || k0 + kBM > dm.Skv;
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const int col = 8 * n + 2 * (lane % 4);
+      const float2 l = *reinterpret_cast<const float2*>(lse2 + col);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * n + e;
+        float p = exp2f(fmaf(st[i], scale_log2, -(e % 2 ? l.y : l.x)));
+        if (edge) {
+          const int key = key0 + 8 * (e / 2), query = q0 + col + e % 2;
+          if ((dm.causal && key > query) || key >= dm.Skv) p = 0.f;
+        }
+        st[i] = p;
+      }
+    }
+    uint32_t pa[4][4];
+    pack_a(pa, st);
+    wgmma_fence();
+    mma_acc(dv_acc, pa, dos);  // dV += P^T dO
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is done (dV's product runs on)
+    fence_regs(dpt);
+
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * n + 2 * (lane % 4));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * n + e;
+        dpt[i] = st[i] * (dpt[i] - (e % 2 ? dl.y : dl.x));
+      }
+    }
+    uint32_t da[4][4];
+    pack_a(da, dpt);
+    wgmma_fence();
+    mma_acc(dk_acc, da, qs);  // dK += dS^T Q (times scale at the end)
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk_acc);
+    fence_regs(dv_acc);
+    fence_a(pa);
+    fence_a(da);
+    mbar_arrive(&empty[s]);
+  }
+
+  const size_t kvh = static_cast<size_t>(b) * dm.KH + kh;
+  store_rows(dk + kvh * dm.Skv * dm.D, dk_acc, k0, dm.Skv, dm.D, dm.scale);
+  store_rows(dv + kvh * dm.Skv * dm.Dv, dv_acc, k0, dm.Skv, dm.Dv, 1.f);
+}
+
+template <int NK, int NV>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_bwd_dq(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+             const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
+             const __grid_constant__ CUtensorMap rows_map, bf16* __restrict__ dq,
+             const Dims dm) {
+  using C = Cfg<NK, NV>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* qs = smem;
+  uint8_t* dos = qs + C::kK;
+  const float* lse2 = reinterpret_cast<const float*>(dos + C::kV);
+  uint8_t* stages = dos + C::kV + kRowsSlot;  // stage s: K, then V
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kQBarOffset);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;  // heaviest tiles first
+  const int bh = b * dm.H + h, kvh = b * dm.KH + h / (dm.H / dm.KH);
+  const int q_last = min(q0 + kBM, dm.Sq) - 1;
+  const int n_all = (dm.Skv + kBM - 1) / kBM;
+  const int n_kv = dm.causal ? min(n_all, q_last / kBM + 1) : n_all;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kConsumers) {
+    if (tid == kConsumers) {
+      mbar_expect_tx(q_full, C::kK + C::kV + kRowsBytes);
+#pragma unroll
+      for (int c = 0; c < NK; ++c) tma_load_3d(qs + c * kBox, &q_map, q_full, 64 * c, q0, bh);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) tma_load_3d(dos + c * kBox, &do_map, q_full, 64 * c, q0, bh);
+      tma_load_2d(dos + C::kV, &rows_map, q_full, q0, 2 * bh);
+      for (int t = 0; t < n_kv; ++t) {
+        const int s = t % kStages;
+        uint8_t* st = stages + s * C::kQStage;
+        mbar_wait(&empty[s], ((t / kStages) & 1) ^ 1);
+        mbar_expect_tx(&full[s], C::kK + C::kV);
+#pragma unroll
+        for (int c = 0; c < NK; ++c) {
+          tma_load_3d(st + c * kBox, &k_map, &full[s], 64 * c, t * kBM, kvh);
+        }
+#pragma unroll
+        for (int c = 0; c < NV; ++c) {
+          tma_load_3d(st + C::kK + c * kBox, &v_map, &full[s], 64 * c, t * kBM, kvh);
+        }
+      }
+    }
+    return;
+  }
+
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4;  // this thread's rows of the tile: r0, r0 + 8
+  const float scale_log2 = dm.scale * kLog2e;
+  float dq_acc[32 * NK];
+#pragma unroll
+  for (int i = 0; i < 32 * NK; ++i) dq_acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+  const float l[2] = {lse2[r0], lse2[r0 + 8]};
+  const float dl[2] = {lse2[kBM + r0], lse2[kBM + r0 + 8]};
+
+  for (int t = 0; t < n_kv; ++t) {
+    const int s = t % kStages;
+    const uint8_t* ks = stages + s * C::kQStage;
+    const uint8_t* vs = ks + C::kK;
+    mbar_wait(&full[s], (t / kStages) & 1);
+
+    // S and dP (queries x keys): register i at row q0 + r0 + 8 ((i / 2) %
+    // 2), key k0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    wgmma_fence();
+    mma_ss<NK>(sc, qs, ks);
+    wgmma_commit();
+    wgmma_fence();
+    mma_ss<NV>(dp, dos, vs);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    const int k0 = t * kBM;
+    const bool edge = (dm.causal && k0 + kBM - 1 > q0) || k0 + kBM > dm.Skv;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float p = exp2f(fmaf(sc[i], scale_log2, -l[(i / 2) % 2]));
+      if (edge) {
+        const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const int row = q0 + r0 + 8 * ((i / 2) % 2);
+        if ((dm.causal && key > row) || key >= dm.Skv) p = 0.f;
+      }
+      sc[i] = p;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dl[(i / 2) % 2]);
+    uint32_t da[4][4];
+    pack_a(da, dp);
+    wgmma_fence();
+    mma_acc(dq_acc, da, ks);  // dQ += dS K (times scale at the end)
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    fence_a(da);
+    mbar_arrive(&empty[s]);
+  }
+
+  store_rows(dq + static_cast<size_t>(bh) * dm.Sq * dm.D, dq_acc, q0, dm.Sq, dm.D, dm.scale);
+  // the grid ends after the dK / dV grid it overlapped: what follows on the
+  // stream sees all three outputs
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+// the workspace's floats for B * H rows of Sq: lse2 and delta, Sq padded
+inline size_t workspace_elems(int B, int H, int Sq) {
+  return static_cast<size_t>(B) * H * 2 * padded(Sq);
+}
+
+template <int NK, int NV>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
-                   const float* lse, const void* dout, void* dq, void* dk, void* dv, int B,
-                   const Dims& dm, cudaStream_t s) {
-  const bf16* qt = static_cast<const bf16*>(q);
-  const bf16* kt = static_cast<const bf16*>(k);
-  const bf16* vt = static_cast<const bf16*>(v);
-  const bf16* ot = static_cast<const bf16*>(out);
-  const bf16* dot = static_cast<const bf16*>(dout);
-  dkdv_tc<<<dim3((dm.Skv + kBM - 1) / kBM, dm.KH, B), kThreads, 0, s>>>(
-      qt, kt, vt, ot, lse, dot, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dm);
-  const cudaError_t err = cudaGetLastError();
+                   const float* lse, const void* dout, void* dq, void* dk, void* dv,
+                   float* rows, int B, const Dims& dm, cudaStream_t s) {
+  using C = Cfg<NK, NV>;
+  const int sq_pad = padded(dm.Sq), BH = B * dm.H;
+  flash_bwd_delta<<<BH * (sq_pad / (kDeltaThreads / 8)), kDeltaThreads, 0, s>>>(
+      static_cast<const bf16*>(out), static_cast<const bf16*>(dout), lse, rows, dm.Sq, sq_pad,
+      dm.Dv);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  dq_tc<<<dim3((dm.Sq + kBM - 1) / kBM, dm.H, B), kThreads, 0, s>>>(
-      qt, kt, vt, ot, lse, dot, static_cast<bf16*>(dq), dm);
-  return cudaGetLastError();
+  CUtensorMap q_map, k_map, v_map, do_map, rows_map;
+  err = map_heads(&q_map, q, dm.D, dm.Sq, BH, kBM);
+  if (err == cudaSuccess) err = map_heads(&k_map, k, dm.D, dm.Skv, B * dm.KH, kBM);
+  if (err == cudaSuccess) err = map_heads(&v_map, v, dm.Dv, dm.Skv, B * dm.KH, kBM);
+  if (err == cudaSuccess) err = map_heads(&do_map, dout, dm.Dv, dm.Sq, BH, kBM);
+  if (err == cudaSuccess) {
+    // (sq_pad, 2 B H) f32: a box is a tile's lse2 row and its delta row
+    const uint64_t dims[2] = {static_cast<uint64_t>(sq_pad), 2ull * BH};
+    const uint64_t strides[1] = {4ull * sq_pad};
+    const uint32_t box[2] = {kBM, 2};
+    err = make_map(&rows_map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, rows, dims, strides, box,
+                   CU_TENSOR_MAP_SWIZZLE_NONE);
+  }
+  if (err != cudaSuccess) return err;
+  static const cudaError_t smem_err = [] {
+    const cudaError_t e = allow_smem(flash_bwd_dkdv<NK, NV>, C::kKVSmem);
+    return e == cudaSuccess ? allow_smem(flash_bwd_dq<NK, NV>, C::kQSmem) : e;
+  }();
+  if (smem_err != cudaSuccess) return smem_err;
+  flash_bwd_dkdv<NK, NV><<<dim3(dm.KH, B, (dm.Skv + kBM - 1) / kBM), kThreads, C::kKVSmem, s>>>(
+      q_map, k_map, v_map, do_map, rows_map, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dm);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  // a programmatic dependent of the dK / dV grid: both read only what the
+  // delta pass (finished before dK / dV started) and the inputs hold
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(dm.H, B, (dm.Sq + kBM - 1) / kBM);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = C::kQSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, flash_bwd_dq<NK, NV>, q_map, k_map, v_map, do_map, rows_map,
+                           static_cast<bf16*>(dq), dm);
+  return err != cudaSuccess ? err : cudaGetLastError();
 }
 
-}  // namespace tc
+}  // namespace wg
 
 // route codes: kernels/attention.py's BWD_ROUTES
 constexpr int kRouteCudaCores = 0;
-constexpr int kRouteMma = 1;
+constexpr int kRouteWgmma = 1;
 
 }  // namespace
 
-// Both kernels, one call; the wrapper (kernels/attention.py,
-// flash_attention_bwd) checks shapes, types and contiguity.
+// The route's kernels, one call; the wrapper (kernels/attention.py,
+// flash_attention_bwd) checks shapes, types and contiguity and allocates
+// the wgmma route's workspace (`workspace_elems` floats; null on the CUDA
+// cores).
 extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const void* v,
                                          const void* out, const void* lse, const void* dout,
-                                         void* dq, void* dk, void* dv, int B, int H, int KH,
+                                         void* dq, void* dk, void* dv, void* workspace,
+                                         long long workspace_elems, int B, int H, int KH,
                                          int Sq, int Skv, int D, int Dv, int causal,
                                          float scale, int dtype, int route, void* stream) {
   if (B <= 0 || H <= 0 || KH <= 0 || H % KH || Sq <= 0 || Skv <= 0 || D <= 0 || D > 256 ||
@@ -739,18 +928,25 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   const Dims dm{H, KH, Sq, Skv, D, Dv, causal, scale};
   const float* l = static_cast<const float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (route == kRouteMma) {
-    // what the tensor-core route takes: bf16, head dims multiples of 16 up
-    // to 64, 16-byte aligned operands (its 16-byte loads)
+  if (route == kRouteWgmma) {
+    // what the route takes: bf16, head dims multiples of 8 (TMA's 16-byte
+    // strides) up to two column boxes, 16-byte aligned operands (TMA, and
+    // the delta pass's 16-byte loads), a workspace of the right size
     const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
-                            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(dout) |
-                            reinterpret_cast<uintptr_t>(dq) | reinterpret_cast<uintptr_t>(dk) |
-                            reinterpret_cast<uintptr_t>(dv);
-    if (dtype != repro::kBFloat16 || D % 16 || Dv % 16 || D > tc::kMaxD ||
-        Dv > tc::kMaxD || bases % 16) {
+                            reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
+                            reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
+                            reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
+                            reinterpret_cast<uintptr_t>(workspace);
+    if (dtype != repro::kBFloat16 || D % 8 || Dv % 8 || D > wg::kMaxD || Dv > wg::kMaxD ||
+        bases % 16 || !workspace ||
+        workspace_elems < static_cast<long long>(wg::workspace_elems(B, H, Sq))) {
       return cudaErrorInvalidValue;
     }
-    return tc::launch(q, k, v, out, l, dout, dq, dk, dv, B, dm, s);
+    float* ws = static_cast<float*>(workspace);
+    if (D <= 64 && Dv <= 64) return wg::launch<1, 1>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
+    if (D <= 64) return wg::launch<1, 2>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
+    if (Dv <= 64) return wg::launch<2, 1>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
+    return wg::launch<2, 2>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
   }
   if (route != kRouteCudaCores) return cudaErrorInvalidValue;
   if (dtype == repro::kFloat32) {

@@ -1,6 +1,6 @@
 // Hopper primitives shared by the tensor-core kernels (flash_attention.cu,
-// ssd_chunks.cu, and matmul.cu and complex_matmul.cu through
-// tf32_gemm.cuh), as inline
+// flash_attention_bwd.cu, ssd_chunks.cu, and matmul.cu and complex_matmul.cu
+// through tf32_gemm.cuh), as inline
 // PTX for sm_90a: TMA tensor maps and bulk tensor loads, L2 prefetches,
 // mbarriers, wgmma shared-memory descriptors and the wgmma shapes the
 // kernels issue.
@@ -15,6 +15,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -63,6 +64,19 @@ inline cudaError_t make_map(CUtensorMap* map, CUtensorMapDataType type,
       CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
       CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A 3-D map (D, S, B * heads) over a (B, heads, S, D) bf16 tensor, loading
+// boxes of 64 head dims (one 128-byte swizzled row) by `box_rows` rows of
+// one head: a box past S or D is zero-filled, never the next head's rows.
+inline cudaError_t map_heads(CUtensorMap* map, const void* base, int D, int S, int BH,
+                             int box_rows) {
+  const uint64_t dims[3] = {static_cast<uint64_t>(D), static_cast<uint64_t>(S),
+                            static_cast<uint64_t>(BH)};
+  const uint64_t strides[2] = {2ull * D, 2ull * D * S};
+  const uint32_t box[3] = {64, static_cast<uint32_t>(box_rows), 1};
+  return make_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, base, dims, strides, box,
+                  CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 // Raise a kernel's dynamic shared memory limit once per kernel.
@@ -230,6 +244,12 @@ __device__ __forceinline__ float to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return __uint_as_float(r);
+}
+
+// two floats as a bf16 pair, lo in the low half (a wgmma A operand register)
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&p);
 }
 
 // The accumulator fragment of an m64nN f32 wgmma: thread t of the

@@ -143,8 +143,9 @@ def _dense(q, k, v, causal, scale):
 class FlashEmulator:
     """Stands in for ``build.launch`` of the forward (``out`` and, when its
     pointer is given, ``lse``) and of the backward (dq, dk, dv summed over
-    each kv head's group): reads every operand from the memory the
-    arguments point at and checks the argument kinds ctypes converts."""
+    each kv head's group; a workspace exactly on the wgmma route): reads
+    every operand from the memory the arguments point at and checks the
+    argument kinds ctypes converts."""
 
     def __init__(self):
         self.calls, self.routes = [], []
@@ -154,7 +155,7 @@ class FlashEmulator:
         assert len(args) == len(argtypes)
         for arg, kind in zip(args, argtypes):
             want = {ctypes.c_void_p: (int, type(None)), ctypes.c_int: int,
-                    ctypes.c_float: float}[kind]
+                    ctypes.c_longlong: int, ctypes.c_float: float}[kind]
             assert isinstance(arg, want), (name, arg, kind)
         self.calls.append(name)
         if name == "repro_flash_attention":
@@ -167,10 +168,11 @@ class FlashEmulator:
                 _write(lse, lse_v, 0)
             return
         assert name == "repro_flash_attention_bwd"
-        (q, k, v, out, lse, do, dq, dk, dv_p, b, h, kh, sq, skv, d, dv, causal, scale, code,
-         route, _) = args
-        assert tatt.BWD_ROUTES[route] in ("cuda_cores", "mma")
+        (q, k, v, out, lse, do, dq, dk, dv_p, ws, ws_elems, b, h, kh, sq, skv, d, dv, causal,
+         scale, code, route, _) = args
+        assert tatt.BWD_ROUTES[route] in ("cuda_cores", "wgmma")
         self.routes.append(tatt.BWD_ROUTES[route])
+        assert (ws is not None) == (ws_elems > 0) == (tatt.BWD_ROUTES[route] == "wgmma")
         qa, ka, va = (_read(q, (b, h, sq, d), code), _read(k, (b, kh, skv, d), code),
                       _read(v, (b, kh, skv, dv), code))
         oa, doa = _read(out, (b, h, sq, dv), code), _read(do, (b, h, sq, dv), code)
@@ -247,18 +249,18 @@ def test_backward_wrapper_raises_on_what_the_kernel_does_not_take(emulated):
 
 
 def test_backward_route_is_picked_by_the_wrapper_passed_and_counted(emulated, monkeypatch):
-    """bf16 with head dims multiples of 16 up to 64 and 16-byte aligned
-    operands takes the tensor-core route (mma.sync), the rest the CUDA
-    cores; the wrapper passes the route's code and counts the launch
-    under it.  (Meta tensors stand in for CUDA ones.)"""
+    """bf16 with head dims multiples of 8 up to 128 and 16-byte aligned
+    operands takes the wgmma route (TMA loads), the rest the CUDA cores;
+    the wrapper passes the route's code and counts the launch under it.
+    (Meta tensors stand in for CUDA ones.)"""
     def ops(d, dv, dtype=torch.bfloat16, device="cpu"):
         q, k = (torch.zeros(1, 4, 8, d, dtype=dtype, device=device) for _ in range(2))
         v, do = (torch.zeros(1, 4, 8, dv, dtype=dtype, device=device) for _ in range(2))
         return q, k, v, do
 
-    for d, dv in ((64, 64), (16, 48), (32, 64)):
-        assert tatt.flash_bwd_route(*ops(d, dv)) == "mma"
-    for args in (ops(24, 24), ops(128, 128), ops(64, 64, torch.float32), ops(192, 128)):
+    for d, dv in ((64, 64), (16, 48), (32, 64), (24, 24), (112, 112), (128, 128), (128, 64)):
+        assert tatt.flash_bwd_route(*ops(d, dv)) == "wgmma"
+    for args in (ops(20, 20), ops(136, 136), ops(64, 64, torch.float32), ops(192, 128)):
         assert tatt.flash_bwd_route(*args) == "cuda_cores"
     q, k, v, do = ops(64, 64)
     shifted = torch.zeros(1 + q.numel(), dtype=torch.bfloat16)[1:].view(q.shape)
@@ -271,5 +273,5 @@ def test_backward_route_is_picked_by_the_wrapper_passed_and_counted(emulated, mo
         monkeypatch.setattr(build, "launch",
                             lambda name, *args: seen.append(tatt.BWD_ROUTES[args[-2]]))
         tatt._flash_attention_bwd_cuda(q, k, v, do, lse, do, True)
-    assert seen == ["mma", "cuda_cores"]
-    assert tatt.flash_attention_bwd.routes == {"cuda_cores": 1, "mma": 1}
+    assert seen == ["wgmma", "cuda_cores"]
+    assert tatt.flash_attention_bwd.routes == {"cuda_cores": 1, "wgmma": 1}
