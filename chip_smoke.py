@@ -135,14 +135,24 @@ JSON line, and any failure raises (exit code != 0):
    finite, ms a step (median after the first), tok/s, peak memory, the
    launches of flash forward and backward and of rmsnorm's plain and add
    forms forward and backward (each > 0), one profiled step (busy share,
-   device ms by kernel, top 10); then from the trained state the loss and
-   the global grad norm through the kernels against the plain bindings,
-   to ``TRAIN_BF16_TOL``;
+   device ms by kernel, top 10, RMSNorm backward's device ms by kernel);
+   then from the trained state one step twice from one state and batch
+   (``repeat_step``: whether every parameter leaf is bit-identical, and
+   the leaves that differ), and the loss and the global grad norm through
+   the kernels against the plain bindings, to ``TRAIN_BF16_TOL``;
 20. train_loop: the training CLI's ``build`` at ``--reduced`` run by
    ``FaultTolerantLoop`` (a checkpoint every 4 steps, a failure injected
    at step 6) against an uninterrupted run: the restarts and the largest
    |difference| of every leaf, the leaves that differ named; then
-   ``python -m repro_torch.launch.train --reduced`` as a process, exit 0.
+   ``python -m repro_torch.launch.train --reduced`` as a process, exit 0,
+   for llama3.2-1b and for mamba2-2.7b (two steps; its ``grad_default:``
+   line names ``ssd_scan``);
+21. train_ssm: mamba2-2.7b at full width cut to 2 layers in f32 (B 2, S
+   256), as phase 18 on default bindings against every block bound to
+   ``torch``: the norms' plain and add forms launch their kernels forward
+   and backward; every SSD scan and gated norm resolves to ``torch`` for
+   its gradient (``grad_default/ssd_scan``, ``grad_default/rmsnorm.gated``
+   > 0) and ``ssd_chunks`` launches nothing.
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -163,9 +173,12 @@ zamba2's D 112 and arctic's D 128 (wgmma, two column boxes), f32 at B 2,
 S 300 and deepseek-v2's qk 192 / v 128 (the CUDA-core route; each row
 names its route);
 RMSNorm's backward, plain and add forms, at 4096 x 2048 bf16 and f32 at d
-= 100.  Each is called twice on the same inputs, bit for bit; the library
-call is the backward alone of SDPA / ``F.rms_norm`` through autograd,
-timed eagerly.
+= 100, and 4096 bf16 rows of deepseek-v2's 512-wide ``kv_norm`` (plain, a
+bf16 weight) and of arctic-480b's d = 7168 (plain and add), the add form
+at d = 2050 and 9000 (the scalar layout, the two-pass loop), each row with
+its kernels' own device ms (``ms_by_kernel``). Each is called twice on the
+same inputs, bit for bit; the library call is the backward alone of SDPA /
+``F.rms_norm`` through autograd, timed eagerly.
 
 The offload kernels (complex matmul, Schur update, matmul) are held
 against their plain versions in phase 2 at the paper's scale (2048^2 f32),
@@ -646,12 +659,41 @@ def _flash_bwd_cases(torch, timer, randn) -> list:
     return rows
 
 
+#: the RMSNorm backward's kernels, by a substring of their names (this
+#: design's and the one before it: the A/B runs this tree's cases on both)
+NORM_BWD_KERNEL_NAMES = ("norm_bwd", "dw_kernel")
+
+
+def _kernel_split(torch, timer, fn, names, reps: int = 20) -> dict:
+    """Device ms a call of each kernel that ``fn`` launches whose name holds
+    one of ``names``, from the profiler's kernel events over ``reps`` eager
+    calls, each after the L2 flush (cold, as :meth:`Timer.ms`).  A
+    programmatic dependent's duration includes its wait for its primary."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            timer.flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    device, _ = _device_events(prof)
+    return {k[:60]: v / reps for k, v in device.items() if any(n in k for n in names)}
+
+
 def _norm_bwd_cases(torch, timer, randn) -> list:
     """The RMSNorm backward kernel against its plain version
     (``rmsnorm_bwd_torch``), plain and add forms at llama's train shape
-    (4096 rows of 2048, bf16 x, f32 w; plain is the headline) and f32 at a
-    ragged d = 100 (512 rows, the scalar path).  dx is held to the type's
-    ``TOL``, dw (f32) to ``NORM_DW_TOL``.  The library call is
+    (4096 rows of 2048, bf16 x, f32 w; plain is the headline), f32 at a
+    ragged d = 100 (512 rows, the scalar path), and 4096 bf16 rows of
+    deepseek-v2's 512-wide ``kv_norm`` (bf16 w: a warp a row) and of
+    arctic-480b's d = 7168 (two chunks a thread), plain and add; and the
+    add form at a ragged d = 2050 (bf16 elements tpr apart, a bf16 weight)
+    and at d = 9000 (the two-pass loop).  dx is held to the type's
+    ``TOL``, dw to ``NORM_DW_TOL`` (f32 w) or ``TOL`` (bf16 w).  Each row gives the device ms of each of the backward's kernels
+    (``ms_by_kernel``, profiler events).  The library call is
     ``F.rms_norm``'s backward (weight in x's type) through
     ``torch.autograd.grad`` from a kept graph."""
     import torch.nn.functional as F
@@ -659,14 +701,22 @@ def _norm_bwd_cases(torch, timer, randn) -> list:
     from repro_torch.kernels import rmsnorm as rn
 
     rows, eps = [], 1e-5
-    for n_rows, d, dtype, form in ((4096, 2048, torch.bfloat16, "plain"),
-                                   (4096, 2048, torch.bfloat16, "add"),
-                                   (512, 100, torch.float32, "plain"),
-                                   (512, 100, torch.float32, "add")):
+    for n_rows, d, dtype, form, wdtype in (
+            (4096, 2048, torch.bfloat16, "plain", torch.float32),
+            (4096, 2048, torch.bfloat16, "add", torch.float32),
+            (512, 100, torch.float32, "plain", torch.float32),
+            (512, 100, torch.float32, "add", torch.float32),
+            (4096, 512, torch.bfloat16, "plain", torch.bfloat16),
+            (4096, 7168, torch.bfloat16, "plain", torch.float32),
+            (4096, 7168, torch.bfloat16, "add", torch.float32),
+            # the layouts off the main paths: bf16 elements tpr apart (d %
+            # 8 != 0) and rows past the registers (the two-pass loop)
+            (256, 2050, torch.bfloat16, "add", torch.bfloat16),
+            (64, 9000, torch.bfloat16, "add", torch.float32)):
         x, dy = randn(n_rows, d, dtype=dtype), randn(n_rows, d, dtype=dtype)
         ds = randn(n_rows, d, dtype=dtype) if form == "add" else None
-        w = 1.0 + 0.1 * randn(d, dtype=torch.float32)
-        name = str(dtype).split(".")[1]
+        w = (1.0 + 0.1 * randn(d, dtype=torch.float32)).to(wdtype)
+        name, wname = (str(t).split(".")[1] for t in (dtype, wdtype))
         got = dict(zip(("dx", "dw"), rn.rmsnorm_bwd(x, dy, w, eps, ds=ds)))
         want = dict(zip(("dx", "dw"), rn.rmsnorm_bwd_torch(x, dy, w, eps, ds=ds)))
         _repeat_identical(torch, "rmsnorm_bwd", lambda: rn.rmsnorm_bwd(x, dy, w, eps, ds=ds))
@@ -677,16 +727,20 @@ def _norm_bwd_cases(torch, timer, randn) -> list:
         def library():
             torch.autograd.grad(lib_out, (xl, wl), dy, retain_graph=True)
 
+        def run():
+            return rn.rmsnorm_bwd(x, dy, w, eps, ds=ds)
+
         e = x.element_size()
         n_in = 3 if form == "add" else 2  # x, dy (, ds)
         rows.append(_case(
-            torch, "rmsnorm_bwd", name, [n_rows, d], got, want, timer,
-            lambda: rn.rmsnorm_bwd(x, dy, w, eps, ds=ds),
+            torch, "rmsnorm_bwd", name, [n_rows, d], got, want, timer, run,
             lambda: rn.rmsnorm_bwd_torch(x, dy, w, eps, ds=ds), None,
-            tol={"dx": TOL[name], "dw": NORM_DW_TOL},
-            nbytes=(n_in + 1) * n_rows * d * e + 2 * 4 * d, flops=12 * n_rows * d,
-            peak="float32",
-            extra={"form": form, "w": "float32", "repeat_bit_identical": True},
+            tol={"dx": TOL[name], "dw": NORM_DW_TOL if wname == "float32" else TOL[wname]},
+            # reads x, dy (, ds) and w; writes dx and dw
+            nbytes=(n_in + 1) * n_rows * d * e + 2 * w.element_size() * d,
+            flops=12 * n_rows * d, peak="float32",
+            extra={"form": form, "w": wname, "repeat_bit_identical": True,
+                   "ms_by_kernel": _kernel_split(torch, timer, run, NORM_BWD_KERNEL_NAMES)},
             library_eager=library,
         ))
     return rows
@@ -1511,6 +1565,22 @@ def _device_events(prof) -> tuple[dict, int]:
     return device, count
 
 
+def _busy_ms(prof, names) -> float:
+    """ms during which at least one device event whose name holds one of
+    ``names`` ran: the union of their intervals (events that overlap, as a
+    programmatic dependent and its primary do, count once)."""
+    from torch.autograd import DeviceType
+
+    spans = sorted((ev.time_range.start, ev.time_range.end) for ev in prof.events()
+                   if ev.device_type == DeviceType.CUDA and any(n in ev.name for n in names))
+    busy, end = 0.0, float("-inf")
+    for start, stop in spans:
+        if stop > end:
+            busy += stop - max(start, end)
+            end = stop
+    return busy / 1e3
+
+
 def _sampler_cost(torch, vocab: int, step_ms: float, b: int = 8, n: int = 20) -> dict:
     """What a sampled request adds to a decode step: ``sample_tokens`` at
     (B, V) = (8, vocab) with temperature 0.8 and top-k 40 (the profiled
@@ -2037,13 +2107,21 @@ def _clone_tree(torch, tree):
     return _tree(lambda t: t.detach().clone(), tree)
 
 
-def phase_train_f32(torch) -> dict:
-    """llama3.2-1b at full width cut to 2 layers in f32 compute (B 2, S
-    128): the first step's loss and every gradient leaf through the
-    kernels (flash and RMSNorm forward and backward) against the same with
-    ``attention`` and ``rmsnorm`` bound to ``torch`` (each leaf within 1e-4
+def phase_train_f32(torch, arch: str = "llama3.2-1b", phase: str = "train_f32",
+                    counters=None, plain=None, seq: int = 128, never=(),
+                    defaults=()) -> dict:
+    """``arch`` at full width cut to 2 layers in f32 compute (B 2, S
+    ``seq``): the first step's loss and every gradient leaf on default
+    bindings (llama: flash and RMSNorm forward and backward through the
+    kernels) against the same with ``plain`` bound (each leaf within 1e-4
     of its largest |g|), then three ``make_train_step`` steps from the same
-    weights each way, the losses within 1e-5 relative."""
+    weights each way, the losses within 1e-5 relative.  Every counter of
+    ``counters`` counts in the first run and none in the second; the
+    kernels of ``never`` launch in neither; the ``grad_default/`` counters
+    of ``defaults`` (calls resolved to ``torch`` for a gradient their
+    kernel cannot take) count in the first."""
+    import math
+
     import repro_torch.kernels as kernels
     from repro_torch.configs import get_config
     from repro_torch.core import blocks
@@ -2051,34 +2129,39 @@ def phase_train_f32(torch) -> dict:
     from repro_torch.models import lm
     from repro_torch.optim.adamw import AdamW
 
+    counters = TRAIN_COUNTERS if counters is None else counters
+    plain = PLAIN_TRAIN if plain is None else plain
     _free_dead_engines(torch)
     t0 = time.perf_counter()
-    cfg = dataclasses.replace(get_config("llama3.2-1b"), compute_dtype="float32").cut(2)
+    cfg = dataclasses.replace(get_config(arch), compute_dtype="float32").cut(2)
     params = lm.init_params(cfg, seed=1, device="cuda")
-    batch = _train_inputs(torch, cfg, 2, 128)
+    batch = _train_inputs(torch, cfg, 2, seq)
     kernels.reset_launches()
     loss_k, grads_k = _loss_and_grads(torch, params, batch, cfg)
     counted = kernels.counters()
-    with blocks.bind(PLAIN_TRAIN):
+    with blocks.bind(plain):
         loss_p, grads_p = _loss_and_grads(torch, params, batch, cfg)
-    plain_counted = {k: n - counted[k] for k, n in kernels.counters().items()}
-    missing = [c for c in TRAIN_COUNTERS if counted[c] <= 0]
-    if missing or any(plain_counted[c] for c in TRAIN_COUNTERS):
-        raise AssertionError(f"train_f32: kernel launches {counted}, plain run {plain_counted}")
+    plain_counted = {k: n - counted.get(k, 0) for k, n in kernels.counters().items()}
+    missing = [c for c in (*counters, *defaults) if counted.get(c, 0) <= 0]
+    if (missing or any(plain_counted[c] for c in counters)
+            or any(counted[c] or plain_counted[c] for c in never)):
+        raise AssertionError(f"{phase}: kernel launches {counted}, plain run {plain_counted}")
     worst = 0.0
     for gk, gp in zip(grads_k, grads_p):
         scale = float(gp.abs().max())
         err = float((gk - gp).abs().max())
-        if err > 1e-4 * max(scale, 1e-30):
-            raise AssertionError(f"train_f32: a gradient leaf differs by {err:.3g} (max |g| {scale:.3g})")
+        # written so that a NaN (a gradient or its scale) fails
+        if not (math.isfinite(scale) and err <= 1e-4 * max(scale, 1e-30)):
+            raise AssertionError(
+                f"{phase}: a gradient leaf differs by {err:.3g} (max |g| {scale:.3g})")
         worst = max(worst, err / max(scale, 1e-30))
     loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
-    if loss_err > 1e-5:
-        raise AssertionError(f"train_f32: loss {float(loss_k)} vs plain {float(loss_p)}")
+    if not loss_err <= 1e-5:
+        raise AssertionError(f"{phase}: loss {float(loss_k)} vs plain {float(loss_p)}")
 
     hyper = TrainHyper(base_lr=1e-3, warmup_steps=2, total_steps=16)
     losses = {}
-    for name, binding in (("kernels", {}), ("plain", PLAIN_TRAIN)):
+    for name, binding in (("kernels", {}), ("plain", plain)):
         opt = AdamW(moment_dtype=cfg.opt_dtype)
         step = make_train_step(cfg, opt, hyper)
         p = _clone_tree(torch, params)
@@ -2086,19 +2169,40 @@ def phase_train_f32(torch) -> dict:
         losses[name] = []
         with blocks.bind(binding):
             for i in range(3):
-                p, state, metrics = step(p, state, _train_inputs(torch, cfg, 2, 128, i))
+                p, state, metrics = step(p, state, _train_inputs(torch, cfg, 2, seq, i))
                 losses[name].append(float(metrics["loss"]))
     rel = [abs(a - b) / abs(b) for a, b in zip(losses["kernels"], losses["plain"])]
-    if max(rel) > 1e-5:
-        raise AssertionError(f"train_f32: losses {losses}")
-    out = {"phase": "train_f32", "arch": cfg.name, "layers": 2, "batch": 2, "seq": 128,
+    if not all(r <= 1e-5 for r in rel):  # a NaN loss fails
+        raise AssertionError(f"{phase}: losses {losses}")
+    out = {"phase": phase, "arch": cfg.name, "layers": 2, "batch": 2, "seq": seq,
+           "plain_bindings": plain,
            "first_loss_rel_err": loss_err, "max_grad_err_over_max_abs_g": worst,
            "grad_leaves": len(grads_k), "losses": losses, "loss_rel_err": rel,
-           "launches": {c: counted[c] for c in TRAIN_COUNTERS},
+           "launches": {c: counted[c] for c in (*counters, *never)},
+           "grad_default": {k: n for k, n in counted.items() if k.startswith("grad_default/")},
            "flash_routes": {r: counted[f"flash_attention/{r}"] for r in ("cuda_cores", "wgmma")},
            "seconds": time.perf_counter() - t0}
     emit(out)
     return out
+
+
+#: the SSM train phase (mamba2-2.7b): default bindings against every block
+#: bound to its plain version; the norms' plain and add forms run their
+#: kernels forward and backward, the SSD scan and the gated norm resolve
+#: to ``torch`` (their kernels have no backward) and launch nothing
+PLAIN_SSM_TRAIN = {"ssd_scan": "torch", "rmsnorm": "torch", "attention": "torch"}
+SSM_TRAIN_COUNTERS = ("rmsnorm/plain", "rmsnorm/add", "rmsnorm_bwd/plain", "rmsnorm_bwd/add")
+SSM_GRAD_DEFAULTS = ("grad_default/ssd_scan", "grad_default/rmsnorm.gated")
+
+
+def phase_train_ssm(torch) -> dict:
+    """mamba2-2.7b at full width cut to 2 layers, f32, B 2, S 256, trained
+    on default bindings against ``PLAIN_SSM_TRAIN`` as ``phase_train_f32``
+    holds llama: ``ssd_chunks`` and the gated norm's kernel launch nothing,
+    every SSD scan and gated norm resolves to ``torch``."""
+    return phase_train_f32(torch, "mamba2-2.7b", "train_ssm", SSM_TRAIN_COUNTERS,
+                           PLAIN_SSM_TRAIN, seq=256, never=("ssd_chunks", "rmsnorm/gated"),
+                           defaults=SSM_GRAD_DEFAULTS)
 
 
 def phase_main_path_train(torch) -> dict:
@@ -2172,6 +2276,10 @@ def phase_main_path_train(torch) -> dict:
         raise AssertionError(f"main_path_train: flash backward routes {flash_bwd_routes}, "
                              f"device kernels {sorted(flash_bwd)}")
 
+    # the restart check at full size: one step twice from one state and
+    # one batch; every parameter leaf bit-identical, or the leaves named
+    repeat = _repeat_step(torch, step_fn, params, state, batches[0])
+
     # one step's loss and gradient from the trained state, each binding
     batch = batches[0]
     loss_k, grads = _loss_and_grads(torch, params, batch, cfg)
@@ -2204,13 +2312,44 @@ def phase_main_path_train(torch) -> dict:
             "top_device_ms": {k[:80]: v for k, v in top},
             "flash_bwd_device_ms": sum(flash_bwd.values()),
             "flash_bwd_device_ms_by_kernel": {k[:80]: v for k, v in flash_bwd.items()},
+            # a PDL dependent (flash's dQ, RMSNorm's dw pass) starts early and
+            # waits: its duration overlaps its primary's, so the busy time
+            # of a kernel family is the union of its events' intervals
+            "flash_bwd_busy_ms": _busy_ms(prof, ("flash_bwd_",)),
             "norm_bwd_device_ms": sum(v for k, v in device.items()
-                                      if "norm_bwd_kernel" in k or "dw_kernel" in k),
+                                      if any(n in k for n in NORM_BWD_KERNEL_NAMES)),
+            "norm_bwd_device_ms_by_kernel": {k[:100]: v for k, v in device.items()
+                                             if any(n in k for n in NORM_BWD_KERNEL_NAMES)},
+            "norm_bwd_busy_ms": _busy_ms(prof, NORM_BWD_KERNEL_NAMES),
         },
         "kernels_vs_plain": check,
+        "repeat_step": repeat,
     }
     emit(out)
     return out
+
+
+def _repeat_step(torch, step_fn, params, state, batch) -> dict:
+    """``step_fn`` twice from copies of (``params``, ``state``) on one
+    batch: whether every parameter leaf comes out bit-identical (a restart
+    replays its steps exactly only if so), the largest |difference| and
+    the leaves that differ."""
+    from repro_torch.checkpoint.manager import flatten
+    from repro_torch.optim.adamw import OptState
+
+    def one():
+        opt = OptState(_clone_tree(torch, state.mu), _clone_tree(torch, state.nu),
+                       state.step.clone())
+        p, _, _ = step_fn(_clone_tree(torch, params), opt, batch)
+        return flatten(p)
+
+    first = one()
+    second = one()
+    diffs = {k: float((first[k].detach().float() - second[k].detach().float()).abs().max())
+             for k in first}
+    differ = sorted(k for k in first if not torch.equal(first[k], second[k]))
+    return {"bit_identical": not differ, "leaves": len(first), "leaves_that_differ": differ,
+            "max_abs_diff": max(diffs.values())}
 
 
 def phase_train_loop(torch) -> dict:
@@ -2220,7 +2359,9 @@ def phase_train_loop(torch) -> dict:
     largest |difference| of every leaf (parameters and moments; on the
     card the embedding's backward scatter-adds with atomics, so a leaf may
     differ: they are named).  Then ``python -m repro_torch.launch.train``
-    as a process, which must exit 0."""
+    as a process for reduced llama3.2-1b and reduced mamba2-2.7b (two
+    steps on default bindings, its ``grad_default:`` line naming
+    ``ssd_scan``), each of which must exit 0."""
     import os
     import tempfile
 
@@ -2257,21 +2398,29 @@ def phase_train_loop(torch) -> dict:
         if results["failed"].restarts != 1:
             raise AssertionError(f"train_loop: {results['failed'].restarts} restarts")
         env = dict(os.environ, PYTHONPATH=str(SRC))
-        proc = subprocess.run(
-            [sys.executable, "-m", "repro_torch.launch.train", "--arch", "llama3.2-1b",
-             "--reduced", "--steps", "6", "--batch", "2", "--seq", "16",
-             "--ckpt-dir", os.path.join(tmp, "cli")],
+        procs = {arch: subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.train", "--arch", arch,
+             "--reduced", "--steps", steps, "--batch", "2", "--seq", seq,
+             "--ckpt-dir", os.path.join(tmp, f"cli-{arch}")],
             cwd=ROOT, env=env, capture_output=True, text=True, timeout=300,
-        )
-    if proc.returncode != 0:
-        raise AssertionError(f"train_loop: the train CLI exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
+        ) for arch, steps, seq in (("llama3.2-1b", "6", "16"), ("mamba2-2.7b", "2", "32"))}
+    for arch, proc in procs.items():
+        if proc.returncode != 0:
+            raise AssertionError(f"train_loop: the train CLI exited {proc.returncode} on "
+                                 f"{arch}: {proc.stderr[-2000:]}")
+    # mamba2 trains on default bindings: the SSD scan and the gated norm
+    # resolve to torch, and the CLI names them
+    ssm_tail = procs["mamba2-2.7b"].stdout.splitlines()[-2:]
+    if not (ssm_tail and ssm_tail[0].startswith("grad_default: ") and "ssd_scan (" in ssm_tail[0]):
+        raise AssertionError(f"train_loop: the mamba2 CLI printed {ssm_tail}")
     out = {"phase": "train_loop", "arch": "llama3.2-1b-reduced", "steps": 10, "ckpt_every": 4,
            "fail_at": 6, "restarts": results["failed"].restarts,
            "completed_steps": results["failed"].completed_steps,
            "max_abs_diff": max(diffs.values()),
            "leaves_that_differ": sorted(k for k, v in diffs.items() if v != 0.0),
-           "leaves": len(diffs), "cli_stdout_tail": proc.stdout.splitlines()[-3:],
+           "leaves": len(diffs),
+           "cli_stdout_tail": procs["llama3.2-1b"].stdout.splitlines()[-3:],
+           "ssm_cli_stdout_tail": ssm_tail,
            "seconds": time.perf_counter() - t0}
     emit(out)
     return out
@@ -2326,6 +2475,8 @@ def main() -> int:
     phase_train_f32(torch)
     train = phase_main_path_train(torch)
     phase_train_loop(torch)
+    # an SSM trains on default bindings (the SSD scan and gated norm on torch)
+    phase_train_ssm(torch)
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],

@@ -38,12 +38,16 @@ parent, each in a process of its own:
 - ``flash_bwd_kernels``: this tree's chip_smoke.py phase-2 cases of the
   flash backward (CUDA graphs, cold L2), run against each version's kernel,
   each row with the route that version's wrapper took;
+- ``norm_bwd_kernels``: this tree's chip_smoke.py phase-2 cases of
+  RMSNorm's backward (CUDA graphs, cold L2), run against each version's
+  kernels, each row with its kernels' own device ms (``ms_by_kernel``);
 - ``train_step``: each version's own chip_smoke.py phase 19 (full
   llama3.2-1b, B 8, S 512, 10 steps and a profiled one): ms a step, tok/s,
   device ms of the profiled step and the flash backward's share of it.
 
     git archive <parent commit> | tar -x -C build/parent
-    python3 scripts/ab_parent_change.py main_path|main_path_ssm|main_path_hybrid|prefill|prefill_ssm|served_recurring|ssd_kernels|flash_kernels|paged_kernels|offload_kernels|norm_kernels|flash_bwd_kernels|train_step [build/parent]
+    python3 scripts/ab_parent_change.py main_path|main_path_ssm|main_path_hybrid|prefill|prefill_ssm|served_recurring|ssd_kernels|flash_kernels|paged_kernels|offload_kernels|norm_kernels|flash_bwd_kernels|norm_bwd_kernels|train_step
+        [build/parent]
 
 Prints one JSON line per measurement with its version, with the step
 programs' ``graphs`` (captures, replays) and ``peak_memory_gb`` where the
@@ -198,6 +202,7 @@ randn = lambda *shape, dtype: torch.randn(shape, generator=g, device="cuda").to(
 PAGED_KERNELS = THIS_TREES_CASES + "c._paged_cases(torch, c.Timer(torch), randn, g)"
 NORM_KERNELS = THIS_TREES_CASES + "c._norm_plain_cases(torch, c.Timer(torch), randn)"
 FLASH_BWD_KERNELS = THIS_TREES_CASES + "c._flash_bwd_cases(torch, c.Timer(torch), randn)"
+NORM_BWD_KERNELS = THIS_TREES_CASES + "c._norm_bwd_cases(torch, c.Timer(torch), randn)"
 TRAIN_STEP = ("import sys, torch; sys.path.insert(0, 'src'); import chip_smoke as c; "
               "torch.backends.cuda.matmul.allow_tf32 = False; c.phase_device(torch); "
               "c.phase_main_path_train(torch)")
@@ -211,15 +216,16 @@ CODE = {"main_path": MAIN_PATH, "main_path_ssm": MAIN_PATH_SSM,
         "ssd_kernels": SSD_KERNELS, "flash_kernels": FLASH_KERNELS,
         "paged_kernels": PAGED_KERNELS, "offload_kernels": OFFLOAD_KERNELS,
         "norm_kernels": NORM_KERNELS, "flash_bwd_kernels": FLASH_BWD_KERNELS,
+        "norm_bwd_kernels": NORM_BWD_KERNELS,
         "train_step": TRAIN_STEP}
 KERNEL_KEYS = ("name", "dtype", "shape", "ms", "plain_ms", "library_ms", "bound_ms", "max_abs_err",
-               "n_splits", "pages_per_split")
+               "n_splits", "pages_per_split", "form", "w", "ms_by_kernel")
 PROFILE_KEYS = ("arch", "wall_ms_per_step", "device_ms_per_step", "device_busy_share",
                 "device_events_per_step", "replay_ms_per_step", "peak_memory_gb", "graphs")
 TRAIN_KEYS = ("median_step_ms", "tok_per_s", "step_ms", "peak_memory_gb", "launches",
               "flash_bwd_routes", "kernels_vs_plain")
 PROFILED_KEYS = ("wall_ms", "device_ms", "device_busy_share", "flash_bwd_device_ms",
-                 "norm_bwd_device_ms")
+                 "norm_bwd_device_ms", "norm_bwd_busy_ms", "flash_bwd_busy_ms")
 MAIN_PATH_KEYS = ("tok_per_s", "prefill_tok_per_s", "decode_tok_per_s", "prefill_seconds",
                   "decode_seconds", "decode_median_ms",
                   "ttft_p50_ms", "ttft_p99_ms", "wall_seconds", "launches", "graphs",

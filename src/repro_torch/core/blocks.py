@@ -16,6 +16,16 @@ uses it to compare a kernel against its plain version on the card); an
 offload plan's mapping is bound the same way (the serve engine binds one
 per phase).  The reference's targets map one to one: ``ref`` -> ``ref``,
 ``xla`` -> ``torch``, ``pallas`` -> ``cuda``.
+
+A target may declare the calls it cannot differentiate (``no_backward``:
+a kernel with no backward kernel).  An unbound call that picks such a
+target while autograd will differentiate it (grad mode on, a tensor
+argument requiring grad, those inside a tuple argument too) resolves to
+``torch`` instead, as the reference's default resolves an unbound block
+to ``xla``, which XLA differentiates.  Each such resolution is counted in
+:attr:`FunctionBlockRegistry.grad_defaults`, by block and form.  A bound
+target is never replaced: ``bind({"ssd_scan": "cuda"})`` under autograd
+reaches the kernel's wrapper, which raises.
 """
 
 from __future__ import annotations
@@ -30,12 +40,23 @@ import torch
 TARGETS = ("ref", "torch", "cuda")
 
 
+#: ``(args, kwargs) ->`` the form of a call that a target cannot
+#: differentiate ("" where the block has one form), or None where it can
+NoBackward = Callable[[tuple, dict], "str | None"]
+
+
 @dataclasses.dataclass(frozen=True)
 class Impl:
     block: str
     target: str  # "ref" | "torch" | "cuda"
     fn: Callable[..., Any]
     note: str = ""
+    no_backward: NoBackward | None = None  # None: every call differentiates
+
+
+class GradRefused(RuntimeError):
+    """A target asked to differentiate a call it has no backward for (a
+    CUDA wrapper whose kernel has no backward kernel, under autograd)."""
 
 
 def _device_target(args: tuple) -> str:
@@ -45,17 +66,34 @@ def _device_target(args: tuple) -> str:
     raise TypeError("function block called without a tensor argument")
 
 
+def wants_grad(*values: Any) -> bool:
+    """Whether autograd will differentiate a call on ``values``: grad mode is
+    on and a tensor among them, or inside a tuple or list among them,
+    requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    for a in values:
+        for t in a if isinstance(a, (tuple, list)) else (a,):
+            if isinstance(t, torch.Tensor) and t.requires_grad:
+                return True
+    return False
+
+
 class FunctionBlockRegistry:
     def __init__(self) -> None:
         self._impls: dict[str, dict[str, Impl]] = {}
         self._local = threading.local()
+        #: unbound calls resolved to ``torch`` for a gradient their device
+        #: target cannot take, by ``block`` or ``block.form``
+        self.grad_defaults: dict[str, int] = {}
 
     def register(
-        self, block: str, target: str, fn: Callable[..., Any], note: str = ""
+        self, block: str, target: str, fn: Callable[..., Any], note: str = "",
+        no_backward: NoBackward | None = None,
     ) -> None:
         if target not in TARGETS:
             raise ValueError(f"unknown target '{target}'; known: {TARGETS}")
-        self._impls.setdefault(block, {})[target] = Impl(block, target, fn, note)
+        self._impls.setdefault(block, {})[target] = Impl(block, target, fn, note, no_backward)
 
     def implementation(self, block: str, target: str) -> Impl:
         return self._impls[block][target]
@@ -108,18 +146,27 @@ class FunctionBlockRegistry:
         graph freezes the targets it captured)."""
         return tuple(sorted(self._bindings.items()))
 
-    def resolve(self, block: str, *args: Any) -> Callable[..., Any]:
-        """The implementation a call of ``block`` with ``args`` runs: the
-        bound target, else the target of the first tensor argument's
-        device."""
+    def resolve(self, block: str, *args: Any, **kwargs: Any) -> Callable[..., Any]:
+        """The implementation a call of ``block`` with ``args`` and
+        ``kwargs`` runs: the bound target, else the target of the first
+        tensor argument's device, unless that target cannot differentiate
+        a call that autograd will differentiate: then ``torch``."""
         impls = self._impls.get(block)
         if not impls:
             raise KeyError(f"unknown function block '{block}'")
-        target = self._bindings.get(block) or _device_target(args)
+        target = self._bindings.get(block)
+        if target is None:
+            target = _device_target(args)
+            no_backward = impls[target].no_backward
+            form = None if no_backward is None else no_backward(args, kwargs)
+            if form is not None and wants_grad(*args, *kwargs.values()):
+                key = f"{block}.{form}" if form else block
+                self.grad_defaults[key] = self.grad_defaults.get(key, 0) + 1
+                target = "torch"
         return impls[target].fn
 
     def call(self, block: str, *args: Any, **kwargs: Any) -> Any:
-        return self.resolve(block, *args)(*args, **kwargs)
+        return self.resolve(block, *args, **kwargs)(*args, **kwargs)
 
 
 def implementations_fingerprint(

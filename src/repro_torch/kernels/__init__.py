@@ -3,11 +3,15 @@ versions, registered as function blocks (the port of
 ``repro/kernels/__init__.py`` and ``ops.py``).
 
 Targets per block: ``torch`` (the plain version), ``cuda`` (the kernel's
-wrapper) and ``ref`` where the reference has one.  Unbound calls pick
+wrapper) and ``ref`` where the reference has one. Unbound calls pick
 ``cuda`` for CUDA tensors and ``torch`` for CPU tensors
 (:mod:`repro_torch.core.blocks`), as ``ops._auto_backend`` picks the
-Pallas kernel on a TPU.  Nothing is built at import: the CUDA library is
-compiled at the first kernel launch (:mod:`repro_torch.kernels.build`).
+Pallas kernel on a TPU; but a call that autograd will differentiate and
+that the ``cuda`` target cannot (``NO_BACKWARD``: the gated norm and the
+SSD chunk kernel have no backward kernel) picks ``torch``, counted in
+:func:`counters` as ``grad_default/<block>[.<form>]``. Nothing is built at
+import: the CUDA library is compiled at the first kernel launch
+(:mod:`repro_torch.kernels.build`).
 """
 
 import functools
@@ -29,9 +33,21 @@ KERNELS = {
     "rmsnorm_bwd": rmsnorm.rmsnorm_bwd,
 }
 
+#: the counters' prefix for the calls resolved to ``torch`` for a gradient
+GRAD_DEFAULT = "grad_default"
 #: the counters kept per route or form beside a kernel's launches
 _SUBCOUNTS = {"flash_attention": "routes", "flash_attention_bwd": "routes", "rmsnorm": "forms",
               "rmsnorm_bwd": "forms"}
+
+
+#: (block, target) -> the calls that target cannot differentiate
+#: (:data:`repro_torch.core.blocks.NoBackward`); the shelf's other targets
+#: differentiate every call (flash attention and RMSNorm's plain and add
+#: forms through their backward kernels, the plain versions through autograd)
+NO_BACKWARD = {
+    ("rmsnorm", "cuda"): lambda args, kwargs: "gated" if kwargs.get("gate") is not None else None,
+    ("ssd_scan", "cuda"): lambda args, kwargs: "",
+}
 
 
 def _register_all() -> list[tuple]:
@@ -75,7 +91,7 @@ def _register_all() -> list[tuple]:
          "blocked LU, csrc/matmul.cu Schur update"),
     ]
     for block, target, fn, note in impls:
-        r.register(block, target, fn, note)
+        r.register(block, target, fn, note, NO_BACKWARD.get((block, target)))
     return [(block, target, fn) for block, target, fn, _ in impls]
 
 
@@ -98,6 +114,7 @@ def reset_launches() -> None:
     attention.flash_attention_bwd.routes = dict.fromkeys(attention.BWD_ROUTES, 0)
     rmsnorm.rmsnorm.forms = dict.fromkeys(rmsnorm.FORMS, 0)
     rmsnorm.rmsnorm_bwd.forms = dict.fromkeys(rmsnorm.BWD_FORMS, 0)
+    blocks.registry.grad_defaults.clear()
 
 
 def launch_counts() -> dict[str, int]:
@@ -106,12 +123,16 @@ def launch_counts() -> dict[str, int]:
 
 def counters() -> dict[str, int]:
     """Every launch counter by name: each kernel's launches, flash's per
-    route and rmsnorm's (forward and backward) per form.  A CUDA graph
-    replay runs no wrapper, so a step program adds what its capture counted
-    at every replay."""
+    route and rmsnorm's (forward and backward) per form; and
+    ``grad_default/<block>[.<form>]``, the unbound calls resolved to
+    ``torch`` for a gradient their ``cuda`` target cannot take (never
+    under a CUDA graph's capture, which records no gradient).  A CUDA graph
+    replay runs no wrapper, so a step program adds what its capture
+    counted at every replay."""
     out = launch_counts()
     for name, attr in _SUBCOUNTS.items():
         out.update({f"{name}/{k}": n for k, n in getattr(KERNELS[name], attr).items()})
+    out.update({f"{GRAD_DEFAULT}/{k}": n for k, n in blocks.registry.grad_defaults.items()})
     return out
 
 

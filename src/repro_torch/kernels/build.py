@@ -25,6 +25,8 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.core.blocks import GradRefused, wants_grad
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -56,8 +58,8 @@ ENTRY_POINTS = {
     # stream
     "repro_flash_attention_bwd": [_P] * 10 + [_L] + [_I] * 8 + [_F, _I, _I, _P],
     # x, dy, ds (or null), w, dx, partial, dw, rows, d, eps, dtype, w_dtype,
-    # rows_per_cta, tpr, nv, stream
-    "repro_rmsnorm_bwd": [_P] * 7 + [_I] * 2 + [_F] + [_I] * 5 + [_P],
+    # ctas, groups, tpr, nv, stages, stream
+    "repro_rmsnorm_bwd": [_P] * 7 + [_I] * 2 + [_F] + [_I] * 7 + [_P],
     # a, b, out, M, N, K, stream
     "repro_matmul": [_P] * 3 + [_I] * 3 + [_P],
     # c, a, b, out, M, N, K, stream
@@ -219,24 +221,19 @@ def tma_operand(t: torch.Tensor, shape: tuple[int, ...] | None = None) -> torch.
     return out
 
 
-def wants_grad(*tensors: torch.Tensor | None) -> bool:
-    """Whether autograd will differentiate a call on these tensors: grad
-    mode is on and one of them requires grad."""
-    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
-
-
 def refuse_grad(name: str, block: str, *tensors: torch.Tensor) -> None:
     """Raise when autograd would differentiate through a kernel that has no
     backward: its output has no gradient path, so every gradient through
     it would silently be lost.  The message names the shelf block whose
     ``torch`` target (the plain version, which autograd differentiates)
-    can be bound in its place."""
+    can be bound in its place.  An unbound block never gets here: the
+    registry resolves such a call to ``torch`` (``kernels.NO_BACKWARD``)."""
     if wants_grad(*tensors):
-        raise RuntimeError(
+        raise GradRefused(
             f"{name}: the CUDA kernel has no backward, so autograd cannot take a "
             f"gradient through it; bind the '{block}' block's 'torch' target "
             f"(repro_torch.core.blocks.bind({{'{block}': 'torch'}})) or wait for its "
-            "backward kernel (ROADMAP A10)"
+            "backward kernel (ROADMAP B10)"
         )
 
 

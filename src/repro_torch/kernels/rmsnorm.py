@@ -20,8 +20,9 @@ Under autograd (grad mode on, an input requiring grad) the plain and add
 forms on CUDA tensors go through :class:`RMSNormFn` / :class:`AddRMSNormFn`:
 the forward kernel, then the backward kernel (``csrc/rmsnorm_bwd.cu``,
 :func:`rmsnorm_bwd`); :func:`rmsnorm_bwd_torch` is its plain version.  The
-gated form has no backward kernel and refuses a gradient (bind ``rmsnorm``
-to ``torch`` to train an SSM on the card).
+gated form has no backward kernel and refuses a gradient; an unbound
+``rmsnorm`` call of that form under autograd resolves to ``torch``
+(:mod:`repro_torch.core.blocks`).
 """
 
 from __future__ import annotations
@@ -38,13 +39,11 @@ from repro_torch.kernels.ref import rmsnorm_ref
 FORMS = ("plain", "add", "gated")
 #: the forms with a backward kernel
 BWD_FORMS = ("plain", "add")
-#: CTAs of the backward kernel's first pass, at most (each takes
-#: ceil(rows / BWD_CTAS) rows and writes one f32 row of dw partials)
-BWD_CTAS = 512
 #: elements a thread loads at a time, the most threads of a CTA and the
-#: chunks a thread keeps in registers (``csrc/rmsnorm.cu``: kChunk,
-#: kCtaThreads, kRegChunks)
+#: chunks a thread keeps in registers (``csrc/rmsnorm.cu`` and
+#: ``csrc/rmsnorm_bwd.cu``: kChunk, kCtaThreads, kRegChunks)
 CHUNK, CTA_THREADS, REG_CHUNKS = 8, 512, 2
+WARP = 32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +64,55 @@ def norm_plan(d: int) -> NormPlan:
         return NormPlan(CTA_THREADS, 0)
     threads = -(-chunks // nv)
     return NormPlan(max(32, (threads + 31) // 32 * 32), nv)
+
+
+#: shared memory an SM gives its CTAs (the H100's 228 KB) and the most rows
+#: of the backward's copy ring
+SMEM_PER_SM, MAX_STAGES = 233472, 3
+
+
+@dataclasses.dataclass(frozen=True)
+class BwdPlan:
+    tpr: int  # threads of a row group (a warp, or a multiple of 32 up to 512)
+    nv: int  # chunks a thread keeps in registers; 0: the two-pass loop
+    groups: int  # row groups of a CTA
+    ctas: int  # CTAs of the persistent grid, each writing one f32 row of dw terms
+    stages: int  # rows of the copy ring (16-byte chunks); 0: elements tpr apart
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_plan(rows: int, d: int, sms: int, itemsize: int, add: bool = False) -> BwdPlan:
+    """The backward kernel's layout (``csrc/rmsnorm_bwd.cu``): a warp a row
+    for rows of up to 32 chunks of 8, else a group of threads as wide as
+    the row in one chunk a thread up to 512 chunks and two up to 1024, else
+    the two-pass loop.  A CTA holds as many row groups as fit in 512
+    threads, but no more than a group for every ``sms`` rows, so few rows
+    spread over many SMs.  The grid is what the card keeps resident:
+    ``sms`` times the CTAs that fit in the threads an SM runs at the
+    kernel's launch bounds (1024 for one chunk of 2-byte elements or the
+    two-pass loop, else 512), never more CTAs than the rows fill.  Rows of
+    whole chunks stream through a copy ring of as many rows (2 or 3) of x,
+    dy and (``add``) ds as the SM's shared memory holds for those CTAs."""
+    chunks = -(-d // CHUNK)
+    if chunks <= WARP:
+        tpr, nv = WARP, 1
+    else:
+        nv = next((n for n in range(1, REG_CHUNKS + 1) if chunks <= n * CTA_THREADS), 0)
+        tpr = CTA_THREADS if not nv else -(-chunks // (nv * WARP)) * WARP
+    groups = max(1, min(CTA_THREADS // tpr, -(-rows // sms)))
+    resident = 2 * CTA_THREADS if nv == 0 or (nv == 1 and itemsize == 2) else CTA_THREADS
+    per_sm = max(1, resident // (groups * tpr))
+    stages = 0
+    if nv and d % CHUNK == 0:
+        ring_row = groups * (3 if add else 2) * nv * tpr * CHUNK * itemsize
+        stages = min(MAX_STAGES, (SMEM_PER_SM // per_sm - 2048) // ring_row)
+    return BwdPlan(tpr, nv, groups, min(-(-rows // groups), sms * per_sm),
+                   stages if stages >= 2 else 0)
+
+
+@functools.lru_cache(maxsize=16)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # -- plain versions -----------------------------------------------------------------
@@ -307,15 +355,14 @@ def _rmsnorm_bwd_cuda(x, dy, w, eps, ds):
     rows = x.numel() // d if d else 0
     if not rows:
         return dx, dw.zero_()
-    per_cta = -(-rows // BWD_CTAS)
-    partial = torch.empty((-(-rows // per_cta), d), dtype=torch.float32, device=x.device)
-    plan = norm_plan(d)
+    plan = bwd_plan(rows, d, _sm_count(x.device), x.element_size(), ds is not None)
+    partial = torch.empty((plan.ctas, d), dtype=torch.float32, device=x.device)
     form = "plain" if ds is None else "add"
     build.launch(
         "repro_rmsnorm_bwd", x.data_ptr(), dy.data_ptr(), None if ds is None else ds.data_ptr(),
         w.data_ptr(), dx.data_ptr(), partial.data_ptr(), dw.data_ptr(), rows, d, eps,
-        build.dtype_code(x), build.dtype_code(w), per_cta, plan.tpr, plan.nv,
-        build.stream_of(x),
+        build.dtype_code(x), build.dtype_code(w), plan.ctas, plan.groups, plan.tpr, plan.nv,
+        plan.stages, build.stream_of(x),
     )
     rmsnorm_bwd.launches += 1
     rmsnorm_bwd.forms[form] += 1

@@ -53,7 +53,12 @@ def ssd_chunks_torch(x, dt, a, bmat, cmat, *, chunk: int, dtype=torch.float32):
     a_tot = a_cum[:, :, -1, :]  # (B, NC, H)
     diff = a_cum[:, :, :, None, :] - a_cum[:, :, None, :, :]  # (B, NC, L, L, H)
     lower = torch.tril(torch.ones(chunk, chunk, dtype=torch.bool, device=x.device))
-    lam = torch.where(lower[None, None, :, :, None], torch.exp(diff), 0.0)
+    # masked before the exp, not after (the reference's where(mask, exp, 0)):
+    # above the diagonal diff is a sum of up to L - 1 positive -dt a terms
+    # and overflows f32 at full width (chunk 128: ~200), and the where's
+    # zero cotangent times that inf would make every gradient NaN; the
+    # forward is the same bits either way (exp(-inf) = 0)
+    lam = torch.exp(diff.masked_fill(~lower[None, None, :, :, None], float("-inf")))
     g = torch.einsum("bcin,bcjn->bcij", cf, bf)  # (B, NC, L, L)
     w = g[..., None] * lam * dtf[:, :, None, :, :]  # (B, NC, L, L, H)
     y_intra = torch.einsum("bcijh,bcjhp->bcihp", w, xf)

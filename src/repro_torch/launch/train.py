@@ -16,8 +16,10 @@ bound at startup with ``--plan-dir`` / ``--plan-key``; with ``--plan-dir``
 alone the stored ``zoo:<arch>:train`` plan (when present) binds, and
 ``--plan-search`` searches and commits a missing plan first (over
 ``--plan-targets``).  Only the serial executor is ported and no meter
-(ROADMAP A11).  An SSM arch trains on the card only with ``ssd_scan`` and
-``rmsnorm`` bound to ``torch`` (their kernels have no backward).
+(ROADMAP A11).  With default bindings, a call whose CUDA kernel has no
+backward (the SSD chunk kernel, the gated norm: an SSM arch) runs its plain
+version, as the reference's default runs ``xla``; the run ends with a
+``grad_default:`` line naming those blocks and their calls.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 
 from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs import get_config
+from repro_torch.core import blocks
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch.steps import TrainHyper, make_train_step
@@ -136,9 +139,14 @@ def main(argv: "list[str] | None" = None) -> int:
     from repro_torch.offload import OffloadSession
 
     t0 = time.time()
+    defaults0 = dict(blocks.registry.grad_defaults)
     with OffloadSession.attach(args.plan_dir, args.plan_key):
         result = loop.run(state, args.steps)
     dt = time.time() - t0
+    defaults = {k: n - defaults0.get(k, 0) for k, n in blocks.registry.grad_defaults.items()}
+    named = ", ".join(f"{k} ({n} calls)" for k, n in sorted(defaults.items()) if n)
+    print(f"grad_default: {named} resolved to torch: their cuda kernels have no backward"
+          if named else "grad_default: none")
     tokens = args.steps * args.batch * args.seq
     print(f"done: {result.completed_steps} steps, {result.restarts} restarts, "
           f"final loss {last_metrics.get('loss', float('nan')):.4f}, {tokens / dt:.0f} tok/s")

@@ -16,9 +16,11 @@ is ported.  The reference's ``DeviceParallelExecutor`` and
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Sequence
 
 from repro_torch.core import verify
+from repro_torch.core.blocks import GradRefused
 
 
 @dataclasses.dataclass
@@ -41,13 +43,18 @@ class MeasureJob:
 
 def run_job(job: MeasureJob, meter: Any = None) -> verify.Measurement:
     """Measure one job with the meter's begin/end bracketing the timed
-    window."""
+    window.  A job whose binding cannot differentiate the step it runs (a
+    train cell's CUDA kernel with no backward: ``GradRefused``) is a failed
+    trial: infinitely slow, so it never wins, and the search goes on."""
     if meter is not None:
         meter.begin()
-    m = verify.measure(
-        job.fn, job.args, repeats=job.repeats, warmup=job.warmup,
-        min_seconds=job.min_seconds,
-    )
+    try:
+        m = verify.measure(
+            job.fn, job.args, repeats=job.repeats, warmup=job.warmup,
+            min_seconds=job.min_seconds,
+        )
+    except GradRefused:
+        return verify.Measurement(seconds=math.inf, compile_seconds=0.0, repeats=0)
     if meter is not None:
         m.energy_joules = meter.end(m, space=job.space, candidate=job.candidate)
         if m.energy_joules is not None:
