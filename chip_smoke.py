@@ -152,7 +152,23 @@ JSON line, and any failure raises (exit code != 0):
    ``torch``: the norms' plain and add forms launch their kernels forward
    and backward; every SSD scan and gated norm resolves to ``torch`` for
    its gradient (``grad_default/ssd_scan``, ``grad_default/rmsnorm.gated``
-   > 0) and ``ssd_chunks`` launches nothing.
+   > 0) and ``ssd_chunks`` launches nothing;
+22. metering: the port's power meters (``repro_torch.metering``).
+   ``autodetect()`` must be the NVML meter (NVIDIA's NVML library
+   through ctypes), on the card torch runs on (its name, and the NVML
+   handle of torch's PCI address), its power limit beside ``nvidia-smi``'s;
+   one ``meter_window`` around ``METER_WINDOW_S`` of replays of
+   llama3.2-1b's graphed B=8 decode step within ``METER_TOL`` of the
+   card's energy counter (``nvmlDeviceGetTotalEnergyConsumption``) over the
+   same window; phase 4's trace served with no meter and with
+   ``meter="nvml"``: identical tokens, each phase's joules measured, fed
+   to ``serve_phase_joules_total`` and below 1.05x the power limit, J/token
+   and the decode step's median with and without the meter; the offload
+   pipeline on phase 6's libcall apps under ``perf_per_watt`` with the
+   meter through the serial (``measured`` joules), batched (``estimated``)
+   and device-parallel executors (the serial run's winner); then a
+   ``latency`` and a ``perf_per_watt`` store of the FFT app (trials of at
+   least a second) and their trade-off table (``metering.report``).
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -2205,6 +2221,268 @@ def phase_train_ssm(torch) -> dict:
                            defaults=SSM_GRAD_DEFAULTS)
 
 
+#: phase 22: the seconds of steady decode load the meter is held to NVML's
+#: energy counter over (after ``METER_SETTLE_S`` of the same load: NVML's
+#: board draw is an average over about one second), the largest relative
+#: gap allowed, and the watts allowed above the card's power limit
+METER_WINDOW_S, METER_SETTLE_S, METER_TOL, METER_LIMIT_SLACK = 10.0, 2.0, 0.25, 1.05
+
+
+def _nvml_device(torch) -> tuple:
+    """Step 1 of phase 22: ``autodetect()`` must be the NVML meter, on the
+    card torch runs on (the same name, and the same PCI address where torch
+    exposes one).  Returns (meter, power limit in watts)."""
+    from repro_torch.metering import NvmlMeter, autodetect
+
+    meter = autodetect()
+    if not isinstance(meter, NvmlMeter):
+        raise AssertionError(f"metering: autodetect() is {type(meter).__name__}, not NvmlMeter")
+    nvml, handle = meter.nvml, meter.handle
+    name = nvml.name(handle)
+    if name != torch.cuda.get_device_name():
+        raise AssertionError(f"metering: NVML device {meter.index} is {name!r}, "
+                             f"torch runs on {torch.cuda.get_device_name()!r}")
+    props = torch.cuda.get_device_properties(torch.cuda.current_device())
+    pci = [getattr(props, k, None) for k in ("pci_domain_id", "pci_bus_id", "pci_device_id")]
+    bus_id = None if None in pci else "{:08x}:{:02x}:{:02x}.0".format(*pci)
+    if bus_id is not None and nvml.handle_by_pci_bus_id(bus_id).value != handle.value:
+        raise AssertionError(f"metering: NVML device {meter.index} is not torch's card "
+                             f"(PCI {bus_id})")
+    limit = nvml.power_limit_watts(handle)
+    emit({"phase": "metering", "step": "device", "meter": type(meter).__name__,
+          "nvml_index": meter.index, "nvml_name": name, "torch_pci_bus_id": bus_id,
+          "nvml_power_limit_w": limit, "nvidia_smi": nvidia_smi()})
+    return meter, limit
+
+
+def _meter_vs_counter(torch, meter) -> dict:
+    """Step 2 of phase 22: one ``meter_window`` of the NVML meter around
+    ``METER_WINDOW_S`` of replays of llama3.2-1b's graphed B=8 decode step
+    at full width, against the delta of the card's energy counter
+    (``nvmlDeviceGetTotalEnergyConsumption``) over the same window."""
+    import numpy as np
+
+    from repro_torch.metering import NvmlMeter, meter_window
+    from repro_torch.serve import Request, ServeEngine
+
+    cfg = _serve_config("llama3.2-1b")
+    _free_dead_engines(torch)
+    engine = ServeEngine(cfg, seed=0, device="cuda", n_slots=8, max_len=1024, page_size=16)
+    rng = np.random.default_rng(2)
+    for _ in range(8):
+        engine.submit(Request(rng.integers(0, cfg.vocab_size, 512).tolist(), max_new_tokens=64))
+    for _ in range(3):  # admits all 8, then decode steps (the graph captured)
+        engine.step()
+    if len(engine.scheduler.active) != 8:
+        raise AssertionError("metering: not all 8 slots are decoding")
+    program = engine.programs["decode"]
+    inputs = _decode_inputs(engine, "greedy")
+    index0 = engine.cache["index"].clone()
+
+    def load(seconds: float) -> int:
+        steps, t0 = 0, time.perf_counter()
+        with torch.no_grad():
+            while time.perf_counter() - t0 < seconds:
+                for _ in range(8):
+                    program(inputs, policy="greedy")
+                # back to the same positions: every step stays in the slots' pages
+                engine.cache["index"].copy_(index0)
+                steps += 8
+            torch.cuda.synchronize()
+        return steps
+
+    load(METER_SETTLE_S)
+    nvml, handle = meter.nvml, meter.handle
+    replays = program.summary()["replays"]
+    with meter_window(NvmlMeter(meter.index)) as tele:
+        e0 = nvml.total_energy_joules(handle)
+        steps = load(METER_WINDOW_S)
+        e1 = nvml.total_energy_joules(handle)
+    if program.summary()["replays"] - replays != steps:
+        raise AssertionError("metering: the load's decode steps were not all replays")
+    counter = e1 - e0
+    if not (tele.joules is not None and tele.joules > 0 and counter > 0):
+        raise AssertionError(f"metering: meter {tele.joules} J, counter {counter} J")
+    gap = abs(tele.joules - counter) / counter
+    out = {"phase": "metering", "step": "meter_vs_counter", "seconds": tele.seconds,
+           "decode_steps": steps, "ms_per_step": tele.seconds * 1e3 / steps,
+           "meter_joules": tele.joules, "counter_joules": counter,
+           "meter_watts": tele.watts, "counter_watts": counter / tele.seconds,
+           "relative_gap": gap, "tol": METER_TOL}
+    emit(out)
+    if gap > METER_TOL:
+        raise AssertionError(f"metering: the meter is {gap:.1%} off NVML's energy counter")
+    return out
+
+
+def _metered_serving(torch, limit: float) -> dict:
+    """Step 3 of phase 22: phase 4's configuration and trace served without
+    a meter and with ``meter="nvml"``: identical tokens, each phase's joules
+    measured, fed to ``serve_phase_joules_total``, at a believable wattage."""
+    tokens, phases = {}, {}
+
+    def report(label):
+        def fill(engine, out):
+            tokens[label] = [engine.completions[i].tokens for i in sorted(engine.completions)]
+            per_phase = {}
+            for name in ("prefill", "decode"):
+                tele = engine.telemetry[name]
+                per_phase[name] = {
+                    "calls": tele.calls, "tokens": tele.tokens, "seconds": tele.seconds,
+                    "joules": tele.joules, "j_per_token": tele.joules_per_token,
+                    "watts": None if tele.joules is None else tele.joules / tele.seconds,
+                    "provenance": tele.provenance,
+                    "counter_joules": engine.registry.get("serve_phase_joules_total")
+                    .labels(phase=name).value,
+                }
+            out["metering"] = phases[label] = per_phase
+        return fill
+
+    runs = {label: phase_main_path(torch, phase=f"main_path_meter_{label}", report=report(label),
+                                   meter=None if label == "none" else label)
+            for label in ("none", "nvml")}
+    if tokens["none"] != tokens["nvml"]:
+        raise AssertionError("metering: the metered run's tokens differ from the unmetered run's")
+    for name, got in phases["nvml"].items():
+        if not (got["joules"] and got["joules"] > 0 and got["provenance"] == "measured"):
+            raise AssertionError(f"metering: {name} joules {got['joules']} ({got['provenance']})")
+        if abs(got["counter_joules"] - got["joules"]) > 1e-9 * got["joules"]:
+            raise AssertionError(f"metering: serve_phase_joules_total{{phase={name}}} "
+                                 f"{got['counter_joules']} != telemetry {got['joules']}")
+        if not 0 < got["watts"] <= METER_LIMIT_SLACK * limit:
+            raise AssertionError(f"metering: {name} averaged {got['watts']} W (limit {limit} W)")
+    for name, got in phases["none"].items():
+        if got["joules"] is not None or got["counter_joules"] != 0:
+            raise AssertionError(f"metering: the unmetered run has {name} joules")
+    out = {"phase": "metering", "step": "serving",
+           "tokens_identical": True, "power_limit_w": limit}
+    for name in ("prefill", "decode"):
+        got = phases["nvml"][name]
+        out[name] = {"j_per_token": got["j_per_token"], "watts": got["watts"],
+                     "joules": got["joules"], "provenance": got["provenance"]}
+    for label, run in runs.items():
+        out[f"tok_per_s_{label}"] = run["tok_per_s"]
+        out[f"decode_median_ms_{label}"] = run["decode_median_ms"]
+        out[f"launches_{label}"] = run["launches"]
+    out["meter_ms_per_decode_step"] = (out["decode_median_ms_nvml"]
+                                       - out["decode_median_ms_none"])
+    out["empty_window_ms"] = _empty_window_ms()
+    emit(out)
+    return out
+
+
+def _empty_window_ms(n: int = 50) -> dict:
+    """The NVML meter's own host cost: the median ms of ``n`` empty
+    ``meter_window``s, and of its ``begin`` and its ``end`` alone."""
+    import statistics
+
+    from repro_torch.core.verify import Measurement
+    from repro_torch.metering import NvmlMeter, meter_window
+
+    meter, window = NvmlMeter(), Measurement(seconds=1e-3, compile_seconds=0.0, repeats=1)
+    whole, begin, end = [], [], []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        with meter_window(meter):
+            pass
+        t1 = time.perf_counter()
+        meter.begin()
+        t2 = time.perf_counter()
+        meter.end(window)
+        t3 = time.perf_counter()
+        whole.append(t1 - t0)
+        begin.append(t2 - t1)
+        end.append(t3 - t2)
+    return {name: statistics.median(xs) * 1e3
+            for name, xs in (("window", whole), ("begin", begin), ("end", end))}
+
+
+def _offload_energy(torch, n_fft: int = 256, n_lu: int = 192) -> dict:
+    """Step 4 of phase 22: the paper's offload pipeline on phase 6's apps
+    under ``perf_per_watt`` with the NVML meter, through the serial, batched
+    and device-parallel executors; then a ``latency`` and a ``perf_per_watt``
+    store of the FFT app (trials of at least a second) and their trade-off
+    table."""
+    import tempfile
+
+    import repro_torch.kernels as kernels
+    from repro_torch.apps import fourier, matrix
+    from repro_torch.metering import report
+    from repro_torch.offload import OffloadSession
+
+    inputs = {"fourier": fourier.make_input(n_fft), "matrix": matrix.make_input(n_lu)}
+    apps = {"fourier_app_libcall": (fourier.fourier_app_libcall, inputs["fourier"]),
+            "matrix_app_libcall": (matrix.matrix_app_libcall, inputs["matrix"])}
+    provenance = {"serial": "measured", "batched": "estimated", "device_parallel": "measured"}
+    winners: dict = {}
+    rows = []
+    kernels.reset_launches()
+    for executor, want in provenance.items():
+        for name, (app, x) in apps.items():
+            t0 = time.perf_counter()
+            res = OffloadSession(app, args=(x,), repeats=1, objective="perf_per_watt",
+                                 meter="nvml", executor=executor).run()
+            seconds = time.perf_counter() - t0
+            if not res.numerics_ok:
+                raise AssertionError(f"metering: {name} ({executor}) failed the numerics check")
+            measured = [t for t in res.trials if not t.cached]
+            bad = [(t.pattern, t.energy_joules, t.energy_provenance) for t in measured
+                   if t.energy_joules is None or t.energy_provenance != want]
+            if bad or not measured:
+                raise AssertionError(f"metering: {name} ({executor}) trials without "
+                                     f"{want} joules: {bad}")
+            winners[(executor, name)] = res.pattern
+            rows.append({"app": name, "executor": executor, "pattern": list(res.pattern),
+                         "numerics_ok": res.numerics_ok, "search_seconds": seconds,
+                         "trials": [{"pattern": list(t.pattern), "seconds": t.seconds,
+                                     "joules": t.energy_joules,
+                                     "provenance": t.energy_provenance} for t in measured]})
+    counts = kernels.launch_counts()
+    launches = {k: counts[k] for k in ("complex_matmul", "schur_update")}
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"metering: an offload kernel never launched: {launches}")
+    for name in apps:
+        if winners[("device_parallel", name)] != winners[("serial", name)]:
+            raise AssertionError(f"metering: {name}: device_parallel picked "
+                                 f"{winners[('device_parallel', name)]}, serial "
+                                 f"{winners[('serial', name)]}")
+    emit({"phase": "metering", "step": "offload", "n_fft": n_fft, "n_lu": n_lu,
+          "runs": rows, "launches": launches})
+
+    app, x = apps["fourier_app_libcall"]
+    with tempfile.TemporaryDirectory(prefix="energy-plans-") as root:
+        stores = {}
+        for objective in ("latency", "perf_per_watt"):
+            stores[objective] = f"{root}/{objective}"
+            OffloadSession(app, args=(x,), repeats=1, min_seconds=1.0, objective=objective,
+                           meter="nvml", store=stores[objective],
+                           key=f"zoo:fourier_app_libcall:n{n_fft}").run()
+        diff = report.diff_stores(stores["latency"], stores["perf_per_watt"])
+    if len(diff) != 1 or diff[0].joules_a is None or diff[0].joules_b is None:
+        raise AssertionError(f"metering: the store diff lacks its row or joules: {diff}")
+    print(report.render_table(diff, label_a="latency", label_b="perf_per_watt"), flush=True)
+    out = {"phase": "metering", "step": "tradeoff", "rows": [r.to_json() for r in diff]}
+    emit(out)
+    return out
+
+
+def phase_metering(torch) -> dict:
+    """Phase 22: the port's power meters on the card (``repro_torch.metering``)."""
+    t0 = time.perf_counter()
+    meter, limit = _nvml_device(torch)
+    counter = _meter_vs_counter(torch, meter)
+    serving = _metered_serving(torch, limit)
+    tradeoff = _offload_energy(torch)
+    out = {"phase": "metering", "step": "done", "seconds": time.perf_counter() - t0,
+           "meter_vs_counter_gap": counter["relative_gap"],
+           "prefill_j_per_token": serving["prefill"]["j_per_token"],
+           "decode_j_per_token": serving["decode"]["j_per_token"],
+           "meter_ms_per_decode_step": serving["meter_ms_per_decode_step"],
+           "winners_agree": tradeoff["rows"][0]["agree"]}
+    emit(out)
+    return out
+
+
 def phase_main_path_train(torch) -> dict:
     """The train path: full llama3.2-1b (16 layers, d 2048, vocab 128256;
     f32 master weights and moments, bf16 compute, full remat) for
@@ -2477,6 +2755,8 @@ def main() -> int:
     phase_train_loop(torch)
     # an SSM trains on default bindings (the SSD scan and gated norm on torch)
     phase_train_ssm(torch)
+    # the power meters: NVML on the card, the metered serving and offload paths
+    phase_metering(torch)
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],

@@ -18,8 +18,10 @@
 
 ``Planner`` ties them together: check the store, otherwise search, then
 persist the winner; ``declared_pattern`` picks a binding for a declared
-environment without measuring.  Not ported yet: the HLO cost model with
-``CostGuidedSearch``, the parallel executors and the hardware meters.
+environment without measuring.  The timed work runs through a pluggable
+``repro_torch.metering`` executor (serial / device-parallel / batched) under
+an optional power meter.  Not ported yet: the HLO cost model with
+``CostGuidedSearch``.
 """
 
 from repro_torch.core.planner.cache import MeasurementCache  # noqa: F401

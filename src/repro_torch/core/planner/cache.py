@@ -7,20 +7,22 @@ earlier generation — already visited.  Entries are keyed by the space
 signature plus the canonical (order-independent) pattern, and keep the
 compile-time / runtime split from ``verify.measure`` so search-time curves
 (paper Fig. 4) stay reconstructable — ``records()`` returns them in
-measurement order.
+measurement order for ``repro_torch.metering.report.search_trace``.
 
-The *timed work* itself is delegated to an executor
-(``repro_torch.metering.executors``): the ``SerialExecutor`` measures one
-candidate after another.  The reference's device-parallel and batched
-executors, and its metrics registry, are not ported yet: asking for them
-raises ``NotImplementedError``.  ``measure_many`` is the bulk path
-strategies feed whole GA generations / combine rounds through; ``measure``
-is the single-trial convenience over it.
+The *timed work* itself is delegated to a pluggable
+``repro_torch.metering.executors.MeasurementExecutor``: the default
+``SerialExecutor`` reproduces the historical one-after-another behaviour,
+``DeviceParallelExecutor`` measures independent candidates concurrently
+(one per CUDA device), and ``BatchedExecutor`` fuses short variants into
+one timed window.  ``measure_many`` is the bulk path strategies feed whole
+GA generations / combine rounds through; ``measure`` is the single-trial
+convenience over it.
 
-Record mutation and hit/miss accounting are guarded by one lock.  The
-reference also keeps an in-flight map so concurrent measurers of one key
-wait for each other; with only the serial executor ported, no two
-measurements of a cache ever run at once, so that map is not carried over.
+Thread safety: record mutation and hit/miss accounting are guarded by one
+lock, and an in-flight map prevents two threads from measuring the same key
+concurrently (the second waits and replays the first's measurement as a
+hit) — required once ``DeviceParallelExecutor`` drives the cache from
+worker threads.
 """
 
 from __future__ import annotations
@@ -77,25 +79,60 @@ class MeasurementCache:
         estimated joules in one ranking (each measurement's
         ``energy_provenance`` marks which it was).
 
-        ``executor``: optional executor (instance or name) that runs the
-        timed work; only the serial one is ported, and it is the default.
+        ``executor``: optional ``repro_torch.metering`` executor (instance or
+        name) that runs the timed work; defaults to serial measurement.
 
-        ``metrics``: the reference's hit/miss metrics registry, not ported
-        (``NotImplementedError`` when given).
+        ``metrics``: optional ``repro_torch.obs.MetricsRegistry`` — hit/miss
+        accounting writes through to ``planner_cache_{hits,misses}_total``
+        (same increment that feeds ``self.hits``/``self.misses``, so the
+        exported counters can never drift from the legacy fields).
         """
-        if metrics is not None:
-            raise NotImplementedError(
-                "MeasurementCache(metrics=...) is not ported yet"
-            )
         self._data: dict[tuple, CacheRecord] = {}
         self.meter = meter
         self._executor = None
         if executor is not None:
             self.executor = executor
+        # counters must exist before the hits/misses property setters run
+        self._hits_c = self._misses_c = None
+        if metrics is not None:
+            self._hits_c = metrics.counter(
+                "planner_cache_hits_total",
+                "measurements replayed from the shared cache",
+            )
+            self._misses_c = metrics.counter(
+                "planner_cache_misses_total",
+                "measurements actually taken (compile+run trials)",
+            )
         self.hits = 0
         self.misses = 0
         self._seq = 0
         self._lock = threading.Lock()
+        self._inflight: dict[tuple, threading.Event] = {}
+
+    # hit/miss accounting: plain-looking counters whose setters forward
+    # positive deltas to the registry, so every `self.hits += 1` site —
+    # present and future — feeds the exported metric automatically
+    @property
+    def hits(self) -> int:
+        return self._hits
+
+    @hits.setter
+    def hits(self, value: int) -> None:
+        delta = value - getattr(self, "_hits", 0)
+        if delta > 0 and self._hits_c is not None:
+            self._hits_c.inc(delta)
+        self._hits = value
+
+    @property
+    def misses(self) -> int:
+        return self._misses
+
+    @misses.setter
+    def misses(self, value: int) -> None:
+        delta = value - getattr(self, "_misses", 0)
+        if delta > 0 and self._misses_c is not None:
+            self._misses_c.inc(delta)
+        self._misses = value
 
     @property
     def executor(self) -> Any:
@@ -168,49 +205,112 @@ class MeasurementCache:
         warmup: int = 1,
     ) -> list[tuple[verify.Measurement, bool]]:
         """Bulk path: measure every candidate not already cached, handing
-        the whole miss set to the executor at once.  Returns
-        ``(measurement, cached)`` per candidate, in input order; duplicate
-        candidates within one call are measured once (the later ones
-        replay as hits).
+        the whole miss set to the executor at once so independent trials
+        can run concurrently (or fused).  Returns ``(measurement, cached)``
+        per candidate, in input order; duplicate candidates within one call
+        are measured once.
         """
         from repro_torch.metering.executors import MeasureJob, SerialExecutor
 
-        executor = self._executor or SerialExecutor()
+        executor = self._executor
+        if executor is None:
+            executor = SerialExecutor()
+        cands = list(cands)
+        results: list[tuple[verify.Measurement, bool] | None] = [None] * len(
+            cands
+        )
         keys = [self.key_for(space, cand, args) for cand in cands]
-        with self._lock:
-            misses = {k: c for k, c in zip(keys, cands) if k not in self._data}
-        jobs = [
-            MeasureJob(
-                fn=space.build(cand), args=args, repeats=repeats,
-                min_seconds=min_seconds, warmup=warmup, space=space,
-                candidate=cand,
-            )
-            for cand in misses.values()
-        ]
-        measured = executor.run(jobs, meter=self.meter) if jobs else []
-        if len(measured) != len(jobs):
-            raise RuntimeError(
-                f"executor {type(executor).__name__} returned {len(measured)} "
-                f"measurements for {len(jobs)} jobs; executors must return "
-                "one Measurement per job, in order"
-            )
-        results: list[tuple[verify.Measurement, bool]] = []
-        with self._lock:
-            for key, m in zip(misses, measured):
-                self._data[key] = CacheRecord(key, m, seq=self._seq)
-                self._seq += 1
-                self.misses += 1
-            fresh = set(misses)
-            for key in keys:
-                rec = self._data[key]
-                if key in fresh:
-                    fresh.discard(key)  # its first occurrence: the measurement
-                    results.append((rec.measurement, False))
-                else:
-                    rec.hits += 1
-                    self.hits += 1
-                    results.append((rec.measurement, True))
-        return results
+
+        while True:
+            to_measure: dict[tuple, Candidate] = {}
+            primary: dict[tuple, int] = {}  # key -> index that measures it
+            wait_for: list[threading.Event] = []
+            with self._lock:
+                for i, (key, cand) in enumerate(zip(keys, cands)):
+                    if results[i] is not None:
+                        continue
+                    rec = self._data.get(key)
+                    if rec is not None:
+                        rec.hits += 1
+                        self.hits += 1
+                        results[i] = (rec.measurement, True)
+                    elif key in to_measure:
+                        # duplicate within this batch: measured once by its
+                        # first occurrence, replayed below as a hit
+                        pass
+                    elif key in self._inflight:
+                        # another thread is measuring this key right now;
+                        # wait for its record instead of re-measuring
+                        wait_for.append(self._inflight[key])
+                    else:
+                        to_measure[key] = cand
+                        primary[key] = i
+                        self._inflight[key] = threading.Event()
+
+            if to_measure:
+                miss_keys = list(to_measure)
+                try:
+                    jobs = [
+                        MeasureJob(
+                            fn=space.build(to_measure[key]),
+                            args=args,
+                            repeats=repeats,
+                            min_seconds=min_seconds,
+                            warmup=warmup,
+                            space=space,
+                            candidate=to_measure[key],
+                        )
+                        for key in miss_keys
+                    ]
+                    measured = executor.run(jobs, meter=self.meter)
+                    if len(measured) != len(jobs):
+                        raise RuntimeError(
+                            f"executor {type(executor).__name__} returned "
+                            f"{len(measured)} measurements for {len(jobs)} "
+                            "jobs; executors must return one Measurement "
+                            "per job, in order"
+                        )
+                except BaseException:
+                    # release the in-flight claims so waiting threads can
+                    # take over the measurement instead of deadlocking
+                    with self._lock:
+                        for key in miss_keys:
+                            ev = self._inflight.pop(key, None)
+                            if ev is not None:
+                                ev.set()
+                    raise
+                with self._lock:
+                    for key, m in zip(miss_keys, measured):
+                        self._data[key] = CacheRecord(
+                            key, m, seq=self._seq
+                        )
+                        self._seq += 1
+                        self.misses += 1
+                        results[primary[key]] = (m, False)
+                        ev = self._inflight.pop(key, None)
+                        if ev is not None:
+                            ev.set()
+
+            for ev in wait_for:
+                # bounded wait: re-classification below retries (and takes
+                # the measurement over) if the other thread failed or is
+                # still running
+                ev.wait(timeout=60.0)
+
+            with self._lock:
+                for i, key in enumerate(keys):
+                    if results[i] is not None:
+                        continue
+                    rec = self._data.get(key)
+                    if rec is not None:
+                        # in-batch duplicate or another thread's record:
+                        # replayed, so it counts as a hit
+                        rec.hits += 1
+                        self.hits += 1
+                        results[i] = (rec.measurement, True)
+                done = all(r is not None for r in results)
+            if done:
+                return [r for r in results if r is not None]
 
     @property
     def evaluations(self) -> int:

@@ -65,8 +65,9 @@ class TimeProportionalPower(PowerMeter):
 
     This is exact for a device whose power envelope does not depend on the
     pattern (then PerfPerWatt degenerates to latency) and is the documented
-    stand-in until a counter-backed meter is registered.  The reference's
-    counter-backed meters (NVML / RAPL / psutil) are not ported yet.
+    stand-in until a counter-backed meter is registered.  Counter-backed
+    meters (NVML / RAPL / psutil) live in ``repro_torch.metering.meters``
+    behind ``metering.autodetect()``.
     """
 
     provenance = "estimated"

@@ -85,6 +85,12 @@ class Measurement:
     energy_provenance: str | None = None
 
 
+def warmup_count(fn: Callable[..., Any], warmup: int) -> int:
+    """The warm-up calls a trial of ``fn`` makes: ``warmup``, raised to the
+    ``warmup_calls`` that ``fn`` reports (none when ``warmup`` is 0)."""
+    return max(warmup, getattr(fn, "warmup_calls", 0)) if warmup > 0 else 0
+
+
 def measure(
     fn: Callable[..., Any],
     args: Sequence[Any],
@@ -102,7 +108,7 @@ def measure(
     its capture); the warm-up makes at least that many, so no timed call
     runs a capture."""
     t0 = time.perf_counter()
-    for _ in range(max(warmup, getattr(fn, "warmup_calls", 0)) if warmup > 0 else 0):
+    for _ in range(warmup_count(fn, warmup)):
         _block(fn(*args))
     warm = time.perf_counter() - t0
     times = []

@@ -18,6 +18,10 @@ names one plan for both phases, and ``--decode-impl`` pins decode's
 chunks run between decode steps; ``--trace-out`` writes a Chrome/Perfetto trace of the
 request lifecycles (inspect with ``python -m repro_torch.obs.timeline``)
 and ``--metrics-out`` a Prometheus text snapshot of the engine's metrics.
+``--meter`` adds power telemetry (J/token per phase, with its
+measured/estimated provenance): ``nvml`` reads the card's board draw
+through NVIDIA's NVML library, ``auto`` takes the best meter the host
+has.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import argparse
 import numpy as np
 
 from repro_torch.configs import get_config
+from repro_torch.metering import EXECUTOR_NAMES, METER_NAMES
 from repro_torch.obs import Tracer
 from repro_torch.serve import Request, Sampler, ServeEngine
 
@@ -133,9 +138,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plan-targets", default=None,
                     help="targets --plan-search searches over (default: torch,cuda "
                          "on the card, ref,torch with --device cpu)")
-    ap.add_argument("--executor", default="serial", choices=("serial",),
-                    help="measurement executor for --plan-search (only serial is "
-                         "ported)")
+    ap.add_argument("--executor", default="serial", choices=EXECUTOR_NAMES,
+                    help="measurement executor for --plan-search")
+    ap.add_argument("--meter", default="none", choices=METER_NAMES,
+                    help="power telemetry per phase (and for --plan-search's trials)")
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=24)
     ap.add_argument("--len-jitter", type=int, default=8,
@@ -165,7 +171,8 @@ def plan_keys_of(args: argparse.Namespace) -> "dict[str, str | None] | str | Non
                    else DEFAULT_TARGETS[args.device])
         return launch_plan_keys(
             args.plan_dir, args.arch, ("prefill", "decode"), search=True,
-            targets=targets, executor=args.executor, device=args.device,
+            targets=targets, executor=args.executor, meter=args.meter,
+            device=args.device,
         )
     return None
 
@@ -193,6 +200,7 @@ def main(argv: "list[str] | None" = None) -> int:
         plan_dir=args.plan_dir,
         plan_keys=plan_keys,
         decode_impl=args.decode_impl,
+        meter=args.meter,
         quiet=False,
         # --trace-out turns tracing on for this engine; without it the
         # engine keeps the process tracer, disabled

@@ -15,8 +15,10 @@ full width.  A previously verified offload plan (committed by an
 bound at startup with ``--plan-dir`` / ``--plan-key``; with ``--plan-dir``
 alone the stored ``zoo:<arch>:train`` plan (when present) binds, and
 ``--plan-search`` searches and commits a missing plan first (over
-``--plan-targets``).  Only the serial executor is ported and no meter
-(ROADMAP A11).  With default bindings, a call whose CUDA kernel has no
+``--plan-targets``; ``--executor`` picks how its trials are timed), and
+``--meter`` reports the run's power telemetry with measured/estimated
+provenance (``power: train loop ...``).  With default bindings, a call
+whose CUDA kernel has no
 backward (the SSD chunk kernel, the gated norm: an SSM arch) runs its plain
 version, as the reference's default runs ``xla``; the run ends with a
 ``grad_default:`` line naming those blocks and their calls.
@@ -37,6 +39,7 @@ from repro_torch.core import blocks
 from repro_torch.data.pipeline import SyntheticLMData
 from repro_torch.kernels.ops import resolve_device
 from repro_torch.launch.steps import TrainHyper, make_train_step
+from repro_torch.metering import EXECUTOR_NAMES, METER_NAMES, meter_window, resolve_meter
 from repro_torch.models import lm
 from repro_torch.models.params import count_params
 from repro_torch.optim.adamw import AdamW
@@ -93,10 +96,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--plan-targets", default=None,
                     help="targets --plan-search searches over (default: torch,cuda on "
                          "the card, ref,torch with --device cpu)")
-    ap.add_argument("--executor", default="serial", choices=("serial",),
-                    help="measurement executor for --plan-search (only serial is ported)")
-    ap.add_argument("--meter", default="none", choices=("none",),
-                    help="power telemetry (not ported: ROADMAP A11)")
+    ap.add_argument("--executor", default="serial", choices=EXECUTOR_NAMES,
+                    help="measurement executor for --plan-search")
+    ap.add_argument("--meter", default="none", choices=METER_NAMES,
+                    help="power telemetry for the run (and --plan-search)")
     return ap
 
 
@@ -109,10 +112,11 @@ def main(argv: "list[str] | None" = None) -> int:
                    else DEFAULT_TARGETS[args.device])
         args.plan_key = launch_plan_keys(
             args.plan_dir, args.arch, ("train",), search=args.plan_search,
-            targets=targets, executor=args.executor, device=args.device,
+            targets=targets, executor=args.executor, meter=args.meter, device=args.device,
         )["train"]
         if args.plan_key is None:
             args.plan_dir = None  # no stored plan: default bindings, quietly
+    meter = resolve_meter(args.meter)
 
     cfg, data, step_fn, params, opt_state, device = build(args)
     print(f"arch={cfg.name} params={count_params(lm.build_metas(cfg)) / 1e6:.1f}M")
@@ -141,7 +145,10 @@ def main(argv: "list[str] | None" = None) -> int:
     t0 = time.time()
     defaults0 = dict(blocks.registry.grad_defaults)
     with OffloadSession.attach(args.plan_dir, args.plan_key):
-        result = loop.run(state, args.steps)
+        # each step's float(loss) waits for the card, so the window closes
+        # after the last step's device work
+        with meter_window(meter) as tele:
+            result = loop.run(state, args.steps)
     dt = time.time() - t0
     defaults = {k: n - defaults0.get(k, 0) for k, n in blocks.registry.grad_defaults.items()}
     named = ", ".join(f"{k} ({n} calls)" for k, n in sorted(defaults.items()) if n)
@@ -150,6 +157,8 @@ def main(argv: "list[str] | None" = None) -> int:
     tokens = args.steps * args.batch * args.seq
     print(f"done: {result.completed_steps} steps, {result.restarts} restarts, "
           f"final loss {last_metrics.get('loss', float('nan')):.4f}, {tokens / dt:.0f} tok/s")
+    if meter is not None:
+        print(f"power: train loop {tele.summary()}")
     return 0
 
 

@@ -35,7 +35,14 @@ from repro_torch.core.planner import (  # noqa: F401
     WeightedCost,
     resolve_objective,
 )
-from repro_torch.metering import SerialExecutor, resolve_executor  # noqa: F401
+from repro_torch.metering import (  # noqa: F401
+    BatchedExecutor,
+    DeviceParallelExecutor,
+    SerialExecutor,
+    autodetect,
+    resolve_executor,
+    resolve_meter,
+)
 from repro_torch.offload.session import (  # noqa: F401
     OffloadResult,
     OffloadSession,

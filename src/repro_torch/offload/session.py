@@ -35,10 +35,12 @@ Production startup never runs a session at all — ``OffloadSession.attach``
 binds a previously committed plan with zero search or measurement, and
 ``plan_zoo`` (:mod:`repro_torch.offload.zoo`) commits one per model cell.
 
-Not ported yet (``NotImplementedError``): the legality and resource
-pre-filters (``legality=``, ``resources=``, ``resource_hints=``), tracing
-spans (``tracer=``) and the power meters (``meter=``).  Trials are timed by
-the ``MeasurementCache``'s serial executor, the one ``executor=`` accepts.
+``meter=`` (a ``PowerMeter`` or a name ``repro_torch.metering.resolve_meter``
+takes, e.g. ``"nvml"``) meters every trial, and ``executor=`` picks how the
+``MeasurementCache`` times them (serial, device-parallel or batched).  Not
+ported yet (``NotImplementedError``): the legality and resource
+pre-filters (``legality=``, ``resources=``, ``resource_hints=``) and
+tracing spans (``tracer=``).
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from repro_torch.core.planner import (
     resolve_objective,
 )
 from repro_torch.core.planner.strategies import to_verification_report
-from repro_torch.metering import resolve_executor
+from repro_torch.metering import resolve_executor, resolve_meter
 
 
 class StageError(RuntimeError):
@@ -187,7 +189,6 @@ class OffloadSession:
         unported = {
             "legality": bool(legality), "resources": resources not in (False, None),
             "resource_hints": resource_hints is not None, "tracer": tracer is not None,
-            "meter": meter is not None,
         }
         asked = sorted(k for k, v in unported.items() if v)
         if asked:
@@ -201,8 +202,23 @@ class OffloadSession:
         self.strategy = strategy or SingleThenCombine()
         self.store = PlanStore(store) if isinstance(store, str) else store
         self.key = key
-        executor = resolve_executor(executor)  # the serial one, or it raises
-        self.cache = cache if cache is not None else MeasurementCache(executor=executor)
+        meter = resolve_meter(meter)
+        self._owns_cache = cache is None
+        if cache is None:
+            cache = MeasurementCache(meter=meter, executor=executor)
+        else:
+            if meter is not None:
+                if cache.meter is not None and cache.meter is not meter:
+                    raise ValueError(
+                        "the shared MeasurementCache already carries a "
+                        "different PowerMeter; wire the meter into the cache "
+                        "itself (MeasurementCache(meter=...)) or give this "
+                        "session its own cache"
+                    )
+                cache.meter = meter
+            if executor is not None:
+                self._set_cache_executor(cache, executor)
+        self.cache = cache
         self.registry = registry or blocks_mod.registry
         self.repeats = repeats
         self.min_seconds = min_seconds
@@ -240,6 +256,28 @@ class OffloadSession:
         self._from_store = False
         self._numerics_ok: bool | None = None
         self._built_fn: Callable[..., Any] | None = None
+
+    def _set_cache_executor(self, cache: MeasurementCache, executor: Any) -> None:
+        """Install an executor on a *shared* cache, refusing to silently
+        displace a different one another session relies on (mirrors the
+        PowerMeter conflict guard above)."""
+        executor = resolve_executor(executor)
+        current = cache.executor
+        # equivalent configuration counts as the same executor: two
+        # resolve_executor("serial") calls yield distinct-but-equal
+        # instances and must not be treated as a conflict
+        same = current is None or current is executor or (
+            type(current) is type(executor)
+            and current.__dict__ == executor.__dict__
+        )
+        if not same:
+            raise ValueError(
+                "the shared MeasurementCache already carries a different "
+                "executor; wire the executor into the cache itself "
+                "(MeasurementCache(executor=...)) or give this session "
+                "its own cache"
+            )
+        cache.executor = executor
 
     # -- stage machinery -------------------------------------------------------
     def _require(self, stage: str, prerequisite: str) -> None:
@@ -314,16 +352,26 @@ class OffloadSession:
         return found
 
     # -- Step 3 ----------------------------------------------------------------
-    def plan(self) -> Plan:
+    def plan(self, executor: Any = None) -> Plan:
         """Store-first measured search: a compatible stored plan (same
         space signature, same objective) short-cuts to zero measurements,
         otherwise the strategy searches the space and ranks candidates
         with the session objective.
 
+        ``executor`` (a ``repro_torch.metering`` executor instance or name)
+        overrides how this search's trials are timed — e.g.
+        ``plan(executor="batched")`` fuses short variants into one timed
+        window.
+
         One plan-lifecycle policy exists — ``Planner.plan`` — and this
         stage delegates to it; persistence is deferred to ``commit``.
         """
         self._require("plan", "discover")
+        if executor is not None:
+            if self._owns_cache:
+                self.cache.executor = executor
+            else:
+                self._set_cache_executor(self.cache, executor)
         planner = Planner(
             self.space,
             strategy=self.strategy,

@@ -38,6 +38,7 @@ from repro_torch.core.planner import (
     PlanStore,
     SearchStrategy,
 )
+from repro_torch.metering import EXECUTOR_NAMES, METER_NAMES
 from repro_torch.offload.session import OffloadResult, OffloadSession
 
 #: Shelf blocks each layer kind routes compute through (see repro_torch.models).
@@ -112,6 +113,7 @@ def launch_plan_keys(
     search: bool = False,
     targets: Sequence[str] | None = None,
     executor: Any = None,
+    meter: Any = None,
     device: Any = "cuda",
 ) -> dict[str, str | None]:
     """The launch drivers' zoo-default flow, in one place: optionally
@@ -134,6 +136,7 @@ def launch_plan_keys(
                 [(arch, kind) for kind in missing],
                 targets=targets,
                 executor=executor,
+                meter=meter,
                 device=device,
                 quiet=False,
             )
@@ -343,27 +346,30 @@ def plan_zoo(
     (train, prefill, decode).  Already-stored compatible plans short-cut to
     zero measurements (pass ``force_search=True`` to re-measure).
     ``device`` is where the cells run (the CUDA card unless ``"cpu"``).
-    ``executor`` accepts the serial executor only; ``meter``, ``legality``
-    and ``resources`` are not ported (``NotImplementedError``).  Returns
+    ``executor`` / ``meter`` select the ``repro_torch.metering``
+    measurement executor (e.g. ``batched`` for short trials) and power
+    meter (``"auto"`` autodetects, ``"nvml"`` reads the card's board draw,
+    with provenance recorded on every trial); ``legality`` and
+    ``resources`` are not ported (``NotImplementedError``).  Returns
     ``{(arch, kind): OffloadResult}``; cells whose step cannot be built or
     measured are skipped with a ``UserWarning`` (regardless of ``quiet``,
     which only silences progress lines) rather than aborting the sweep.
     """
     from repro_torch.configs import ARCH_NAMES
     from repro_torch.core import blocks as blocks_mod
-    from repro_torch.metering import resolve_executor
+    from repro_torch.metering import resolve_executor, resolve_meter
 
     if cells is None:
         cells = [(a, k) for a in ARCH_NAMES for k in ZOO_KINDS]
     for _, kind in cells:
         if kind not in ZOO_KINDS:
             raise ValueError(f"unknown cell kind '{kind}'; known: {ZOO_KINDS}")
-    unported = {"meter": meter is not None, "legality": bool(legality),
-                "resources": resources not in (False, None)}
+    unported = {"legality": bool(legality), "resources": resources not in (False, None)}
     asked = sorted(k for k, v in unported.items() if v)
     if asked:
         raise NotImplementedError(f"plan_zoo options {asked} are not ported yet")
-    executor = resolve_executor(executor)  # the serial one, or it raises
+    executor = resolve_executor(executor)
+    meter = resolve_meter(meter)
     registry = registry or blocks_mod.registry
     store = PlanStore(store) if isinstance(store, str) else store
 
@@ -393,6 +399,7 @@ def plan_zoo(
                 strategy=strategy,
                 store=store,
                 key=zoo_key(arch, kind),
+                meter=meter,
                 executor=executor,
                 repeats=repeats,
                 min_seconds=min_seconds,
@@ -439,7 +446,11 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap.add_argument("--objective", default="latency",
                     help="latency | perf_per_watt")
     ap.add_argument("--executor", default="serial",
-                    help="measurement executor: serial (the one ported)")
+                    choices=EXECUTOR_NAMES,
+                    help="measurement executor (repro_torch.metering)")
+    ap.add_argument("--meter", default="none",
+                    choices=METER_NAMES,
+                    help="power meter (provenance recorded per trial)")
     ap.add_argument("--repeats", type=int, default=1)
     ap.add_argument("--force", action="store_true",
                     help="re-search even when a stored plan exists")
@@ -464,6 +475,7 @@ def main(argv: Sequence[str] | None = None) -> None:
         targets=targets,
         objective=args.objective,
         executor=args.executor,
+        meter=args.meter,
         repeats=args.repeats,
         verify=args.verify,
         force_search=args.force,

@@ -78,9 +78,15 @@ The per-step inputs reach the card in one copy (the program's pinned
 staging buffer); the page table is a static device buffer rewritten only
 when the table changed.
 
+Telemetry: every phase call runs under ``metering.meter_window`` of the
+engine's ``meter`` (None: the window only reads the clock), and each window
+closes after the call that waits for the card (the sampled token's read, or
+a synchronisation), so its seconds and joules cover the device work, not
+only its enqueue.
+
 The engine runs on the CUDA card unless the caller passes ``device="cpu"``;
 without CUDA it raises.  Not ported yet (they raise
-``NotImplementedError``): meters, lint and capacity planning.
+``NotImplementedError``): lint and capacity planning.
 """
 
 from __future__ import annotations
@@ -97,6 +103,8 @@ from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import blocks as blocks_mod
 from repro_torch.models import lm
+from repro_torch.metering import meter_window, resolve_meter
+from repro_torch.metering.meters import WindowTelemetry
 from repro_torch.models.attention import cache_seq_axes, insert_pages
 from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
 from repro_torch.offload.session import stored_binding
@@ -128,15 +136,15 @@ def _i32(value: int) -> np.ndarray:
 
 @dataclasses.dataclass
 class PhaseTelemetry:
-    """Wall time and tokens of one phase, summed over its calls.  Every call
+    """Aggregate of every ``meter_window`` a phase ran under: wall time,
+    tokens and, under a meter, joules with their provenance.  Every window
     ends in a device-to-host read of the sampled tokens or a device
-    synchronisation, so the wall time covers the device work.
+    synchronisation, so it covers the device work.
 
     With a ``registry`` (a :class:`repro_torch.obs.MetricsRegistry`), every
     :meth:`add` also writes through to the
     ``serve_phase_{calls,seconds,tokens,joules}_total{phase=...}`` counters:
-    one observation feeds both views.  ``joules`` and ``provenance`` stay
-    None: the port has no power meter yet.
+    one observation feeds both views, so they can never disagree.
     """
 
     phase: str
@@ -159,30 +167,46 @@ class PhaseTelemetry:
                             "wall seconds inside phase programs", ("phase",)).labels(**lab),
                 reg.counter("serve_phase_tokens_total",
                             "tokens processed per phase", ("phase",)).labels(**lab),
-                # registered for the exposition's schema; fed once a meter is
                 reg.counter("serve_phase_joules_total",
                             "metered energy per phase", ("phase",)).labels(**lab),
             )
 
-    def add(self, seconds: float, tokens: int) -> None:
+    def add(self, tele: WindowTelemetry, tokens: int) -> None:
         self.calls += 1
-        self.seconds += seconds
+        self.seconds += tele.seconds
         self.tokens += tokens
+        if tele.joules is not None:
+            self.joules = (self.joules or 0.0) + tele.joules
+            self.provenance = tele.provenance
         if self._counters is not None:
-            calls_c, seconds_c, tokens_c, _ = self._counters
+            calls_c, seconds_c, tokens_c, joules_c = self._counters
             calls_c.inc()
-            seconds_c.inc(max(seconds, 0.0))
+            seconds_c.inc(max(tele.seconds, 0.0))
             tokens_c.inc(tokens)
+            if tele.joules is not None:
+                joules_c.inc(max(tele.joules, 0.0))
 
     @property
     def tokens_per_second(self) -> float:
         return self.tokens / self.seconds if self.seconds else 0.0
 
+    @property
+    def joules_per_token(self) -> float | None:
+        if self.joules is None or not self.tokens:
+            return None
+        return self.joules / self.tokens
+
     def summary(self) -> str:
-        return (
+        out = (
             f"{self.phase}: {self.tokens} tok in {self.seconds:.2f}s "
             f"({self.tokens_per_second:.1f} tok/s, {self.calls} calls)"
         )
+        if self.joules is not None:
+            out += (
+                f", {self.joules:.1f} J"
+                f" [{self.joules_per_token:.3g} J/tok, {self.provenance}]"
+            )
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,6 +260,11 @@ class ServeEngine:
     ``decode_impl`` (``auto|torch|cuda``, paged cache only) pins the decode
     step's ``paged_attention`` target over whatever the decode plan picked.
 
+    ``meter`` (a name or a ``PowerMeter``, through
+    :func:`repro_torch.metering.resolve_meter`) adds per-phase energy
+    telemetry (``telemetry[phase].joules`` and the
+    ``serve_phase_joules_total`` counter).
+
     ``tracer`` (a :class:`repro_torch.obs.Tracer`; default the process
     tracer, disabled) records request-lifecycle spans; ``registry`` (a
     :class:`repro_torch.obs.MetricsRegistry`; default a fresh one) holds
@@ -268,8 +297,6 @@ class ServeEngine:
         meter: Any = None,
         quiet: bool = True,
     ) -> None:
-        if meter is not None:
-            raise NotImplementedError("meter: not ported to repro_torch yet")
         if isinstance(cfg, str):
             cfg = get_config(cfg)
         if cfg.frontend == "patch_embed":
@@ -308,6 +335,7 @@ class ServeEngine:
         self.n_slots = n_slots
         self.max_len = max_len
         self.sampler = sampler or Sampler.greedy()
+        self.meter = resolve_meter(meter)
         self.seed = seed
         self.prefill_bucket = prefill_bucket
         self.prefill_chunk = prefill_chunk
@@ -991,23 +1019,24 @@ class ServeEngine:
         head = [_i32(slot), _i32(start), pages]
         self._chunk_calls += 1
         t0 = time.perf_counter()
-        if final:
-            temp, topk = self._request_knobs(state)
-            with self._phase("prefill"):
-                tok, _ = self.programs["extend_sample"](
-                    head + [_i32(state.seed), _i32(len(state.tokens)),
-                            np.asarray([temp], np.float32), _i32(topk), tokens],
-                    policy=policy_of([temp], [topk]),
-                )
-            self.overlap_tokens += width - run
-            del self._prefilling[slot]
-            self._commit_slot(state, int(tok[0]), events)  # syncs the device
-        else:
-            with self._phase("prefill"):
-                self.programs["extend"](head + [tokens])
-            self._synchronize()
-            prog.pos += run
-        self.telemetry["prefill"].add(time.perf_counter() - t0, run)
+        with meter_window(self.meter) as tele:
+            if final:
+                temp, topk = self._request_knobs(state)
+                with self._phase("prefill"):
+                    tok, _ = self.programs["extend_sample"](
+                        head + [_i32(state.seed), _i32(len(state.tokens)),
+                                np.asarray([temp], np.float32), _i32(topk), tokens],
+                        policy=policy_of([temp], [topk]),
+                    )
+                self.overlap_tokens += width - run
+                del self._prefilling[slot]
+                self._commit_slot(state, int(tok[0]), events)  # syncs the device
+            else:
+                with self._phase("prefill"):
+                    self.programs["extend"](head + [tokens])
+                self._synchronize()
+                prog.pos += run
+        self.telemetry["prefill"].add(tele, run)
         if self.tracer.enabled:
             self.tracer.add_span(
                 "prefill-chunk", t0, time.perf_counter(),
@@ -1024,11 +1053,11 @@ class ServeEngine:
             self._prefilling[state.slot] = _PrefillProgress(state, context)
             self._run_chunk(state.slot, self.prefill_chunk, events)
             return events
-        t0 = time.perf_counter()
-        tok = self._prefill(context, state)
-        self._insert(state.slot)
-        self._commit_slot(state, int(tok[0]), events)  # syncs the device
-        self.telemetry["prefill"].add(time.perf_counter() - t0, len(context))
+        with meter_window(self.meter) as tele:
+            tok = self._prefill(context, state)
+            self._insert(state.slot)
+            self._commit_slot(state, int(tok[0]), events)  # syncs the device
+        self.telemetry["prefill"].add(tele, len(context))
         return events
 
     def _commit_slot(self, state: RequestState, first: int, events: list) -> None:
@@ -1081,10 +1110,11 @@ class ServeEngine:
             return []
         t0 = time.perf_counter()
         self.monitor.start()
-        toks = self._decode(active).cpu().numpy()  # the only device->host transfer
+        with meter_window(self.meter) as tele:
+            toks = self._decode(active).cpu().numpy()  # the only device->host transfer
         self.monitor.stop(self._steps)
         t1 = time.perf_counter()
-        self.telemetry["decode"].add(t1 - t0, len(active))
+        self.telemetry["decode"].add(tele, len(active))
         if self.tracer.enabled:
             # one fused-step span on the engine track, mirrored onto each
             # participating request's track

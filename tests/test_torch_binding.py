@@ -448,12 +448,16 @@ def test_zoo_train_kind_and_unported_options_raise(tmp_path):
     assert zoo.default_plan_key(store, "llama3.2-1b", "train") == "zoo:llama3.2-1b:train"
     (tmp_path / "train" / "zoo_llama3.2-1b_train.json").unlink()
     (tmp_path / "train").rmdir()
-    for kw in (dict(meter="auto"), dict(legality=True), dict(resources=True)):
+    for kw in (dict(legality=True), dict(resources=True)):
         with pytest.raises(NotImplementedError, match="not ported"):
             zoo.plan_zoo(str(tmp_path), [("llama3.2-1b", "decode")], device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
+    # meter= and the executors are ported: an explicit meter the host lacks
+    # fails loudly, an unknown executor is refused, both before any search
+    with pytest.raises(RuntimeError, match="not available on this host"):
+        zoo.plan_zoo(str(tmp_path), [("llama3.2-1b", "decode")], device="cpu", meter="nvml")
+    with pytest.raises(KeyError, match="unknown executor"):
         zoo.plan_zoo(str(tmp_path), [("llama3.2-1b", "decode")], device="cpu",
-                     executor="device-parallel")
+                     executor="warp-drive")
     with pytest.raises(ValueError, match="unknown cell kind"):
         zoo.plan_zoo(str(tmp_path), [("llama3.2-1b", "serve")], device="cpu")
     assert not list(tmp_path.iterdir())  # nothing searched, nothing stored

@@ -1,5 +1,6 @@
 """Import isolation of the port: ``repro_torch`` and ``chip_smoke.py`` import
-``torch`` and never ``jax`` or anything of the JAX package ``repro``."""
+``torch`` and never ``jax``, anything of the JAX package ``repro``, or
+``pynvml``."""
 
 import ast
 import os
@@ -13,7 +14,8 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
               + sorted((ROOT / "scripts").glob("*.py")))
-FORBIDDEN = ("jax", "jaxlib", "repro")
+#: pynvml too: the port reads NVML through libnvidia-ml.so.1 with ctypes
+FORBIDDEN = ("jax", "jaxlib", "repro", "pynvml")
 
 
 def _imported_roots(path: Path) -> set[str]:

@@ -46,6 +46,7 @@ from repro_torch.obs import (
     set_tracer,
     timeline,
 )
+from repro_torch.metering import TimeProportionalPower
 from repro_torch.runtime.monitor import StepMonitor
 from repro_torch.serve import Request, ServeEngine
 
@@ -400,7 +401,7 @@ def test_engine_metrics_parity_with_telemetry(traced_engine):
         assert reg.get("serve_phase_seconds_total").labels(phase=phase).value == (
             pytest.approx(tele.seconds))
         assert reg.get("serve_phase_tokens_total").labels(phase=phase).value == tele.tokens
-        assert tele.joules is None and tele.provenance is None  # no meter yet
+        assert tele.joules is None and tele.provenance is None  # no meter
         assert reg.get("serve_phase_joules_total").labels(phase=phase).value == 0
     assert reg.get("serve_requests_submitted_total").value == 3
     assert reg.get("serve_requests_completed_total").value == 3
@@ -462,8 +463,18 @@ def test_engine_disabled_tracer_records_nothing():
 
 
 def test_engine_meter_still_unported():
-    with pytest.raises(NotImplementedError, match="meter"):
-        ServeEngine(CFG, device="cpu", meter="auto")
+    """``meter=`` is ported: a meter feeds ``serve_phase_joules_total``
+    with exactly the joules ``telemetry[phase]`` sums."""
+    engine = ServeEngine(CFG, n_slots=2, max_len=64, seed=0, device="cpu",
+                         meter=TimeProportionalPower(watts=100.0))
+    engine.submit(Request([1, 2, 3, 4, 5, 6], max_new_tokens=2))
+    engine.run_until_idle(max_steps=100)
+    for phase in ("prefill", "decode"):
+        tele = engine.telemetry[phase]
+        assert tele.joules == pytest.approx(100.0 * tele.seconds)
+        assert tele.provenance == "estimated"
+        assert engine.registry.get("serve_phase_joules_total").labels(
+            phase=phase).value == pytest.approx(tele.joules)
 
 
 def test_engine_serve_metrics_and_profile_steps(tmp_path):

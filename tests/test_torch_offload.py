@@ -36,7 +36,7 @@ from repro.offload import OffloadSession as JSession
 from repro_torch.apps import fourier, matrix
 from repro_torch.core import OffloadEngine, planner, similarity, verify
 from repro_torch.core.pattern_db import default_db
-from repro_torch.metering import SerialExecutor
+from repro_torch.metering import DeviceParallelExecutor, SerialExecutor, resolve_meter
 from repro_torch.offload import OffloadSession
 
 APPS = {
@@ -236,19 +236,21 @@ def test_strategies_choose_what_the_reference_chooses(strategy):
 
 
 def test_session_stages_and_unported_options():
+    """Stages run in order; ``tracer=`` is still unported; ``meter=`` and
+    the device-parallel executor (once stubs) are wired into the cache."""
     x = fourier.make_input(16)
     session = OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu")
     with pytest.raises(Exception, match="before analyze"):
         session.discover()
     with pytest.raises(NotImplementedError, match="not ported"):
         OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu", tracer=object())
-    with pytest.raises(NotImplementedError, match="not ported"):
-        planner.MeasurementCache(executor="device-parallel")
-    with pytest.raises(NotImplementedError, match="not ported"):
-        OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu", meter="auto")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    cache = planner.MeasurementCache(executor="device-parallel")
+    assert isinstance(cache.executor, DeviceParallelExecutor)
+    metered = OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu", meter="auto")
+    assert type(metered.cache.meter) is type(resolve_meter("auto"))
+    with pytest.raises(RuntimeError, match="not available on this host"):
         OffloadSession.plan_zoo("unused", [("llama3.2-1b", "train")], device="cpu",
-                                meter="auto")
+                                meter="tpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             OffloadSession(fourier.fourier_app_libcall, args=(x,)).run()

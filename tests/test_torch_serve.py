@@ -25,6 +25,7 @@ from repro.serve import ServeEngine as JServeEngine
 from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.launch import serve as serve_cli
+from repro_torch.metering import resolve_meter
 from repro_torch.serve import (
     PagePool,
     PageTable,
@@ -211,8 +212,17 @@ def test_engine_defaults_to_cuda_and_raises_without_it():
     dict(meter="auto"), dict(meter="psutil"), dict(meter="time"),
 ])
 def test_unported_engine_options_raise(kw):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(CFG, device="cpu", **kw)
+    """The engine's ``meter=`` (once a stub that raised) fills each phase's
+    joules, stamped with the resolved meter's provenance."""
+    engine = _engine(**kw)
+    want = type(resolve_meter(kw["meter"])).provenance
+    engine.submit(Request(list(range(1, 9)), max_new_tokens=3))
+    engine.run_until_idle(max_steps=50)
+    for phase in ("prefill", "decode"):
+        tele = engine.telemetry[phase]
+        assert tele.calls > 0 and tele.joules > 0 and tele.provenance == want
+        assert tele.joules_per_token == pytest.approx(tele.joules / tele.tokens)
+        assert "J/tok" in tele.summary()
 
 
 @pytest.mark.parametrize("arch, chunk, match", [

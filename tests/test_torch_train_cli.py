@@ -1,7 +1,7 @@
 """The port's training CLI (``repro_torch.launch.train``) on the CPU, and
 the zoo planner's ``train`` cell: the CLI's printed lines (as the
 reference's), its checkpoints (a second run resumes), its refusals (the
-card by default, unported executors and meters), a stored
+card by default, unknown executors and meters), a stored
 ``zoo:<arch>:train`` plan bound at startup, and the module run as a
 process."""
 
@@ -45,7 +45,8 @@ def test_cli_refusals(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             train.main(ARGS[:-4] + ["--steps", "1", "--ckpt-dir", str(tmp_path)])
-    for flag in (["--executor", "device-parallel"], ["--meter", "auto"]):
+    # every executor and meter name is ported: only unknown names are refused
+    for flag in (["--executor", "warp-drive"], ["--meter", "geiger"]):
         with pytest.raises(SystemExit):
             train.main(ARGS + ["--steps", "1", "--ckpt-dir", str(tmp_path)] + flag)
 
