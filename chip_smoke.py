@@ -168,7 +168,23 @@ JSON line, and any failure raises (exit code != 0):
    meter through the serial (``measured`` joules), batched (``estimated``)
    and device-parallel executors (the serial run's winner); then a
    ``latency`` and a ``perf_per_watt`` store of the FFT app (trials of at
-   least a second) and their trade-off table (``metering.report``).
+   least a second) and their trade-off table (``metering.report``);
+23. analysis: static analysis (``repro_torch.analysis``) on the card.  The
+   probed envelope (torch's card: its total bytes beside the static
+   ``h100-80g`` row, its shared memory per block); phase 4's engine after
+   phase 4's trace: its capacity plan against the card (params and cache
+   bytes equal to the engine's tensors', the pool the live pool's, the
+   slots that would fit), ``engine.lint()`` (no warning or error, paged
+   attention and rmsnorm among the decode trace's kernels, not one launch,
+   its seconds), and ``estimate_memory`` of one eager decode step at B = 8
+   against the step's measured peak (an upper bound within
+   ``ESTIMATE_BRACKET``); phase 6's libcall apps with ``legality=True,
+   resources="host"`` (the same winner as without), their blocks in
+   binding mode (cuda legal by a probe that launches nothing, nothing
+   pruned against the card; against ``tiny-32m`` the FFT's cuda binding at
+   2048 pruned with a ``memory:`` reason, the LU's at 128 not, as it fits:
+   ``ANALYSIS_BLOCKS``); the serve CLI's ``--preflight --envelope
+   host``: full llama3.2-1b exits 0, full deepseek-v2-236b exits 2.
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -2483,6 +2499,228 @@ def phase_metering(torch) -> dict:
     return out
 
 
+#: phase 23's offload blocks in binding mode over (torch, cuda): the input
+#: size of each and whether its traced working set passes ``tiny-32m``'s 32
+#: MiB there.  The FFT at the paper's 2048 does (~208 MiB estimated: the
+#: complex64 input, its DFT planes and stage products); the LU is traced
+#: at 128 (well under 1 MiB, which fits): its blocked loop is Python, a few
+#: ops a column, and a trace at 2048 takes ~150 s of host CPU
+ANALYSIS_BLOCKS = {"fft2d": (2048, True), "lu": (128, False)}
+#: phase 23's memory estimate of one eager decode step must bound the
+#: measured peak from above, and by at most this factor (the reference's
+#: bracket, tests/test_resources.py)
+ESTIMATE_BRACKET = 4.0
+
+
+def _tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(_tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def _analysis_capacity(torch, engine) -> dict:
+    """Phase 4's engine planned against the probed card: its params and
+    cache bytes equal the engine's tensors', its pool the live pool's."""
+    plan = engine.plan_capacity("host")
+    held = {"params_bytes": _tree_bytes(engine.params), "cache_bytes": _tree_bytes(engine.cache)}
+    for key, n in held.items():
+        if getattr(plan, key) != n:
+            raise AssertionError(f"analysis: plan {key} {getattr(plan, key)} != the engine's {n}")
+    if plan.pool_tokens != engine.kv.pool.token_capacity:
+        raise AssertionError(f"analysis: plan pool {plan.pool_tokens} != live pool "
+                             f"{engine.kv.pool.token_capacity}")
+    if not plan.fits:
+        raise AssertionError(f"analysis: phase 4's engine does not fit the card: {plan.summary()}")
+    return {"params_bytes": plan.params_bytes, "cache_bytes": plan.cache_bytes,
+            "per_slot_bytes": plan.per_slot_bytes, "per_page_bytes": plan.per_page_bytes,
+            "pool_tokens": plan.pool_tokens, "max_slots": plan.max_slots,
+            "max_pages": plan.max_pages, "max_prefill_tokens": plan.max_prefill_tokens,
+            "budget_bytes": plan.budget_bytes, "headroom_bytes": plan.headroom_bytes}
+
+
+def _analysis_lint(torch, engine) -> dict:
+    """``engine.lint()`` after phase 4's trace: no warning or error, paged
+    attention and rmsnorm among the decode program's traced kernels, and
+    not one launch (the traces run nothing)."""
+    import repro_torch.kernels as kernels
+
+    torch.cuda.synchronize()
+    before, traced_before = kernels.counters(), kernels.traced_counts()
+    t0 = time.perf_counter()
+    diags = engine.lint()
+    seconds = time.perf_counter() - t0
+    after = kernels.counters()
+    if after != before:
+        moved = {k: after[k] - before.get(k, 0) for k in after if after[k] != before.get(k, 0)}
+        raise AssertionError(f"analysis: the lint launched kernels: {moved}")
+    bad = [str(d) for d in diags if d.severity in ("warning", "error")]
+    if bad:
+        raise AssertionError(f"analysis: lint of phase 4's engine: {bad}")
+    programs = {name: sorted(p.removeprefix("kernel:")
+                             for p in engine.programs.features(name).primitives
+                             if p.startswith("kernel:"))
+                for name in engine.programs.records}
+    missing = [k for k in ("paged_attention", "rmsnorm") if k not in programs["decode"]]
+    if missing:
+        raise AssertionError(f"analysis: the decode trace stood in for no {missing}: {programs}")
+    traced = {k: n - traced_before[k] for k, n in kernels.traced_counts().items()
+              if n != traced_before[k]}
+    return {"lint_seconds": seconds, "diagnostics": [str(d) for d in diags],
+            "traced_kernels": programs, "abstract_calls": traced,
+            "signatures": {n: r["signatures"] for n, r in engine.programs.stats().items()}}
+
+
+def _analysis_estimate(torch, engine) -> dict:
+    """``estimate_memory`` of one eager decode step at B = n_slots (the
+    engine state as its operands) against that call's measured peak, the
+    operands resident: an upper bound within ``ESTIMATE_BRACKET``."""
+    from repro_torch.analysis import estimate_memory
+
+    rec = engine.programs.records["decode"]
+    views = engine.programs["decode"].inputs(_decode_inputs(engine, "greedy"))
+    fn, args = rec.trace((views,), {"policy": "greedy"})
+    t0 = time.perf_counter()
+    est = estimate_memory(fn, *args)
+    est_s = time.perf_counter() - t0
+    with torch.no_grad():
+        fn(*args)  # warm: the library and cuBLAS are set up outside the window
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn(*args)
+        torch.cuda.synchronize()
+    measured = torch.cuda.max_memory_allocated() - base + est.operand_bytes
+    ratio = est.peak_live_bytes / measured
+    if not 1.0 <= ratio <= ESTIMATE_BRACKET:
+        raise AssertionError(f"analysis: estimate {est} against a measured peak of "
+                             f"{measured} bytes (ratio {ratio:.4f})")
+    return {"estimate": est.to_dict(), "measured_peak_bytes": measured,
+            "transient_peak_bytes": measured - est.operand_bytes,
+            "estimate_over_measured": ratio, "estimate_seconds": est_s}
+
+
+def _analysis_sessions(torch) -> dict:
+    """The offload session with the pre-filters on the card.  Phase 6's
+    libcall apps (app mode: a ``SubsetSpace``, which the pre-filters leave
+    alone, as the reference's) commit the same winner with
+    ``legality=True, resources="host"`` as without.  The apps' blocks in
+    binding mode over (torch, cuda) at ``ANALYSIS_BLOCKS``: the legality
+    probes trace the cuda targets without a launch, and nothing is pruned
+    against the card; against ``tiny-32m`` the cuda binding is pruned, with
+    a ``memory:`` reason, where the block's working set passes 32 MiB."""
+    import repro_torch.kernels as kernels
+    from repro_torch.apps import fourier, matrix
+    from repro_torch.core import blocks as blocks_mod
+    from repro_torch.offload import OffloadSession
+
+    out: dict = {"apps": {}, "blocks": {}}
+    for app, x in ((fourier.fourier_app_libcall, fourier.make_input(256)),
+                   (matrix.matrix_app_libcall, matrix.make_input(192))):
+        plain = OffloadSession(app, args=(x,), repeats=1).run()
+        pre = OffloadSession(app, args=(x,), repeats=1, legality=True, resources="host").run()
+        pruned = getattr(pre.report, "pruned", 0) if pre.report else 0
+        if pre.mapping != plain.mapping or pruned:
+            raise AssertionError(f"analysis: {app.__name__} with the pre-filters committed "
+                                 f"{pre.mapping} ({pruned} pruned), without {plain.mapping}")
+        out["apps"][app.__name__] = {"winner": pre.mapping, "pruned": pruned,
+                                    "numerics_ok": pre.numerics_ok}
+    inputs = {"fft2d": lambda n: torch.randn(n, n, dtype=torch.complex64, device="cuda"),
+              "lu": lambda n: torch.from_numpy(matrix.make_input(n)).float().cuda()}
+    for block, (n, over) in ANALYSIS_BLOCKS.items():
+        x = inputs[block](n)
+
+        def builder(block=block):
+            return lambda x: blocks_mod.registry.call(block, x)
+
+        before = kernels.launch_counts()
+        t0 = time.perf_counter()
+        host = OffloadSession(builder, args=(x,), blocks={block: ["torch", "cuda"]},
+                              legality=True, resources="host", device="cuda")
+        host.analyze()
+        host.discover()
+        host_s = time.perf_counter() - t0
+        verdicts = {v.target: v.status for v in host.legality_report.verdicts}
+        if verdicts.get("cuda") != "legal" or host.space._illegal:
+            raise AssertionError(f"analysis: {block} at {n} on the card: {verdicts}, "
+                                 f"pruned {host.space._illegal}")
+        tiny = OffloadSession(builder, args=(x,), blocks={block: ["torch", "cuda"]},
+                              resources="tiny-32m", device="cuda")
+        tiny.analyze()
+        tiny.discover()
+        reason = tiny.space._illegal.get((block, "cuda"), "")
+        if reason.startswith("memory:") != over:
+            raise AssertionError(f"analysis: {block} at {n} against tiny-32m: "
+                                 f"{tiny.resources_report.to_dict()}")
+        if kernels.launch_counts() != before:
+            raise AssertionError(f"analysis: {block}'s pre-filters launched kernels")
+        out["blocks"][block] = {"n": n, "verdicts": verdicts, "host_seconds": host_s,
+                                "base_bytes": host.resources_report.base.peak_live_bytes,
+                                "tiny_32m": reason or "fits"}
+    return out
+
+
+def _analysis_preflight() -> dict:
+    """``--preflight --envelope host`` through the serve CLI, as processes:
+    full llama3.2-1b fits the card (exit 0), full deepseek-v2-236b (236B
+    parameters in bf16) does not (exit 2)."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    base = [sys.executable, "-m", "repro_torch.launch.serve", "--page-size", "16",
+            "--slots", "8", "--max-len", "1024", "--envelope", "host", "--preflight"]
+    out = {}
+    for arch, want in (("llama3.2-1b", 0), ("deepseek-v2-236b", 2)):
+        proc = subprocess.run(base + ["--arch", arch], capture_output=True, text=True,
+                              timeout=300, env=env, cwd=ROOT)
+        if proc.returncode != want:
+            raise AssertionError(f"analysis: preflight of {arch} exited {proc.returncode}, "
+                                 f"not {want}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+        total = next(ln for ln in proc.stdout.splitlines() if ln.strip().startswith("total"))
+        out[arch] = {"exit": proc.returncode, "total": total.strip()}
+    return out
+
+
+def phase_analysis(torch) -> dict:
+    """Phase 23: static analysis on the card (``repro_torch.analysis``):
+    the probed envelope, phase 4's engine planned, linted and its decode
+    step's memory estimated, the offload session's pre-filters and the
+    serve CLI's preflight."""
+    import numpy as np
+
+    from repro_torch.analysis import STATIC_ENVELOPES, resolve_envelope
+    from repro_torch.serve import Request, ServeEngine
+
+    t_phase = time.perf_counter()
+    env = resolve_envelope("host")
+    if env.platform != "gpu" or env.name != torch.cuda.get_device_name(0):
+        raise AssertionError(f"analysis: the probed envelope is not torch's card: {env}")
+    static = STATIC_ENVELOPES["h100-80g"]
+    out: dict = {"phase": "analysis", "envelope": {
+        "name": env.name, "memory_bytes": env.memory_bytes, "smem_bytes": env.smem_bytes,
+        "h100_80g_memory_bytes": static.memory_bytes, "h100_80g_smem_bytes": static.smem_bytes}}
+
+    # phase 4's engine and trace (llama3.2-1b full, page 16, 8 slots, max_len 1024)
+    _free_dead_engines(torch)
+    cfg = _serve_config("llama3.2-1b")
+    engine = ServeEngine(cfg, seed=0, device="cuda", n_slots=8, max_len=1024, page_size=16)
+    rng = np.random.default_rng(0)
+    for _ in range(16):
+        prompt = rng.integers(0, cfg.vocab_size, int(rng.integers(64, 513))).tolist()
+        engine.submit(Request(prompt, max_new_tokens=32))
+    if len(engine.run_until_idle(max_steps=10_000)) != 16:
+        raise AssertionError("analysis: phase 4's trace did not complete")
+    out["capacity"] = _analysis_capacity(torch, engine)
+    out["lint"] = _analysis_lint(torch, engine)
+    out["decode_estimate"] = _analysis_estimate(torch, engine)
+    del engine
+    _free_dead_engines(torch)
+    out["sessions"] = _analysis_sessions(torch)
+    out["preflight"] = _analysis_preflight()
+    out["seconds"] = time.perf_counter() - t_phase
+    emit(out)
+    return out
+
+
 def phase_main_path_train(torch) -> dict:
     """The train path: full llama3.2-1b (16 layers, d 2048, vocab 128256;
     f32 master weights and moments, bf16 compute, full remat) for
@@ -2757,6 +2995,8 @@ def main() -> int:
     phase_train_ssm(torch)
     # the power meters: NVML on the card, the metered serving and offload paths
     phase_metering(torch)
+    # static analysis: envelopes, capacity, lint, estimates, pre-filters, preflight
+    phase_analysis(torch)
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],

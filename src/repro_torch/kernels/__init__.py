@@ -16,8 +16,20 @@ import: the CUDA library is compiled at the first kernel launch
 
 import functools
 
+from repro_torch.analysis.legality import TargetConstraints
+from repro_torch.analysis.resources import ResourceHint
 from repro_torch.core import blocks
-from repro_torch.kernels import attention, fft, matmul, ops, paged_attention, ref, rmsnorm, ssd
+from repro_torch.kernels import (
+    attention,
+    build,
+    fft,
+    matmul,
+    ops,
+    paged_attention,
+    ref,
+    rmsnorm,
+    ssd,
+)
 
 #: the wrappers whose ``launches`` counters show a run went through them
 KERNELS = {
@@ -100,11 +112,115 @@ _SHELF_IMPLS = _register_all()
 #: block names registered by this package: the kernel shelf
 SHELF_BLOCKS = tuple(sorted({block for block, _, _ in _SHELF_IMPLS}))
 
+#: every registered (block, target) pair: the coverage universe the
+#: shelf-coverage lint checks BLOCK_LEGALITY / BLOCK_RESOURCES against
+SHELF_IMPL_PAIRS = tuple((block, target) for block, target, _ in _SHELF_IMPLS)
+
 #: registration-time hash of the shelf's implementations (the wrappers'
 #: and plain versions' sources); with the CUDA sources' hash it is the
 #: ``kernel_shelf`` component of a stored plan's environment fingerprint,
 #: so a rewritten wrapper or kernel invalidates plans measured before it
 SHELF_FINGERPRINT = blocks.implementations_fingerprint(_SHELF_IMPLS)
+
+
+def _legality_metadata() -> dict[tuple[str, str], TargetConstraints]:
+    """Static envelope of every shelf implementation, consumed by the
+    ``repro_torch.analysis.legality`` pre-filter (paper Step 1): ``ref``
+    and ``torch`` run anywhere; a ``cuda`` target launches a kernel built
+    for ``sm_90a`` and needs the card, over the dtypes its wrapper takes
+    (``build.dtype_code``: float32 / bfloat16; ``build.check_float32``
+    for the three GEMM kernels, whose complex operands the FFT splits
+    into float32 planes)."""
+    anywhere = TargetConstraints()
+    out = {(block, target): anywhere for block, target in SHELF_IMPL_PAIRS if target != "cuda"}
+    f32_bf16 = ("float32", "bfloat16")
+    for block, dtypes, note in (
+        ("rmsnorm", f32_bf16, "csrc/rmsnorm.cu (plain, add, gated) and rmsnorm_bwd.cu"),
+        ("attention", f32_bf16, "csrc/flash_attention.cu and flash_attention_bwd.cu"),
+        ("paged_attention", f32_bf16, "csrc/paged_attention.cu; int32 page table"),
+        ("ssd_scan", f32_bf16, "csrc/ssd_chunks.cu; dt float32"),
+        ("matmul", ("float32",), "csrc/matmul.cu, 3xTF32"),
+        ("fft2d", ("float32", "complex64"), "csrc/complex_matmul.cu on float32 planes"),
+        ("lu", ("float32",), "blocked LU; csrc/matmul.cu Schur update, 3xTF32"),
+    ):
+        out[(block, "cuda")] = TargetConstraints(requires_platform=("gpu",), dtypes=dtypes,
+                                                 notes=note)
+    return out
+
+
+#: (block, target) -> TargetConstraints for the whole shelf
+BLOCK_LEGALITY = _legality_metadata()
+
+#: the most shared memory one CTA of each kernel takes, from its launch
+#: constants in csrc/: the GEMM body's (tf32_gemm.cuh kSmem: three stages
+#: of 128 x 32 f32 A and B tiles, B's hi/lo split, barriers, alignment),
+#: the CUDA-core flash forward's at D = Dv = 512 (flash_attention.cu
+#: launch_dv: 4 * (kBQ D + kBKV (D + 1) + kBKV Dv)), and the limits the
+#: others size their tiles to (paged_attention.cu kSmemLimit, ssd_chunks.cu
+#: kSmemMax, rmsnorm_bwd.cu kMaxSmem, the 227 KiB that
+#: flash_attention_bwd.cu's tiles stay within); the forward RMSNorm keeps
+#: one float a warp
+SMEM_BYTES = {
+    "gemm": 3 * 2 * 128 * 32 * 4 + 2 * 2 * 128 * 32 * 4 + 2 * 3 * 8 + 1024,
+    "flash_attention": 4 * (32 * 512 + 32 * 513 + 32 * 512),
+    "flash_attention_bwd": 227 * 1024,
+    "paged_attention": 227 * 1024,
+    "ssd_chunks": 232448,
+    "rmsnorm": 4 * 512 // 32,
+    "rmsnorm_bwd": 232448 - 1024,
+}
+
+
+def _resource_metadata() -> dict[tuple[str, str], ResourceHint]:
+    """Memory-envelope hints for every shelf implementation, consumed by
+    the ``repro_torch.analysis.resources`` fit pass (the paper's Step 5
+    resource check).  ``ref`` and the plain ``torch`` formulations add no
+    working-set overhead beyond the traced program, but the page gather
+    and the matmul-DFT's split planes; a ``cuda`` target declares the
+    shared memory a CTA of its kernels takes (checked against
+    ``DeviceEnvelope.smem_bytes``) and, as the reference's Pallas kernels,
+    any extra device copies."""
+    plain = ResourceHint()
+    out = {(block, target): plain for block, target in SHELF_IMPL_PAIRS}
+    # the torch paged target gathers each slot's (max_pages * page_size)
+    # K/V view per decode step: about one more cache-sized copy per leaf
+    out[("paged_attention", "torch")] = ResourceHint(
+        memory_multiplier=1.5, notes="gathered per-slot K/V view materialised per step")
+    split = ResourceHint(memory_multiplier=2.0,
+                         notes="matmul-DFT carries complex values as split re/im planes")
+    out[("fft2d", "torch")] = split
+    smem = SMEM_BYTES
+    out[("rmsnorm", "cuda")] = ResourceHint(
+        smem_tile_bytes=max(smem["rmsnorm"], smem["rmsnorm_bwd"]),
+        notes="forward: a float a warp; backward: its copy ring")
+    out[("attention", "cuda")] = ResourceHint(
+        smem_tile_bytes=max(smem["flash_attention"], smem["flash_attention_bwd"]),
+        notes="q tile + streamed K/V tiles (CUDA-core route at D = 512)")
+    out[("paged_attention", "cuda")] = ResourceHint(
+        smem_tile_bytes=smem["paged_attention"],
+        notes="q rows + staged page rings + partials; no gathered view")
+    out[("ssd_scan", "cuda")] = ResourceHint(
+        memory_multiplier=1.25, smem_tile_bytes=smem["ssd_chunks"],
+        notes="chunk states kept in device memory between the kernel and the scan")
+    out[("matmul", "cuda")] = ResourceHint(smem_tile_bytes=smem["gemm"],
+                                          notes="TMA-staged A/B tiles, B hi/lo")
+    out[("fft2d", "cuda")] = ResourceHint(
+        memory_multiplier=2.0, smem_tile_bytes=smem["gemm"],
+        notes="split re/im planes; the complex GEMM's tiles")
+    out[("lu", "cuda")] = ResourceHint(smem_tile_bytes=smem["gemm"],
+                                      notes="the Schur update's GEMM tiles")
+    return out
+
+
+#: (block, target) -> ResourceHint for the whole shelf
+BLOCK_RESOURCES = _resource_metadata()
+
+
+def traced_counts() -> dict[str, int]:
+    """The abstract calls of each kernel (a trace's stand-ins, kept apart
+    from the launch counters: :func:`counters` never moves under a
+    trace)."""
+    return {name: build.traced[name] for name in KERNELS}
 
 
 def reset_launches() -> None:

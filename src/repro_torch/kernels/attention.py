@@ -60,7 +60,7 @@ def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     D % 8 == 0 and 16-byte aligned operands (what TMA loads) runs on
     wgmma; f32 and every other bf16 shape on the CUDA cores."""
     d, dv = q.shape[-1], v.shape[-1]
-    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    aligned = all(build.aligned(t) for t in (q, k, v))
     tma = q.dtype == torch.bfloat16 and d == dv <= 128 and d % 8 == 0 and aligned
     return "wgmma" if tma else "cuda_cores"
 
@@ -88,6 +88,8 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if out.numel() == 0 or skv == 0:
         return out, lse
     route = flash_route(q, k, v)
+    if build.skip_launch("flash_attention", q):
+        return out, lse
     build.launch(
         "repro_flash_attention",
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -126,7 +128,7 @@ def flash_bwd_route(*operands: torch.Tensor) -> str:
     16-byte aligned operands (what TMA loads) runs on wgmma, the rest on
     the CUDA cores."""
     d, dv = operands[0].shape[-1], operands[2].shape[-1]
-    aligned = all(t.data_ptr() % 16 == 0 for t in operands)
+    aligned = all(build.aligned(t) for t in operands)
     tma = (operands[0].dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0
            and max(d, dv) <= MAX_WGMMA_BWD_HEAD_DIM and aligned)
     return "wgmma" if tma else "cuda_cores"
@@ -219,6 +221,8 @@ def _flash_attention_bwd_cuda(q, k, v, out, lse, do, causal):
         if route == "wgmma":  # the delta pass's rows: (lse, delta) of each query
             ws = torch.empty(bwd_workspace_shape(b, h, sq), dtype=torch.float32,
                              device=q.device)
+        if build.skip_launch("flash_attention_bwd", q):
+            return dq, dk, dvv
         build.launch(
             "repro_flash_attention_bwd",
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),

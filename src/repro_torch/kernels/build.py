@@ -9,11 +9,21 @@ source changes.  A missing ``nvcc`` raises — there is no fallback.
 
 Every C entry point returns ``cudaGetLastError()`` after its launch;
 :func:`launch` raises on a non-zero code.
+
+The abstract path: under a trace (``make_fx`` with fake tensors) an
+operand's ``data_ptr()`` is no address, so a wrapper must not
+reach :func:`launch` (on the card that would run a kernel on bogus
+pointers; without one, build with ``nvcc``).  Each wrapper runs its own
+checks, allocates its outputs and workspace, and then asks
+:func:`skip_launch`, which notes the kernel in :data:`traced` (never in the
+launch counters) and tells it to return them unlaunched.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -21,9 +31,11 @@ import subprocess
 import tempfile
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core.blocks import GradRefused, wants_grad
 
@@ -78,6 +90,15 @@ _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 #: what the last build did: seconds, library path, nvcc's output
 build_info: dict = {}
+#: the abstract calls of each kernel (:func:`skip_launch`), by the name of
+#: its wrapper in ``kernels.KERNELS``: a trace's stand-ins, never launches
+traced: Counter = Counter()
+#: the lists :func:`collect_traced` is filling (any thread: autograd may
+#: trace a backward on a thread of its own)
+_collecting: list[list[str]] = []
+#: the SMs of the card the kernels are written for (an H100 SXM): the
+#: launch plan of an abstract call on a host without a card
+H100_SMS = 132
 
 
 def sources() -> list[Path]:
@@ -175,6 +196,60 @@ def launch(name: str, *args) -> None:
         raise RuntimeError(f"{name}: CUDA error {err} ({msg})")
 
 
+def is_abstract(*tensors: "torch.Tensor | None") -> bool:
+    """True when any operand is a ``FakeTensor`` (a trace's: its
+    ``data_ptr()`` is no address).  A meta tensor is not abstract here: the
+    CPU tests pass meta tensors as stand-ins for CUDA operands to a
+    wrapper whose ``launch`` they patch, to read its launch arguments."""
+    return any(isinstance(t, FakeTensor) for t in tensors)
+
+
+def skip_launch(name: str, *tensors: "torch.Tensor | None") -> bool:
+    """The abstract path's test, just before a launch: True (and ``name``
+    noted as traced) when the operands are abstract, so the wrapper
+    returns its outputs without building or launching anything."""
+    if not is_abstract(*tensors):
+        return False
+    with _lock:
+        traced[name] += 1
+        for names in _collecting:
+            names.append(name)
+    return True
+
+
+@contextlib.contextmanager
+def collect_traced():
+    """The kernels the abstract calls in this scope stood in for, in call
+    order (a list filled as they are noted)."""
+    names: list[str] = []
+    with _lock:
+        _collecting.append(names)
+    try:
+        yield names
+    finally:
+        with _lock:
+            _collecting.remove(names)
+
+
+def aligned(t: torch.Tensor) -> bool:
+    """Whether ``t``'s base is 16-byte aligned, as TMA loads it; an
+    abstract tensor counts as aligned (the allocator's are)."""
+    return is_abstract(t) or t.data_ptr() % 16 == 0
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (read once per device); without a card (a
+    trace of a CUDA program on a host) the H100's."""
+    if not torch.cuda.is_available():
+        return H100_SMS
+    return _device_sms(torch.device(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _device_sms(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def stream_of(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a C pointer value."""
     return torch.cuda.current_stream(t.device).cuda_stream
@@ -214,7 +289,7 @@ def tma_operand(t: torch.Tensor, shape: tuple[int, ...] | None = None) -> torch.
     strides_ok = t.stride(-1) == 1 and all(
         st * e % 16 == 0 for st, n in zip(t.stride()[:-1], t.shape[:-1]) if n > 1
     )
-    if tuple(t.shape) == tuple(shape) and t.data_ptr() % 16 == 0 and strides_ok:
+    if tuple(t.shape) == tuple(shape) and aligned(t) and strides_ok:
         return t
     out = t.new_zeros(shape)
     out[tuple(slice(0, n) for n in t.shape)] = t

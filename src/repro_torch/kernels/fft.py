@@ -73,7 +73,7 @@ def complex_matmul(
     k4, n4 = br.shape
     out_r = torch.empty((m, n4), dtype=torch.float32, device=ar.device)
     out_i = torch.empty_like(out_r)
-    if m and n:
+    if m and n and not build.skip_launch("complex_matmul", ar):
         build.launch(
             "repro_complex_matmul", ar.data_ptr(), ai.data_ptr(), br.data_ptr(),
             bi.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), m, n4, k4,
@@ -100,13 +100,15 @@ def fft2d_dft(
     n, m = x.shape
     xr = x.real.float().contiguous()
     xi = x.imag.float().contiguous()
-    fr_m, fi_m = _dft_planes(m, x.device)
+    # a trace's planes are fake tensors: made anew, never cached
+    planes = _dft_planes.__wrapped__ if build.is_abstract(x) else _dft_planes
+    fr_m, fi_m = planes(m, x.device)
     # rows: X @ F_m  (F symmetric)
     yr, yi = cmm(
         xr, xi, fr_m, fi_m,
         block_m=min(block, n), block_n=min(block, m), block_k=min(block, m),
     )
-    fr_n, fi_n = _dft_planes(n, x.device)
+    fr_n, fi_n = planes(n, x.device)
     # columns: F_n @ Y == (Y^T @ F_n)^T
     zr, zi = cmm(
         yr.T.contiguous(), yi.T.contiguous(), fr_n, fi_n,

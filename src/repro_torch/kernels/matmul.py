@@ -88,7 +88,7 @@ def matmul(
     (a,), (b,), _ = tma_operands([a], [b])
     k4, n4 = b.shape
     out = torch.empty((m, n4), dtype=torch.float32, device=a.device)
-    if m and n:
+    if m and n and not build.skip_launch("matmul", a):
         build.launch(
             "repro_matmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n4, k4,
             build.stream_of(a),
@@ -124,7 +124,7 @@ def schur_update(
     (a,), (b,), c = tma_operands([a], [b], c)
     k4, n4 = b.shape
     out = torch.empty_like(c)
-    if m and n:
+    if m and n and not build.skip_launch("schur_update", c):
         build.launch(
             "repro_schur_update", c.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), m, n4, k4, build.stream_of(c),

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import build
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.fft import complex_matmul, complex_matmul_torch, dft_matrix, fft2d_dft
 from repro_torch.kernels.lu import lu_blocked, lu_program
@@ -157,8 +158,8 @@ def lu(a, *, nb: int | None = None, backend: str | None = None, device=None):
     and want small blocks; large ones 128-wide panels.  On the card the
     factorisation runs as one captured program per (n, nb, trailing
     update) (:func:`repro_torch.kernels.lu.lu_program`, the reference's
-    jitted ``lu_blocked``), the padding in its static input; on the CPU
-    ``lu_blocked`` runs eagerly.
+    jitted ``lu_blocked``), the padding in its static input; on the CPU,
+    and under a trace (fake tensors), ``lu_blocked`` runs eagerly.
     """
     a = as_tensor(a, device).to(torch.float32)
     n = a.shape[0]
@@ -168,7 +169,7 @@ def lu(a, *, nb: int | None = None, backend: str | None = None, device=None):
     if be == "ref":
         raise ValueError("lu has no 'ref' backend; use 'torch' or 'cuda'")
     schur = _schur_kernel if be == "cuda" else schur_update_torch
-    if a.is_cuda:
+    if a.is_cuda and not build.is_abstract(a):
         lu_p, piv, _parity = lu_program(a, nb=nb, schur=schur)
         return lu_p, piv
     npad = ((n + nb - 1) // nb) * nb

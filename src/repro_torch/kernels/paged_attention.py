@@ -25,7 +25,6 @@ page_size, dr)``.
 
 from __future__ import annotations
 
-import functools
 from typing import NamedTuple
 
 import torch
@@ -240,10 +239,9 @@ def split_plan(
     return SplitPlan(pages, -(-max_pages // pages))
 
 
-@functools.lru_cache(maxsize=None)
 def sm_count(device: torch.device) -> int:
-    """The SMs of a CUDA device (read once per device)."""
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    """The SMs of a CUDA device (:func:`build.sm_count`)."""
+    return build.sm_count(device)
 
 
 def paged_attention(
@@ -303,6 +301,8 @@ def paged_attention(
     # each (split, group)'s (B*H*S, Dv) f32 accumulator, then its max / sum
     work = torch.empty(plan.n_splits * WORKSPACE_GROUPS * b * h * s * (dv + 2),
                        dtype=torch.float32, device=q.device)
+    if build.skip_launch("paged_attention", q):
+        return out
     build.launch(
         "repro_paged_attention",
         q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),

@@ -110,9 +110,8 @@ def bwd_plan(rows: int, d: int, sms: int, itemsize: int, add: bool = False) -> B
                    stages if stages >= 2 else 0)
 
 
-@functools.lru_cache(maxsize=16)
 def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
+    return build.sm_count(device)
 
 
 # -- plain versions -----------------------------------------------------------------
@@ -183,6 +182,8 @@ def _launch(form: str, out: torch.Tensor, w: torch.Tensor, rows: int, seq: int, 
             head_dim: int, eps: float, operands, *, skip=None, s_out=None) -> None:
     """``operands``: up to three (tensor, strides4) pairs, the C entry
     point's a, b, c.  The kernel picks its vector path itself."""
+    if build.skip_launch("rmsnorm", out):
+        return
     plan = norm_plan(d)
     ops = list(operands) + [(None, (0, 0, 0, 0))] * (3 - len(operands))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
@@ -358,6 +359,8 @@ def _rmsnorm_bwd_cuda(x, dy, w, eps, ds):
     plan = bwd_plan(rows, d, _sm_count(x.device), x.element_size(), ds is not None)
     partial = torch.empty((plan.ctas, d), dtype=torch.float32, device=x.device)
     form = "plain" if ds is None else "add"
+    if build.skip_launch("rmsnorm_bwd", x):
+        return dx, dw
     build.launch(
         "repro_rmsnorm_bwd", x.data_ptr(), dy.data_ptr(), None if ds is None else ds.data_ptr(),
         w.data_ptr(), dx.data_ptr(), partial.data_ptr(), dw.data_ptr(), rows, d, eps,

@@ -123,7 +123,7 @@ def ssd_chunks(x, dt, a, bmat, cmat, *, chunk: int = 128):
     pp, nn = x.shape[-1], bmat.shape[-1]
     y = torch.empty((b, s, h, pp), **f32)
     states = torch.empty((b, nc, h, nn, pp), **f32)
-    if y.numel():
+    if y.numel() and not build.skip_launch("ssd_chunks", x):
         build.launch(
             "repro_ssd_chunks", x.data_ptr(), dt.data_ptr(), a.data_ptr(),
             bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(), states.data_ptr(),

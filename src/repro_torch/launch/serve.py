@@ -21,12 +21,16 @@ and ``--metrics-out`` a Prometheus text snapshot of the engine's metrics.
 ``--meter`` adds power telemetry (J/token per phase, with its
 measured/estimated provenance): ``nvml`` reads the card's board draw
 through NVIDIA's NVML library, ``auto`` takes the best meter the host
-has.
+has.  ``--kv-validate`` re-checks the page table after every mutation
+(``repro_torch.analysis.paging``).  ``--preflight`` sizes the deployment
+against ``--envelope`` from metadata and exits without building the
+engine: 0 when it fits, 2 when it does not.
 """
 
 from __future__ import annotations
 
 import argparse
+import sys
 
 import numpy as np
 
@@ -154,7 +158,58 @@ def build_parser() -> argparse.ArgumentParser:
                          "trace_event JSON here")
     ap.add_argument("--metrics-out", default=None,
                     help="write a Prometheus text snapshot of the engine's metrics here")
+    ap.add_argument("--kv-validate", action="store_true",
+                    help="run the repro_torch.analysis page-aliasing sanitizer after "
+                         "every page-table mutation (debug mode; raises on aliasing or "
+                         "accounting drift)")
+    ap.add_argument("--envelope", default=None,
+                    help="device envelope for --preflight: a static name (h100-80g, "
+                         "cpu-host-16g, tiny-32m, ...) or 'host' to probe --device "
+                         "(default)")
+    ap.add_argument("--preflight", action="store_true",
+                    help="static capacity check only: size params + KV against "
+                         "--envelope and exit (0 fits, 2 not) without building the engine")
     return ap
+
+
+def preflight(args: argparse.Namespace, cfg) -> int:
+    """Static capacity check of the requested deployment — the paper's
+    FPGA resource-fit gate applied before the engine is built.  Sizes
+    params + KV cache from metadata (nothing is materialised, so full-size
+    configs check in milliseconds) against ``--envelope`` and refuses to
+    proceed when they cannot fit.  Returns a process exit code: 0 fits, 2
+    does not."""
+    from repro_torch.analysis.resources import plan_serve_capacity
+
+    plan = plan_serve_capacity(
+        cfg,
+        n_slots=args.slots,
+        max_len=args.max_len,
+        page_size=args.page_size,
+        n_pages=args.n_pages,
+        envelope=args.envelope,
+        device=args.device,
+    )
+    print(plan.summary())
+    if (
+        args.prefill_chunk
+        and plan.max_prefill_tokens is not None
+        and args.prefill_chunk > plan.max_prefill_tokens
+    ):
+        print(
+            f"preflight: note --prefill-chunk {args.prefill_chunk} exceeds "
+            f"the activation-headroom bound ({plan.max_prefill_tokens})",
+            file=sys.stderr,
+        )
+    if not plan.fits:
+        print(
+            f"preflight: FAIL — {plan.arch} with {plan.n_slots} slots x "
+            f"{plan.max_len} tokens does not fit {plan.envelope.name}",
+            file=sys.stderr,
+        )
+        return 2
+    print("preflight: OK")
+    return 0
 
 
 def plan_keys_of(args: argparse.Namespace) -> "dict[str, str | None] | str | None":
@@ -184,6 +239,8 @@ def main(argv: "list[str] | None" = None) -> int:
         cfg = cfg.reduced()
     if args.layers:
         cfg = cfg.cut(args.layers)
+    if args.preflight:
+        return preflight(args, cfg)
     plan_keys = plan_keys_of(args)
     engine = ServeEngine(
         cfg,
@@ -201,6 +258,7 @@ def main(argv: "list[str] | None" = None) -> int:
         plan_keys=plan_keys,
         decode_impl=args.decode_impl,
         meter=args.meter,
+        kv_validate=args.kv_validate,
         quiet=False,
         # --trace-out turns tracing on for this engine; without it the
         # engine keeps the process tracer, disabled

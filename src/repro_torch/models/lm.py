@@ -189,9 +189,29 @@ def cast_for_compute(params: Any, cfg: ArchConfig) -> Any:
     def cast(tree: Any, stacked: bool) -> Any:
         if isinstance(tree, dict):
             return {k: cast(v, stacked or k == "blocks") for k, v in tree.items()}
-        return tree.to(cd) if tree.ndim - stacked >= 2 else tree
+        return tree.to(cd) if _cast_for_compute(tree.ndim, stacked) else tree
 
     return cast(params, False)
+
+
+def _cast_for_compute(ndim: int, stacked: bool) -> bool:
+    """Whether :func:`cast_for_compute` casts a leaf: a matrix per layer."""
+    return ndim - stacked >= 2
+
+
+def compute_metas(cfg: ArchConfig) -> dict:
+    """:func:`build_metas` with each leaf in the dtype
+    :func:`cast_for_compute` leaves it in: the parameters as the serve
+    engine and the zoo's serving cells hold them on the device."""
+
+    def cast(tree: Any, stacked: bool) -> Any:
+        if isinstance(tree, pm.ParamMeta):
+            if _cast_for_compute(len(tree.shape), stacked):
+                return dataclasses.replace(tree, dtype=cfg.compute_dtype)
+            return tree
+        return {k: cast(v, stacked or k == "blocks") for k, v in tree.items()}
+
+    return cast(build_metas(cfg), False)
 
 
 # -- block application ----------------------------------------------------------------

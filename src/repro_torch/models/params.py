@@ -88,3 +88,10 @@ def count_params(metas: Any) -> int:
     if isinstance(metas, ParamMeta):
         return math.prod(metas.shape)
     return sum(count_params(v) for v in metas.values())
+
+
+def param_bytes(metas: Any) -> int:
+    """Bytes a meta tree materialises, each leaf in its dtype."""
+    if isinstance(metas, ParamMeta):
+        return math.prod(metas.shape) * torch_dtype(metas.dtype).itemsize
+    return sum(param_bytes(v) for v in metas.values())

@@ -37,10 +37,12 @@ binds a previously committed plan with zero search or measurement, and
 
 ``meter=`` (a ``PowerMeter`` or a name ``repro_torch.metering.resolve_meter``
 takes, e.g. ``"nvml"``) meters every trial, and ``executor=`` picks how the
-``MeasurementCache`` times them (serial, device-parallel or batched).  Not
-ported yet (``NotImplementedError``): the legality and resource
-pre-filters (``legality=``, ``resources=``, ``resource_hints=``) and
-tracing spans (``tracer=``).
+``MeasurementCache`` times them (serial, device-parallel or batched).
+``legality=`` and ``resources=`` run the ``repro_torch.analysis``
+pre-filters in ``discover`` on a ``BindingSpace`` (as the reference, not on
+an application's ``SubsetSpace``), so the search prunes the bindings that
+cannot run or cannot fit before timing any; ``tracer=`` records one
+``stage:<name>`` span per stage.
 """
 
 from __future__ import annotations
@@ -186,15 +188,10 @@ class OffloadSession:
         tracer: Any = None,
         device: Any = None,
     ) -> None:
-        unported = {
-            "legality": bool(legality), "resources": resources not in (False, None),
-            "resource_hints": resource_hints is not None, "tracer": tracer is not None,
-        }
-        asked = sorted(k for k, v in unported.items() if v)
-        if asked:
-            raise NotImplementedError(
-                f"OffloadSession options {asked} are not ported yet"
-            )
+        #: ``repro_torch.obs.Tracer`` carrying one "stage:<name>" span per
+        #: lifecycle stage (defaults to the process tracer, disabled
+        #: unless someone turned it on)
+        self.tracer = tracer
         self.target = target
         self.device = device
         self.args = tuple(args)
@@ -224,6 +221,15 @@ class OffloadSession:
         self.min_seconds = min_seconds
         self.rtol = rtol
         self.force_search = force_search
+        self.legality = legality
+        self.legality_report: Any = None
+        #: Memory-envelope pre-filter (paper Step 5): False = off; True /
+        #: "host" = probe the session's device; a name = STATIC_ENVELOPES
+        #: entry; or a DeviceEnvelope.  Statically-OOM bindings are pruned
+        #: like illegal ones, with "memory:"-tagged reasons.
+        self.resources = resources
+        self.resource_hints = resource_hints
+        self.resources_report: Any = None
         self._engine = engine
         self._patterns = patterns
         self._blocks = blocks
@@ -280,6 +286,29 @@ class OffloadSession:
         cache.executor = executor
 
     # -- stage machinery -------------------------------------------------------
+    def _stage_span(self, stage: str, **args: Any):
+        """Context manager spanning one lifecycle stage on the session's
+        tracer (or the process tracer) — no-op when tracing is off."""
+        from repro_torch.obs import get_tracer
+
+        tracer = self.tracer if self.tracer is not None else get_tracer()
+        if not tracer.enabled:
+            return contextlib.nullcontext()
+        return tracer.span(f"stage:{stage}", mode=self.mode, **args)
+
+    def _analysis_device(self) -> Any:
+        """The device the pre-filters judge for: the session's, else the
+        first tensor argument's, else the card."""
+        import torch
+        from torch.utils._pytree import tree_leaves
+
+        if self.device is not None:
+            return torch.device(self.device)
+        for leaf in tree_leaves(self.args):
+            if isinstance(leaf, torch.Tensor):
+                return leaf.device
+        return torch.device("cuda")
+
     def _require(self, stage: str, prerequisite: str) -> None:
         if prerequisite not in self._done:
             raise StageError(
@@ -304,21 +333,22 @@ class OffloadSession:
         via the engine.  Space/binding modes: the axis structure — every
         searchable position and its registered choices.
         """
-        if self.mode == "app":
-            self._analysis = self._get_engine().analyze(self.target)
-        elif self.mode == "binding":
-            space = BindingSpace(
-                self.target,
-                blocks=self._blocks,
-                registry=self.registry,
-            ) if self._patterns is None else BindingSpace.from_patterns(
-                self.target, self._patterns, registry=self.registry
-            )
-            self._space = space
-            self._analysis = {a.name: a.choices for a in space.axes}
-        else:  # space
-            self._analysis = {a.name: a.choices for a in self.space.axes}
-        self._done.add("analyze")
+        with self._stage_span("analyze"):
+            if self.mode == "app":
+                self._analysis = self._get_engine().analyze(self.target)
+            elif self.mode == "binding":
+                space = BindingSpace(
+                    self.target,
+                    blocks=self._blocks,
+                    registry=self.registry,
+                ) if self._patterns is None else BindingSpace.from_patterns(
+                    self.target, self._patterns, registry=self.registry
+                )
+                self._space = space
+                self._analysis = {a.name: a.choices for a in space.axes}
+            else:  # space
+                self._analysis = {a.name: a.choices for a in self.space.axes}
+            self._done.add("analyze")
         return self._analysis
 
     def _get_engine(self) -> Any:
@@ -336,19 +366,45 @@ class OffloadSession:
         reconciliation, and construction of the ``SubsetSpace`` of
         source-substituted variants.  Space/binding modes: the axes with
         more than one choice.
+
+        With ``legality=True`` (and a ``BindingSpace``) the
+        ``repro_torch.analysis`` legality pass then classifies every
+        (block, target) choice and marks the illegal ones on the space, so
+        the plan stage's strategy prunes them instead of measuring — the
+        paper's static pre-filter, run before any timing is spent.  With
+        ``resources`` the memory-envelope pass marks the bindings that
+        cannot fit.  Both judge for the session's device (a ``cuda`` target
+        is illegal on the CPU).
         """
         self._require("discover", "analyze")
-        if self.mode == "app":
-            prepared = self._get_engine().prepare(
-                self.target, self.args, report=self._analysis
-            )
-            self._space = prepared.space
-            self._discoveries = prepared.discoveries
-            self._skipped = prepared.skipped
-            found: list[Any] = prepared.discoveries
-        else:
-            found = [a.name for a in self.space.axes if len(a.choices) > 1]
-        self._done.add("discover")
+        with self._stage_span("discover"):
+            if self.mode == "app":
+                prepared = self._get_engine().prepare(
+                    self.target, self.args, report=self._analysis
+                )
+                self._space = prepared.space
+                self._discoveries = prepared.discoveries
+                self._skipped = prepared.skipped
+                found: list[Any] = prepared.discoveries
+            else:
+                found = [a.name for a in self.space.axes if len(a.choices) > 1]
+            if self.legality and isinstance(self._space, BindingSpace):
+                from repro_torch.analysis.legality import check_binding_space
+
+                report = check_binding_space(self._space, self.args,
+                                             device=self._analysis_device())
+                self._space.mark_illegal(report.illegal)
+                self.legality_report = report
+            if self.resources not in (False, None) and isinstance(self._space, BindingSpace):
+                from repro_torch.analysis.resources import check_binding_space_resources
+
+                rreport = check_binding_space_resources(
+                    self._space, self.args, envelope=self.resources,
+                    hints=self.resource_hints, device=self._analysis_device(),
+                )
+                self._space.mark_illegal(rreport.oom)
+                self.resources_report = rreport
+            self._done.add("discover")
         return found
 
     # -- Step 3 ----------------------------------------------------------------
@@ -372,23 +428,24 @@ class OffloadSession:
                 self.cache.executor = executor
             else:
                 self._set_cache_executor(self.cache, executor)
-        planner = Planner(
-            self.space,
-            strategy=self.strategy,
-            cache=self.cache,
-            store=self.store,
-            objective=self.objective,
-        )
-        self._plan, self._report = planner.plan(
-            self.args,
-            key=self.key,
-            repeats=self.repeats,
-            min_seconds=self.min_seconds,
-            force_search=self.force_search,
-            save=False,  # the commit stage persists
-        )
-        self._from_store = self._report is None
-        self._done.add("plan")
+        with self._stage_span("plan", key=self.key):
+            planner = Planner(
+                self.space,
+                strategy=self.strategy,
+                cache=self.cache,
+                store=self.store,
+                objective=self.objective,
+            )
+            self._plan, self._report = planner.plan(
+                self.args,
+                key=self.key,
+                repeats=self.repeats,
+                min_seconds=self.min_seconds,
+                force_search=self.force_search,
+                save=False,  # the commit stage persists
+            )
+            self._from_store = self._report is None
+            self._done.add("plan")
         return self._plan
 
     # -- verification ----------------------------------------------------------
@@ -396,21 +453,22 @@ class OffloadSession:
         """Functional check: the winning pattern must reproduce the baseline
         results (within ``rtol``) before it may be deployed."""
         self._require("verify", "plan")
-        plan = self._plan
-        assert plan is not None
-        if not plan.mapping:  # winner is baseline: trivially faithful
-            self._numerics_ok = True
-        else:
-            best_fn = self._winning_fn()
-            if self.mode == "app":
-                reference: Callable[..., Any] = self.target  # type: ignore[assignment]
+        with self._stage_span("verify"):
+            plan = self._plan
+            assert plan is not None
+            if not plan.mapping:  # winner is baseline: trivially faithful
+                self._numerics_ok = True
             else:
-                reference = self.space.build(self.space.baseline())
-            self._numerics_ok = verify_mod.verify_numerics(
-                reference, best_fn, self.args,
-                rtol=self.rtol, atol=self.rtol,
-            )
-        self._done.add("verify")
+                best_fn = self._winning_fn()
+                if self.mode == "app":
+                    reference: Callable[..., Any] = self.target  # type: ignore[assignment]
+                else:
+                    reference = self.space.build(self.space.baseline())
+                self._numerics_ok = verify_mod.verify_numerics(
+                    reference, best_fn, self.args,
+                    rtol=self.rtol, atol=self.rtol,
+                )
+            self._done.add("verify")
         return bool(self._numerics_ok)
 
     def _winning_fn(self) -> Callable[..., Any]:
@@ -433,23 +491,24 @@ class OffloadSession:
         just the trials; ``result.fn`` is then None).
         """
         self._require("commit", "plan")
-        plan = self._plan
-        assert plan is not None
-        if (
-            self.store is not None
-            and self.key is not None
-            and not self._from_store
-            and self._numerics_ok is not False
-        ):
-            self.store.save(plan)
-        fn: Callable[..., Any] | None
-        if not build:
-            fn = None
-        elif plan.mapping or self.mode != "app":
-            fn = self._winning_fn()
-        else:
-            fn = self.target  # type: ignore[assignment]
-        self._done.add("commit")
+        with self._stage_span("commit", key=self.key):
+            plan = self._plan
+            assert plan is not None
+            if (
+                self.store is not None
+                and self.key is not None
+                and not self._from_store
+                and self._numerics_ok is not False
+            ):
+                self.store.save(plan)
+            fn: Callable[..., Any] | None
+            if not build:
+                fn = None
+            elif plan.mapping or self.mode != "app":
+                fn = self._winning_fn()
+            else:
+                fn = self.target  # type: ignore[assignment]
+            self._done.add("commit")
         return OffloadResult(
             plan=plan,
             report=self._report,

@@ -349,8 +349,13 @@ def plan_zoo(
     ``executor`` / ``meter`` select the ``repro_torch.metering``
     measurement executor (e.g. ``batched`` for short trials) and power
     meter (``"auto"`` autodetects, ``"nvml"`` reads the card's board draw,
-    with provenance recorded on every trial); ``legality`` and
-    ``resources`` are not ported (``NotImplementedError``).  Returns
+    with provenance recorded on every trial).  ``legality=True`` runs the
+    ``repro_torch.analysis`` static legality pass per cell so strategies
+    prune statically-illegal bindings instead of measuring them (a ``cuda``
+    target on a CPU device, a wrapper's refusal in the probe trace);
+    ``resources`` (True / "host" / an envelope name / a ``DeviceEnvelope``)
+    also runs the memory-envelope pass, so statically-OOM bindings are
+    pruned before measurement — the paper's FPGA resource-fit check.  Returns
     ``{(arch, kind): OffloadResult}``; cells whose step cannot be built or
     measured are skipped with a ``UserWarning`` (regardless of ``quiet``,
     which only silences progress lines) rather than aborting the sweep.
@@ -364,10 +369,6 @@ def plan_zoo(
     for _, kind in cells:
         if kind not in ZOO_KINDS:
             raise ValueError(f"unknown cell kind '{kind}'; known: {ZOO_KINDS}")
-    unported = {"legality": bool(legality), "resources": resources not in (False, None)}
-    asked = sorted(k for k, v in unported.items() if v)
-    if asked:
-        raise NotImplementedError(f"plan_zoo options {asked} are not ported yet")
     executor = resolve_executor(executor)
     meter = resolve_meter(meter)
     registry = registry or blocks_mod.registry
@@ -405,6 +406,9 @@ def plan_zoo(
                 min_seconds=min_seconds,
                 registry=registry,
                 force_search=force_search,
+                legality=legality,
+                resources=resources,
+                device=device,
             )
             result = session.run(verify=verify)
         except Exception as e:  # noqa: BLE001 — keep sweeping other cells
@@ -416,10 +420,12 @@ def plan_zoo(
         results[(arch, kind)] = result
         if not quiet:
             src = "store" if result.from_store else result.plan.strategy
+            pruned = getattr(result.report, "pruned", 0) if result.report else 0
+            pruned_note = f" pruned={pruned}" if pruned else ""
             print(
                 f"zoo cell {arch}:{kind}: {result.mapping or '(baseline)'} "
                 f"speedup={result.speedup:.2f}x via {src} "
-                f"[{result.objective}]"
+                f"[{result.objective}]{pruned_note}"
             )
     return results
 
@@ -443,6 +449,18 @@ def main(argv: Sequence[str] | None = None) -> None:
     ap.add_argument("--targets", default=None,
                     help="comma-separated targets to search over (default: "
                          "torch,cuda on the card, ref,torch with --device cpu)")
+    ap.add_argument("--legality", action="store_true",
+                    help="run the repro_torch.analysis static legality pass per "
+                         "cell; statically-illegal bindings are pruned from the "
+                         "search instead of measured")
+    ap.add_argument("--resources", action="store_true",
+                    help="run the repro_torch.analysis memory-envelope pass per "
+                         "cell; statically-OOM bindings are pruned from the "
+                         "search instead of measured")
+    ap.add_argument("--envelope", default=None,
+                    help="device envelope for --resources: a static name (e.g. "
+                         "h100-80g, cpu-host-16g, tiny-32m) or 'host' to probe "
+                         "the device (default)")
     ap.add_argument("--objective", default="latency",
                     help="latency | perf_per_watt")
     ap.add_argument("--executor", default="serial",
@@ -479,6 +497,8 @@ def main(argv: Sequence[str] | None = None) -> None:
         repeats=args.repeats,
         verify=args.verify,
         force_search=args.force,
+        legality=args.legality,
+        resources=(args.envelope or True) if args.resources else False,
         device=args.device,
         quiet=False,
     )

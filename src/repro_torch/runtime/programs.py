@@ -26,8 +26,8 @@ replay.
 ``static=True`` its tensor arguments are copied into static buffers of the
 program (one set per key of shapes and dtypes), so a call may pass new
 tensors; with ``static=False`` they are read in place and their addresses
-are part of the key (a graph reads the addresses it captured).  Off CUDA a
-program calls its function directly.
+are part of the key (a graph reads the addresses it captured).  Off CUDA,
+and under a trace (fake tensors), a program calls its function directly.
 """
 
 from __future__ import annotations
@@ -41,6 +41,7 @@ import torch
 
 from repro_torch import kernels
 from repro_torch.core import blocks
+from repro_torch.kernels import build
 
 
 class Graph:
@@ -166,7 +167,9 @@ class Program:
 
     def __call__(self, *args: Any, **kwargs: Any) -> Any:
         self.calls += 1
-        if not self.graphed:
+        # a trace (fake tensors: no addresses, nothing to capture) calls
+        # the function as it stands
+        if not self.graphed or build.is_abstract(*leaves(args)):
             return self.fn(*args, **kwargs)
         key = self.key(args, kwargs)
         if self.static:

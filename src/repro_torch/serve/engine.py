@@ -84,9 +84,17 @@ closes after the call that waits for the card (the sampled token's read, or
 a synchronisation), so its seconds and joules cover the device work, not
 only its enqueue.
 
+* **Static analysis** — every program registers with a
+  :class:`repro_torch.analysis.ProgramSet` (``engine.programs``), which
+  records the signatures it is called under; :meth:`ServeEngine.lint`
+  checks the hot-path contracts over the programs as called (fake-tensor
+  traces with the engine state as arguments: nothing runs) and the page
+  table, and :meth:`ServeEngine.plan_capacity` sizes this deployment
+  against a device envelope from metadata.  ``kv_validate`` re-checks the
+  page table after every mutation.
+
 The engine runs on the CUDA card unless the caller passes ``device="cpu"``;
-without CUDA it raises.  Not ported yet (they raise
-``NotImplementedError``): lint and capacity planning.
+without CUDA it raises.
 """
 
 from __future__ import annotations
@@ -99,6 +107,7 @@ from typing import Any, Iterable, Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.hotpath import ProgramSet
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import blocks as blocks_mod
@@ -260,6 +269,10 @@ class ServeEngine:
     ``decode_impl`` (``auto|torch|cuda``, paged cache only) pins the decode
     step's ``paged_attention`` target over whatever the decode plan picked.
 
+    ``kv_validate`` runs the :mod:`repro_torch.analysis.paging` sanitizer
+    after every page-table mutation (a debug mode: it raises on aliasing
+    or accounting drift).
+
     ``meter`` (a name or a ``PowerMeter``, through
     :func:`repro_torch.metering.resolve_meter`) adds per-phase energy
     telemetry (``telemetry[phase].joules`` and the
@@ -295,6 +308,7 @@ class ServeEngine:
         plan_keys: "dict[str, str | None] | str | None" = None,
         decode_impl: str = "auto",
         meter: Any = None,
+        kv_validate: bool = False,
         quiet: bool = True,
     ) -> None:
         if isinstance(cfg, str):
@@ -353,6 +367,15 @@ class ServeEngine:
             "serve_kv_stranded_pct", "reserved-but-unused KV capacity")
         self._kv_frag_g = self.registry.gauge(
             "serve_kv_fragmentation_pct", "partial-page fragmentation")
+        self._capacity_fits_g = self.registry.gauge(
+            "serve_capacity_fits",
+            "1 when the last plan_capacity() verdict fit its envelope")
+        self._capacity_headroom_g = self.registry.gauge(
+            "serve_capacity_headroom_bytes",
+            "bytes of envelope headroom from the last plan_capacity()")
+        self._capacity_max_slots_g = self.registry.gauge(
+            "serve_capacity_max_slots",
+            "max slots the envelope fits at this max_len (plan_capacity)")
         self._submitted_c = self.registry.counter(
             "serve_requests_submitted_total", "requests accepted by submit()")
         self._completed_c = self.registry.counter(
@@ -374,7 +397,7 @@ class ServeEngine:
             if n_pages is None:
                 n_pages = n_slots * max_pages
             self.kv: PageTable | None = PageTable(
-                n_slots, max_pages, PagePool(n_pages, page_size)
+                n_slots, max_pages, PagePool(n_pages, page_size), validate=kv_validate
             )
             self._slot_len = max_pages * page_size
             self._seq_axes = cache_seq_axes(cfg)  # read for attention groups only
@@ -458,18 +481,53 @@ class ServeEngine:
         # has at most three keys, a bucketed prefill three per bucket, the
         # chunk programs four
         pool = torch.cuda.graph_pool_handle() if self.device.type == "cuda" else None
-        self.programs = {
-            "decode": StepProgram("decode", self._decode_step, 5 * n_slots, self.device,
-                                  pool=pool),
-            "prefill": StepProgram("prefill", self._prefill_step, max_len + 5, self.device,
-                                   pool=pool, graphs=prefill_bucket is not None),
-        }
+        # every program registers with the analysis pass, with the names,
+        # carry outputs, expected signatures and span kinds of the
+        # reference's: the wrapper records each call's signature so lint()
+        # can verify the contracts (decode's host transfer is token ids
+        # only, recomposing the batch never adds a signature); the set
+        # shares the engine's tracer and registry for its compile spans
+        # and retrace counters
+        self.programs = ProgramSet(device=self.device)
+        self.programs.tracer = self.tracer
+        self.programs.metrics = self.registry
+        self._prefill_fn = self.programs.register(
+            "prefill",
+            StepProgram("prefill", self._prefill_step, max_len + 5, self.device,
+                        pool=pool, graphs=prefill_bucket is not None),
+            carry_outputs=(1,),  # the logits stay on the device
+            span_kind="prefill", trace=self._traceable(self._prefill_step),
+        )
+        self._decode_fn = self.programs.register(
+            "decode",
+            StepProgram("decode", self._decode_step, 5 * n_slots, self.device, pool=pool),
+            loop=True,
+            carry_outputs=(1,),  # the logits stay on the device
+            expected_signatures=1,  # recomposing the batch adds none
+            span_kind="decode", trace=self._traceable(self._decode_step),
+        )
+        self._insert_fn = self.programs.register(
+            "insert", self._insert,
+            carry_outputs=(0,),
+            expected_signatures=1,  # slot recomposition adds none
+            span_kind="prefill",  # insert runs inside the prefill span
+            trace=self._traceable(self._insert, step_program=False),
+        )
         if prefill_chunk is not None:
             words = 6 + prefill_chunk + (self.kv.max_pages if self.paged else 1)
-            self.programs["extend"] = StepProgram(
-                "extend", self._extend_step, words, self.device, pool=pool)
-            self.programs["extend_sample"] = StepProgram(
-                "extend_sample", self._extend_sample_step, words, self.device, pool=pool)
+            self._extend_fn = self.programs.register(
+                "extend",
+                StepProgram("extend", self._extend_step, words, self.device, pool=pool),
+                carry_outputs=(0,),
+                span_kind="prefill-chunk", trace=self._traceable(self._extend_step),
+            )
+            self._extend_sample_fn = self.programs.register(
+                "extend_sample",
+                StepProgram("extend_sample", self._extend_sample_step, words, self.device,
+                            pool=pool),
+                carry_outputs=(1,),
+                span_kind="prefill-chunk", trace=self._traceable(self._extend_sample_step),
+            )
 
         self.telemetry = {p: PhaseTelemetry(p, registry=self.registry) for p in PHASES}
         self.completions: dict[int, Completion] = {}
@@ -556,6 +614,38 @@ class ServeEngine:
         return (state.request.sampling or self.sampler).knobs
 
     # -- the programs ------------------------------------------------------------
+    def _state(self) -> dict:
+        """The device state the programs read: what a trace takes as
+        arguments (closed over, every weight would be a constant of it)."""
+        return {"params": self.params, "cache": self.cache, "b1_cache": self._b1_cache,
+                "pages": self._pages_dev}
+
+    def _set_state(self, state: dict) -> None:
+        self.params, self.cache = state["params"], state["cache"]
+        self._b1_cache, self._pages_dev = state["b1_cache"], state["pages"]
+
+    def _traceable(self, fn, step_program: bool = True):
+        """The analysis trace of a program calling ``fn``: ``(args, kwargs)
+        -> (program, arguments)``, the program ``fn`` with the engine state
+        swapped for its first argument (a step program's call passes its
+        inputs as one list).  A trace runs on the calling thread, between
+        steps."""
+
+        def trace(args: tuple, kwargs: dict):
+            inputs = tuple(args[0]) if step_program else tuple(args)
+
+            def program(state: dict, *inputs):
+                saved = self._state()
+                self._set_state(state)
+                try:
+                    return fn(*inputs, **kwargs)
+                finally:
+                    self._set_state(saved)
+
+            return program, (self._state(), *inputs)
+
+        return trace
+
     def _prefill_step(self, last, seed, gen_step, temp, topk, tokens, *, policy: str):
         """The prefill program: ``tokens`` (1, Lp) through the blocks into
         the batch-1 cache, zeroed first (a stale SSM state would be the next
@@ -621,7 +711,7 @@ class ServeEngine:
         tokens[0, : len(context)] = context
         temp, topk = self._request_knobs(state)
         with self._phase("prefill"):
-            tok, _ = self.programs["prefill"](
+            tok, _ = self._prefill_fn(
                 [_i32(len(context) - 1), _i32(state.seed), _i32(len(state.tokens)),
                  np.asarray([temp], np.float32), _i32(topk), tokens],
                 policy=policy_of([temp], [topk]),
@@ -642,12 +732,12 @@ class ServeEngine:
             self._pages_key = key
 
     def _insert(self, slot: int) -> None:
-        """Write the prefilled batch-1 cache into ``slot``: the slot row of
-        the contiguous cache (and of every SSM state), or the slot's pages
-        of the pool (entries past the allocation land in the null page)."""
+        """The ``insert`` program: write the prefilled batch-1 cache into
+        ``slot``: the slot row of the contiguous cache (and of every SSM
+        state), or the slot's pages of the pool (entries past the
+        allocation land in the null page; the caller syncs the device page
+        table first)."""
         b1_cache = self._b1_cache
-        if self.paged:
-            self._sync_pages()
         for key, value in self.cache.items():
             if key == "index":
                 value[slot] = b1_cache[key][0]
@@ -670,7 +760,7 @@ class ServeEngine:
         slots = list(active)
         policy = policy_of(self._temps[slots], self._topks[slots])
         with self._phase("decode"):
-            tok, _ = self.programs["decode"](self._decode_inputs(), policy=policy)
+            tok, _ = self._decode_fn(self._decode_inputs(), policy=policy)
         return tok
 
     def _synchronize(self) -> None:
@@ -681,7 +771,8 @@ class ServeEngine:
     def graph_stats(self) -> dict:
         """Each step program's calls, eager calls, captures, replays,
         capture seconds and graph keys."""
-        return {name: program.summary() for name, program in self.programs.items()}
+        return {name: rec.fn.summary() for name, rec in self.programs.records.items()
+                if isinstance(rec.fn, StepProgram)}
 
     # -- public API ------------------------------------------------------------
     def submit(self, request: Request) -> int:
@@ -921,10 +1012,59 @@ class ServeEngine:
         return captured
 
     def lint(self, envelope: Any = None) -> list:
-        raise NotImplementedError("lint: not ported to repro_torch yet")
+        """Run the ``repro_torch.analysis`` hot-path pass over every program
+        this engine has actually called (host-sync, retrace drift, host
+        reads, constant capture) plus the page-aliasing sanitizer over the
+        current page table.  With ``envelope`` (a ``DeviceEnvelope``, a
+        static-table name or ``"host"``), the static capacity plan's
+        verdict joins the diagnostics — a deployment that cannot fit is a
+        ratchetable ``capacity-oom`` warning.  Returns the diagnostics;
+        empty means the serving contracts hold for the traffic served so
+        far.  The traces run nothing on the device (fake tensors)."""
+        from repro_torch.analysis.paging import check_page_table
+
+        diags = list(self.programs.lint())
+        if self.kv is not None:
+            diags.extend(
+                check_page_table(
+                    self.kv,
+                    live_slots=set(self.scheduler.active),
+                    program=f"{self.cfg.name}:page-table",
+                )
+            )
+        if envelope is not None:
+            plan = self.plan_capacity(envelope)
+            diags.extend(plan.diagnostics(program=f"serve:{self.cfg.name}:capacity"))
+        return diags
 
     def plan_capacity(self, envelope: Any = None) -> Any:
-        raise NotImplementedError("plan_capacity: not ported to repro_torch yet")
+        """Static capacity plan of *this* deployment against a device
+        envelope (default: probe the engine's device) — the serve-side
+        analogue of the paper's FPGA resource-fit pre-check.  The plan's
+        pool-token figure is cross-checked against the live ``PagePool``
+        so the static math can never drift from the engine's accounting,
+        and fit/headroom land on the metrics registry for the re-planner
+        to watch."""
+        from repro_torch.analysis.resources import plan_serve_capacity
+
+        plan = plan_serve_capacity(
+            self.cfg,
+            n_slots=self.n_slots,
+            max_len=self.max_len,
+            page_size=self.kv.pool.page_size if self.kv is not None else None,
+            n_pages=self.kv.pool.n_pages if self.kv is not None else None,
+            envelope=envelope,
+            device=self.device,
+        )
+        if self.kv is not None and plan.pool_tokens != self.kv.pool.token_capacity:
+            raise AssertionError(
+                f"capacity plan sized the pool at {plan.pool_tokens} tokens "
+                f"but the live PagePool holds {self.kv.pool.token_capacity}"
+            )
+        self._capacity_fits_g.set(1.0 if plan.fits else 0.0)
+        self._capacity_headroom_g.set(float(plan.headroom_bytes))
+        self._capacity_max_slots_g.set(float(plan.max_slots))
+        return plan
 
     # -- pages -------------------------------------------------------------------
     def _preempt_for_pages(self, needy_slot: int) -> bool:
@@ -1023,7 +1163,7 @@ class ServeEngine:
             if final:
                 temp, topk = self._request_knobs(state)
                 with self._phase("prefill"):
-                    tok, _ = self.programs["extend_sample"](
+                    tok, _ = self._extend_sample_fn(
                         head + [_i32(state.seed), _i32(len(state.tokens)),
                                 np.asarray([temp], np.float32), _i32(topk), tokens],
                         policy=policy_of([temp], [topk]),
@@ -1033,7 +1173,7 @@ class ServeEngine:
                 self._commit_slot(state, int(tok[0]), events)  # syncs the device
             else:
                 with self._phase("prefill"):
-                    self.programs["extend"](head + [tokens])
+                    self._extend_fn(head + [tokens])
                 self._synchronize()
                 prog.pos += run
         self.telemetry["prefill"].add(tele, run)
@@ -1055,7 +1195,9 @@ class ServeEngine:
             return events
         with meter_window(self.meter) as tele:
             tok = self._prefill(context, state)
-            self._insert(state.slot)
+            if self.paged:
+                self._sync_pages()
+            self._insert_fn(state.slot)
             self._commit_slot(state, int(tok[0]), events)  # syncs the device
         self.telemetry["prefill"].add(tele, len(context))
         return events

@@ -1,5 +1,6 @@
 """Host-side page allocator for the paged KV cache (a copy of
-``repro/serve/kv/pool.py`` without its ``repro.analysis`` validation mode).
+``repro/serve/kv/pool.py``; its validation mode runs
+``repro_torch.analysis.paging``).
 
 The device arrays hold ``n_pages + 1`` pages per cache leaf; this module
 owns *which request holds which page*.  All accounting is exact: a page is
@@ -121,12 +122,16 @@ class PageTable:
         n_slots: int,
         max_pages: int,
         pool: PagePool,
+        validate: bool = False,
     ) -> None:
         if max_pages < 1:
             raise ValueError("max_pages must be >= 1")
         self.n_slots = n_slots
         self.max_pages = max_pages
         self.pool = pool
+        #: run :meth:`check_invariants` after every mutation — the runtime
+        #: assertion mode of the ``repro_torch.analysis.paging`` sanitizer
+        self.validate = validate
         self._pages: list[list[int]] = [[] for _ in range(n_slots)]
         self.lengths: list[int] = [0] * n_slots
         #: bumped on every page-list mutation — consumers (the engine's
@@ -182,6 +187,7 @@ class PageTable:
         self._pages[slot] = pages
         self.lengths[slot] = n_tokens
         self.version += 1
+        self._check()
         return pages
 
     def ensure(self, slot: int, n_tokens: int) -> "list[int]":
@@ -200,6 +206,7 @@ class PageTable:
             self._pages[slot].extend(added)
             self.version += 1
         self.lengths[slot] = n_tokens
+        self._check()
         return added
 
     def free_slot(self, slot: int) -> int:
@@ -211,7 +218,41 @@ class PageTable:
         self.lengths[slot] = 0
         if n:
             self.version += 1
+        self._check()
         return n
+
+    # -- invariants --------------------------------------------------------------
+    def _check(self) -> None:
+        if self.validate:
+            self.check_invariants()
+
+    def check_invariants(self) -> None:
+        """Prove the table safe for the paged scatter/gather programs:
+        pool accounting exact, held pages exactly the union of slot page
+        lists, and the ``repro_torch.analysis.paging`` static checks (no page
+        aliasing, no out-of-range ids, page counts cover lengths) clean.
+        Raises :class:`repro_torch.analysis.paging.PageAliasError` otherwise —
+        the runtime assertion mode behind ``validate=True``."""
+        from repro_torch.analysis.paging import PageAliasError, check_page_table
+
+        self.pool.check_leaks()
+        held: set[int] = set()
+        for slot, pages in enumerate(self._pages):
+            for page in pages:
+                if page in held:
+                    break  # reported precisely by check_page_table below
+                held.add(page)
+        if held != self.pool._held:
+            raise PageAliasError(
+                f"table/pool drift: table rows name {sorted(held)} but the "
+                f"pool holds {sorted(self.pool._held)}"
+            )
+        problems = [
+            d for d in check_page_table(self)
+            if d.severity in ("error", "warning")
+        ]
+        if problems:
+            raise PageAliasError("; ".join(str(d) for d in problems))
 
     # -- stats -----------------------------------------------------------------
     @property

@@ -20,12 +20,14 @@ median-of-1 measurements rank them deterministically.
 
 import dataclasses
 import os
+import shutil
 import subprocess
 import sys
 import time
 from pathlib import Path
 
 import jax
+
 import numpy as np
 import pytest
 import torch
@@ -437,7 +439,10 @@ def test_default_plan_key_requires_stored_plan(tmp_path):
 
 def test_zoo_train_kind_and_unported_options_raise(tmp_path):
     """The train cell is ported: it searches and commits a plan (an eager
-    step a trial, one warm-up call); the unported options still raise."""
+    step a trial, one warm-up call).  ``legality`` and ``resources`` (once
+    stubs that raised) run the analysis pre-filters: on the CPU every
+    ``cuda`` binding is pruned as illegal for the platform, and the reduced
+    cell's step fits even ``tiny-32m``, so memory prunes nothing more."""
     builder, args, _ = zoo._cell_target("llama3.2-1b", "train", reduced=True, layers=1,
                                         batch=1, seq=8, seed=0, device="cpu")
     assert builder().warmup_calls == 1
@@ -448,9 +453,15 @@ def test_zoo_train_kind_and_unported_options_raise(tmp_path):
     assert zoo.default_plan_key(store, "llama3.2-1b", "train") == "zoo:llama3.2-1b:train"
     (tmp_path / "train" / "zoo_llama3.2-1b_train.json").unlink()
     (tmp_path / "train").rmdir()
-    for kw in (dict(legality=True), dict(resources=True)):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            zoo.plan_zoo(str(tmp_path), [("llama3.2-1b", "decode")], device="cpu", **kw)
+    cell = [("llama3.2-1b", "decode")]
+    pruned = zoo.plan_zoo(str(tmp_path / "legal"), cell, layers=1, batch=1, seq=8,
+                          targets=("torch", "cuda"), device="cpu", legality=True,
+                          resources="tiny-32m")[cell[0]]
+    assert pruned.mapping == {"rmsnorm": "torch", "attention": "torch",
+                              "paged_attention": "torch"}
+    assert pruned.report.pruned > 0
+    assert all("requires platform gpu" in r for r in pruned.report.pruned_reasons.values())
+    shutil.rmtree(tmp_path / "legal")
     # meter= and the executors are ported: an explicit meter the host lacks
     # fails loudly, an unknown executor is refused, both before any search
     with pytest.raises(RuntimeError, match="not available on this host"):
@@ -612,7 +623,8 @@ def test_phases_run_under_their_bindings(tmp_path, rng, monkeypatch):
     engine = _engine(plan_dir=str(tmp_path), plan_keys={"prefill": "p", "decode": "d"},
                      page_size=4, prefill_chunk=8)
     seen = []
-    for name, program in engine.programs.items():
+    for name in engine.graph_stats():  # the step programs
+        program = engine.programs[name]
         fn = program.fn
         monkeypatch.setattr(program, "fn", lambda *a, _fn=fn, _n=name, **k: (
             seen.append((_n, blocks.registry.current_pattern())), _fn(*a, **k))[1])

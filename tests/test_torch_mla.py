@@ -225,7 +225,8 @@ def test_deepseek_greedy_trace_token_identical_to_reference(name, weights, rng, 
     engine = ServeEngine(TCFG, params=tparams, max_len=64, seed=0, device="cpu", **kw)
     if graphed:
         monkeypatch.setattr(runtime_programs, "Graph", _DryGraph)
-        for program in engine.programs.values():
+        for name in engine.graph_stats():  # the step programs
+            program = engine.programs[name]
             program.graphed = True
     got, teng = _trace(engine, Request, prompts, GENS)
     assert got == want

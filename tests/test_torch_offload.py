@@ -236,14 +236,22 @@ def test_strategies_choose_what_the_reference_chooses(strategy):
 
 
 def test_session_stages_and_unported_options():
-    """Stages run in order; ``tracer=`` is still unported; ``meter=`` and
-    the device-parallel executor (once stubs) are wired into the cache."""
+    """Stages run in order; ``tracer=`` (once a stub) records one
+    ``stage:<name>`` span per stage, as the reference's session does;
+    ``meter=`` and the device-parallel executor (once stubs) are wired into
+    the cache."""
+    from repro_torch.obs import Tracer
+
     x = fourier.make_input(16)
     session = OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu")
     with pytest.raises(Exception, match="before analyze"):
         session.discover()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu", tracer=object())
+    tracer = Tracer()
+    OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu", repeats=1,
+                   tracer=tracer).run()
+    stages = [r.name for r in tracer.records() if r.name.startswith("stage:")]
+    assert stages == ["stage:analyze", "stage:discover", "stage:plan", "stage:verify",
+                      "stage:commit"]
     cache = planner.MeasurementCache(executor="device-parallel")
     assert isinstance(cache.executor, DeviceParallelExecutor)
     metered = OffloadSession(fourier.fourier_app_libcall, args=(x,), device="cpu", meter="auto")

@@ -82,7 +82,8 @@ class DryGraph:
 
 def _graphed(engine, monkeypatch):
     monkeypatch.setattr(runtime_programs, "Graph", DryGraph)
-    for program in engine.programs.values():
+    for name in engine.graph_stats():  # the step programs
+        program = engine.programs[name]
         program.graphed = True
     return engine
 
