@@ -184,7 +184,21 @@ JSON line, and any failure raises (exit code != 0):
    pruned against the card; against ``tiny-32m`` the FFT's cuda binding at
    2048 pruned with a ``memory:`` reason, the LU's at 128 not, as it fits:
    ``ANALYSIS_BLOCKS``); the serve CLI's ``--preflight --envelope
-   host``: full llama3.2-1b exits 0, full deepseek-v2-236b exits 2.
+   host``: full llama3.2-1b exits 0, full deepseek-v2-236b exits 2;
+24. cost_model: the cost model and the one-card dry-run
+   (``repro_torch.launch.dryrun`` over ``launch/graph_cost.py``) at full
+   width: llama3.2-1b's ``train_4k``, ``prefill_32k`` and ``decode_32k``
+   records (``long_500k`` skipped by the reference's rule; no kernel
+   launched by a trace: each wrapper declares its kernel's work instead);
+   the roofline as a lower bound, like for like: a B=8 decode step with
+   every slot at full context (1024) against its CUDA-graph replay's device
+   time, and phase 19's train step (B 8, S 512) against that phase's
+   profiled device ms, each ``roofline_s`` at most the measured time, the
+   train step's estimated peak beside phase 19's measured peak; then
+   ``CostGuidedSearch(top_k=2)`` with the default roofline through
+   ``plan_zoo`` on llama3.2-1b's decode bindings (torch, cuda): the
+   baseline and two trials measured, nothing launched while ranking, its
+   winner and seconds beside the zoo's default strategy's.
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -248,11 +262,6 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s; flop/s by type
-# ("float32" on the CUDA cores, "tf32" on the tensor cores)
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}
 
 # kernel vs plain version on the same inputs: f32 differs only by the order
 # of f32 sums; bf16 outputs are rounded once from f32 by both, so they may
@@ -429,9 +438,16 @@ class Timer:
         return window(body) - window(self.flush.zero_)
 
 
-def bound_ms(nbytes: float, flops: float, peak: str) -> tuple[float, str]:
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[peak] * 1e3
+def bound_ms(work) -> tuple[float, str]:
+    """The least time the card could take for a kernel call's declared work
+    (``repro_torch.kernels.build.Work``, from the formula in the kernel's
+    module): its bytes over the HBM rate, or its FLOPs, counted once, over
+    the peak of their type (the H100 SXM data sheet's,
+    ``repro_torch.launch.mesh.HW``), whichever is larger."""
+    from repro_torch.launch.mesh import HW
+
+    t_bytes = work.bytes / HW.hbm_bw * 1e3
+    t_ops = work.flops / HW.peak(work.peak) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -483,11 +499,11 @@ def phase_device(torch) -> dict:
     return info
 
 
-def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbytes, flops,
-          tol=None, peak=None, extra=None, library_eager=None):
+def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, work,
+          tol=None, extra=None, library_eager=None):
     """``got`` and ``want`` are one tensor, or dicts of named outputs that
-    are each held to ``tol[name]``.  The bound takes the peak of ``peak``
-    (default: the inputs' type); ``extra`` adds keys to the printed row.
+    are each held to ``tol[name]``.  ``work`` is the call's declared work,
+    the bound's numerator; ``extra`` adds keys to the printed row.
     ``library_eager`` is a library call timed eagerly (a backward through
     autograd) in place of ``library``."""
     if isinstance(got, dict):
@@ -495,7 +511,7 @@ def _case(torch, name, dtype, shape, got, want, timer, run, plain, library, nbyt
         err = max(errs.values())
     else:
         errs, err = None, compare(torch, got, want, dtype, tol)
-    bound, by = bound_ms(nbytes, flops, peak or dtype)
+    bound, by = bound_ms(work)
     row = {
         "phase": "kernel", "name": name, "dtype": dtype, "shape": shape,
         "max_abs_err": err, "tol": tol or TOL[dtype],
@@ -526,7 +542,7 @@ def phase_kernels(torch) -> dict:
     """Each kernel vs its plain version at the main path's shapes."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.attention import flash_attention, flash_attention_torch
+    from repro_torch.kernels.attention import flash_attention, flash_attention_torch, flash_work
 
     dev = "cuda"
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -548,15 +564,13 @@ def phase_kernels(torch) -> dict:
         q = randn(1, h, s, dh, dtype=dtype)
         k = randn(1, kh, s, dh, dtype=dtype)
         v = randn(1, kh, s, dh, dtype=dtype)
-        e = q.element_size()
         got, route = flash_routed(flash_attention, q, k, v)
         rows["flash_attention"].append(_case(
             torch, "flash_attention", str(dtype).split(".")[1], [1, h, kh, s, dh],
             got, flash_attention_torch(q, k, v), timer,
             lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-            nbytes=e * (2 * q.numel() + k.numel() + v.numel()),
-            flops=4 * dh * h * s * (s + 1) // 2, extra=route,
+            work=flash_work(q, k, v), extra=route,
         ))
 
     # arctic-480b's prefill: H=56 over KH=8, D=128 (wgmma)
@@ -568,8 +582,7 @@ def phase_kernels(torch) -> dict:
         got, flash_attention_torch(q, k, v), timer,
         lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True, enable_gqa=True),
-        nbytes=2 * (2 * q.numel() + k.numel() + v.numel()),
-        flops=4 * 128 * 56 * 512 * 513 // 2, extra=route,
+        work=flash_work(q, k, v), extra=route,
     )
 
     # zamba2-7b's shared attention block: H = KH = 32, head dim 112
@@ -581,7 +594,7 @@ def phase_kernels(torch) -> dict:
         got, flash_attention_torch(q, k, v), timer,
         lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        nbytes=2 * 4 * q.numel(), flops=4 * zd * zh * 512 * 513 // 2, extra=route,
+        work=flash_work(q, k, v), extra=route,
     ))
     # B=2 at a ragged S: the sequence edge at a (b, h) boundary, D=112 in two
     # column boxes
@@ -592,7 +605,7 @@ def phase_kernels(torch) -> dict:
         got, flash_attention_torch(q, k, v), timer,
         lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-        nbytes=2 * 4 * q.numel(), flops=2 * 4 * zd * zh * 300 * 301 // 2, extra=route,
+        work=flash_work(q, k, v), extra=route,
     ))
     # the shapes the wgmma route does not take, on the CUDA-core route: v's
     # head dim apart from q's (the reference test's qk 48 / v 32, in f32
@@ -604,7 +617,6 @@ def phase_kernels(torch) -> dict:
                                     ((8, 300, 100, 100), torch.bfloat16)):
         q, k = randn(1, hh, s, dqk, dtype=dtype), randn(1, hh, s, dqk, dtype=dtype)
         v = randn(1, hh, s, dv, dtype=dtype)
-        e = q.element_size()
         got, route = flash_routed(flash_attention, q, k, v)
         rows["flash_attention"].append(_case(
             torch, "flash_attention", str(dtype).split(".")[1],
@@ -612,8 +624,7 @@ def phase_kernels(torch) -> dict:
             got, flash_attention_torch(q, k, v), timer,
             lambda: flash_attention(q, k, v), lambda: flash_attention_torch(q, k, v),
             lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-            nbytes=e * (q.numel() + k.numel() + 2 * v.numel()),
-            flops=2 * (dqk + dv) * hh * s * (s + 1) // 2, extra=route,
+            work=flash_work(q, k, v), extra=route,
         ))
     rows["flash_attention"].append(arctic_row)
     rows["flash_attention_bwd"] = _flash_bwd_cases(torch, timer, randn)
@@ -674,18 +685,13 @@ def _flash_bwd_cases(torch, timer, randn) -> list:
         def library():
             torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
 
-        e, name = q.element_size(), str(dtype).split(".")[1]
-        pairs = b * h * s * (s + 1) // 2  # causal (query, key) pairs
+        name = str(dtype).split(".")[1]
         rows.append(_case(
             torch, "flash_attention_bwd", name,
             {"B": b, "H": h, "KH": kh, "S": s, "Dqk": d, "Dv": dv}, got, want, timer,
             lambda: fa.flash_attention_bwd(*args), lambda: flash_attention_bwd_torch(*args),
             None, tol={**{k_: TOL[name] for k_ in ("dq", "dk", "dv")}, "lse": TOL["float32"]},
-            # reads q, k, v, out, do, lse; writes dq, dk, dv
-            nbytes=e * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out.numel())
-            + 4 * lse.numel(),
-            # five products over the causal pairs: S and dK, dQ over D; dP, dV over Dv
-            flops=2 * pairs * (3 * d + 2 * dv),
+            work=fa.flash_bwd_work(q, k, v),
             extra={"route": route, "repeat_bit_identical": True}, library_eager=library,
         ))
     return rows
@@ -762,15 +768,11 @@ def _norm_bwd_cases(torch, timer, randn) -> list:
         def run():
             return rn.rmsnorm_bwd(x, dy, w, eps, ds=ds)
 
-        e = x.element_size()
-        n_in = 3 if form == "add" else 2  # x, dy (, ds)
         rows.append(_case(
             torch, "rmsnorm_bwd", name, [n_rows, d], got, want, timer, run,
             lambda: rn.rmsnorm_bwd_torch(x, dy, w, eps, ds=ds), None,
             tol={"dx": TOL[name], "dw": NORM_DW_TOL if wname == "float32" else TOL[wname]},
-            # reads x, dy (, ds) and w; writes dx and dw
-            nbytes=(n_in + 1) * n_rows * d * e + 2 * w.element_size() * d,
-            flops=12 * n_rows * d, peak="float32",
+            work=rn.norm_bwd_work(x, w, form == "add"),
             extra={"form": form, "w": wname, "repeat_bit_identical": True,
                    "ms_by_kernel": _kernel_split(torch, timer, run, NORM_BWD_KERNEL_NAMES)},
             library_eager=library,
@@ -787,7 +789,7 @@ def _norm_plain_cases(torch, timer, randn) -> list:
     library call (weight in x's type)."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels.rmsnorm import rmsnorm, rmsnorm_torch
+    from repro_torch.kernels.rmsnorm import norm_work, rmsnorm, rmsnorm_torch
 
     rows, eps = [], 1e-5
     bf16, f32 = torch.bfloat16, torch.float32
@@ -796,13 +798,11 @@ def _norm_plain_cases(torch, timer, randn) -> list:
         x = randn(n_rows, d, dtype=dtype)
         w = 1.0 + 0.1 * randn(d, dtype=f32)
         w_lib = w.to(dtype)
-        e = x.element_size()
         rows.append(_case(
             torch, "rmsnorm", str(dtype).split(".")[1], [n_rows, d],
             rmsnorm(x, w, eps), rmsnorm_torch(x, w, eps), timer,
             lambda: rmsnorm(x, w, eps), lambda: rmsnorm_torch(x, w, eps),
-            lambda: F.rms_norm(x, (d,), w_lib, eps),
-            nbytes=2 * n_rows * d * e + 4 * d, flops=4 * n_rows * d,
+            lambda: F.rms_norm(x, (d,), w_lib, eps), work=norm_work("plain", x, w),
             extra={"form": "plain", "w": "float32"},
         ))
     return rows
@@ -827,8 +827,7 @@ def _norm_zoo_cases(torch, timer, randn) -> list:
             torch, "rmsnorm", "bfloat16", [n_rows, d],
             rn.rmsnorm(x, w, eps), rn.rmsnorm_torch(x, w, eps), timer,
             lambda: rn.rmsnorm(x, w, eps), lambda: rn.rmsnorm_torch(x, w, eps),
-            lambda: F.rms_norm(x, (d,), w, eps),
-            nbytes=4 * n_rows * d + 2 * d, flops=4 * n_rows * d,
+            lambda: F.rms_norm(x, (d,), w, eps), work=rn.norm_work("plain", x, w),
             extra={"form": "plain", "w": "bfloat16"},
         ))
     for n_rows, d in ((8, 5120), (512, 5120), (8, 7168), (512, 7168)):
@@ -840,8 +839,8 @@ def _norm_zoo_cases(torch, timer, randn) -> list:
             torch, "rmsnorm", "bfloat16", [n_rows, d], got, want, timer,
             lambda: rn.add_rmsnorm(x, delta, w, eps),
             lambda: rn.add_rmsnorm_torch(x, delta, w, eps), None,
-            nbytes=2 * 4 * n_rows * d + 2 * d, flops=5 * n_rows * d,
-            tol={"s": (0.0, 0.0), "y": TOL["bfloat16"]}, extra={"form": "add", "w": "bfloat16"},
+            work=rn.norm_work("add", x, w), tol={"s": (0.0, 0.0), "y": TOL["bfloat16"]},
+            extra={"form": "add", "w": "bfloat16"},
         ))
     return rows
 
@@ -869,8 +868,7 @@ def _norm_fused_cases(torch, timer, randn) -> list:
             torch, "rmsnorm", "bfloat16", [n_rows, d],
             rn.rmsnorm(x, w, eps), rn.rmsnorm_torch(x, w, eps), timer,
             lambda: rn.rmsnorm(x, w, eps), lambda: rn.rmsnorm_torch(x, w, eps),
-            lambda: F.rms_norm(x, (d,), w, eps),
-            nbytes=4 * n_rows * d + 2 * d, flops=4 * n_rows * d,
+            lambda: F.rms_norm(x, (d,), w, eps), work=rn.norm_work("plain", x, w),
             extra={"form": "plain", "w": "bfloat16"},
         ))
     for n_rows, d in ((8, 2048), (512, 2048)):
@@ -882,8 +880,8 @@ def _norm_fused_cases(torch, timer, randn) -> list:
             torch, "rmsnorm", "bfloat16", [n_rows, d], got, want, timer,
             lambda: rn.add_rmsnorm(x, delta, w, eps),
             lambda: rn.add_rmsnorm_torch(x, delta, w, eps), None,
-            nbytes=2 * 4 * n_rows * d + 4 * d, flops=5 * n_rows * d,
-            tol={"s": (0.0, 0.0), "y": TOL["bfloat16"]}, extra={"form": "add", "w": "float32"},
+            work=rn.norm_work("add", x, w), tol={"s": (0.0, 0.0), "y": TOL["bfloat16"]},
+            extra={"form": "add", "w": "float32"},
         ))
     for b, s, h, p, n, dtype in ((8, 1, 80, 64, 128, bf16), (1, 512, 80, 64, 128, bf16),
                                  (8, 1, 112, 64, 64, bf16), (1, 100, 80, 64, 128, f32),
@@ -896,13 +894,12 @@ def _norm_fused_cases(torch, timer, randn) -> list:
         d_skip = 1.0 + 0.1 * randn(h, dtype=f32)
         w = 1.0 + 0.1 * randn(di, dtype=f32)
         args = (y, x, d_skip, z, w, eps)
-        e = x.element_size()
         name = str(dtype).split(".")[1]
         rows.append(_case(
             torch, "rmsnorm", name, {"B": b, "S": s, "H": h, "P": p, "N": n},
             rn.gated_rmsnorm(*args), rn.gated_rmsnorm_torch(*args), timer,
             lambda: rn.gated_rmsnorm(*args), lambda: rn.gated_rmsnorm_torch(*args), None,
-            nbytes=b * s * di * (4 + 3 * e) + 4 * (di + h), flops=12 * b * s * di,
+            work=rn.norm_work("gated", z, w, d_skip),
             extra={"form": "gated", "w": "float32"},
         ))
     return rows
@@ -950,19 +947,9 @@ def _paged_cases(torch, timer, randn, gen) -> list:
             kw = dict(q_rope=randn(b, hh, s, dr, dtype=dtype), kr_pool=kr_pool,
                       scale=1.0 / (dk + dr) ** 0.5)
         args = (q, k_pool, v_pool, pages, index)
-        e = q.element_size()
-        seen = [min(ln + si + 1, mp * ps) for ln in lengths for si in range(s)]
-        n_pos = [min(ln + s, mp * ps) for ln in lengths]
-        g = hh // kkh
-        # each input read once (only the K/V rows the lengths reach; a
-        # latent pool once for keys and values), the output written once;
-        # flops: q.k, q_rope.k_rope and p.v per seen row
-        nbytes = (
-            e * (q.numel() + b * hh * s * dv + (kw["q_rope"].numel() if dr else 0))
-            + e * sum(n_pos) * (kkh * (dk if latent else dk + dv) + dr)
-            + 4 * (pages.numel() + b)
-        )
-        flops = 2 * kkh * g * sum(seen) * (dk + dv + dr)
+        # the positions the lengths reach (the kernel's declared work counts
+        # every position of the table's width: a trace has no lengths)
+        work = pa.paged_work(q, k_pool, v_pool, pages, list(lengths), q_rope=kw.get("q_rope"))
         # the parent of a comparison (scripts/ab_parent_change.py) has no plan
         extra = None
         if hasattr(pa, "sm_count"):
@@ -975,7 +962,7 @@ def _paged_cases(torch, timer, randn, gen) -> list:
              **({"latent": True} if latent else {})},
             pa.paged_attention(*args, **kw), pa.paged_attention_torch(*args, **kw), timer,
             lambda: pa.paged_attention(*args, **kw), lambda: pa.paged_attention_torch(*args, **kw),
-            None, nbytes=nbytes, flops=flops, extra=extra,
+            None, work=work, extra=extra,
         )
 
     bf16 = torch.bfloat16
@@ -1018,7 +1005,7 @@ def _ssd_cases(torch, timer, randn, gen) -> list:
     function's work once, at the inputs' type: C B^T once per (batch,
     chunk), its causal lower triangle only, and per head W x (the same
     triangle) and the state product."""
-    from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_torch
+    from repro_torch.kernels.ssd import ssd_chunks, ssd_chunks_torch, ssd_work
 
     names = ("y", "states", "cumdecay", "totals")
     rows = []
@@ -1038,16 +1025,6 @@ def _ssd_cases(torch, timer, randn, gen) -> list:
         dt = dt0 + (dt1 - dt0) * torch.rand((b, s, h), generator=gen, device="cuda")
         a = -(a0 + (a1 - a0) * torch.rand((h,), generator=gen, device="cuda"))
         args = (x, dt, a, bm, cm)
-        nc = s // chunk
-        e = x.element_size()
-        # inputs read once (x/B/C, f32 dt and a), the four f32 outputs
-        # written once; flops: the L(L+1)/2 entries of C B^T (N products
-        # each) once per (batch, chunk), and per head those of W x (P each)
-        # and the state product
-        nbytes = (e * (x.numel() + bm.numel() + cm.numel()) + 4 * (dt.numel() + h)
-                  + 4 * (x.numel() + b * nc * h * n * p + dt.numel() + b * nc * h))
-        tri = chunk * (chunk + 1)  # twice the triangle's entries: 2 flops a product
-        flops = b * nc * (tri * n + h * (tri * p + 2 * chunk * n * p))
         shape = {"B": b, "S": s, "H": h, "P": p, "N": n, "L": chunk,
                  "dt": [dt0, dt1], "minus_a": [a0, a1]}
         name = str(dtype).split(".")[1]
@@ -1057,7 +1034,7 @@ def _ssd_cases(torch, timer, randn, gen) -> list:
             dict(zip(names, ssd_chunks_torch(*args, chunk=chunk))),
             timer, lambda: ssd_chunks(*args, chunk=chunk),
             lambda: ssd_chunks_torch(*args, chunk=chunk), None,
-            nbytes=nbytes, flops=flops, tol=SSD_TOL,
+            work=ssd_work(x, n, chunk), tol=SSD_TOL,
             extra={"route": "wgmma" if dtype == bf16 else "cuda_cores"},
         ))
     return rows
@@ -1070,28 +1047,34 @@ def _offload_kernel_cases(torch, timer, randn) -> dict:
     not a multiple of 4, which the wrappers pad for TMA.  The three kernels
     run 3xTF32 on the tensor cores: each bound counts the product once at
     the TF32 peak, and each row shows the three passes' floor too."""
-    from repro_torch.kernels.fft import complex_matmul, complex_matmul_torch
-    from repro_torch.kernels.matmul import matmul, matmul_torch, schur_update, schur_update_torch
+    from repro_torch.kernels.fft import complex_matmul, complex_matmul_torch, complex_matmul_work
+    from repro_torch.kernels.matmul import (
+        matmul,
+        matmul_torch,
+        matmul_work,
+        schur_update,
+        schur_update_torch,
+        schur_work,
+    )
+    from repro_torch.launch.mesh import HW
 
     f32 = torch.float32
     rows: dict[str, list] = {"complex_matmul": [], "schur_update": [], "matmul": []}
 
-    def floor(flops):
-        return {"floor_3xtf32_ms": 3 * flops / PEAK_FLOPS["tf32"] * 1e3}
+    def floor(work):
+        return {"floor_3xtf32_ms": work.passes * work.flops / HW.peak(work.peak) * 1e3}
 
     for m, nn, k in ((2048, 2048, 2048), (99, 99, 99)):
         ar, ai = randn(m, k, dtype=f32), randn(m, k, dtype=f32)
         br, bi = randn(k, nn, dtype=f32), randn(k, nn, dtype=f32)
         ac, bc = torch.complex(ar, ai), torch.complex(br, bi)
         kw = dict(block_m=min(m, 128), block_n=min(nn, 128), block_k=min(k, 128))
-        flops = 8 * m * nn * k
+        work = complex_matmul_work(m, nn, k)
         rows["complex_matmul"].append(_case(
             torch, "complex_matmul", "float32", [m, nn, k],
             torch.cat(complex_matmul(ar, ai, br, bi, **kw)), torch.cat(complex_matmul_torch(ar, ai, br, bi)),
             timer, lambda: complex_matmul(ar, ai, br, bi, **kw), lambda: complex_matmul_torch(ar, ai, br, bi),
-            lambda: torch.matmul(ac, bc),
-            nbytes=4 * (2 * m * k + 2 * k * nn + 2 * m * nn), flops=flops, tol=GEMM_TOL,
-            peak="tf32", extra=floor(flops),
+            lambda: torch.matmul(ac, bc), work=work, tol=GEMM_TOL, extra=floor(work),
         ))
     # the trailing update A22 -= L21 @ U12 right after the first panel, and
     # a ragged one
@@ -1099,24 +1082,21 @@ def _offload_kernel_cases(torch, timer, randn) -> dict:
                                   ((100, 100, 30), (100, 100))):
         c, a, b = randn(m, nn, dtype=f32), randn(m, k, dtype=f32), randn(k, nn, dtype=f32)
         blk = dict(block_m=bm, block_n=bn, block_k=k)
-        flops = 2 * m * nn * k
+        work = schur_work(m, nn, k)
         rows["schur_update"].append(_case(
             torch, "schur_update", "float32", [m, nn, k],
             schur_update(c, a, b, **blk), schur_update_torch(c, a, b), timer,
             lambda: schur_update(c, a, b, **blk), lambda: schur_update_torch(c, a, b),
-            lambda: torch.addmm(c, a, b, alpha=-1),
-            nbytes=4 * (2 * m * nn + m * k + k * nn), flops=flops, tol=GEMM_TOL,
-            peak="tf32", extra=floor(flops),
+            lambda: torch.addmm(c, a, b, alpha=-1), work=work, tol=GEMM_TOL, extra=floor(work),
         ))
     for (m, nn, k), blk in (((2048, 2048, 2048), 128), ((96, 160, 96), 32), ((99, 99, 99), 99)):
         a, b = randn(m, k, dtype=f32), randn(k, nn, dtype=f32)
         kw = dict(block_m=blk, block_n=blk, block_k=blk)
-        flops = 2 * m * nn * k
+        work = matmul_work(m, nn, k)
         rows["matmul"].append(_case(
             torch, "matmul", "float32", [m, nn, k], matmul(a, b, **kw), matmul_torch(a, b), timer,
             lambda: matmul(a, b, **kw), lambda: matmul_torch(a, b), lambda: torch.matmul(a, b),
-            nbytes=4 * (m * k + k * nn + m * nn), flops=flops, tol=GEMM_TOL, peak="tf32",
-            extra=floor(flops),
+            work=work, tol=GEMM_TOL, extra=floor(work),
         ))
     return rows
 
@@ -1433,15 +1413,27 @@ def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
         engine.step()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
-    counted, replays = kernels.counters(), engine.graph_stats()["decode"]["replays"]
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            engine.step()
-        torch.cuda.synchronize()
-    if engine.graph_stats()["decode"]["replays"] - replays != n:
-        raise AssertionError(f"{phase}: the {n} profiled decode steps were not all replays")
-    added = {k: v - counted[k] for k, v in kernels.counters().items()}
-    replay_launches = _replay_launches(phase, prof, added, n)
+
+    def profiled_window():
+        counted, replays = kernels.counters(), engine.graph_stats()["decode"]["replays"]
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                engine.step()
+            torch.cuda.synchronize()
+        if engine.graph_stats()["decode"]["replays"] - replays != n:
+            raise AssertionError(f"{phase}: the {n} profiled decode steps were not all replays")
+        added = {k: v - counted[k] for k, v in kernels.counters().items()}
+        return (prof, *_replay_launches(prof, added, n))
+
+    prof, replay_launches, first_window = profiled_window()
+    if first_window:
+        # a replay launches what its capture counted, so a miscount recurs in
+        # every window, while a record the profiler lost (seen in rare
+        # windows: one norm event short of 200) does not: the second window
+        # must match exactly
+        prof, replay_launches, missed = profiled_window()
+        if missed:
+            raise AssertionError(f"{phase}: " + "; ".join(first_window + missed))
     device, events = _device_events(prof)
     total = sum(device.values()) / n
     top = sorted(device.items(), key=lambda kv: -kv[1])[:10]
@@ -1452,6 +1444,8 @@ def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
         "device_busy_share": total / wall_ms if device else None,
         "device_events_per_step": events / n,
         "replay_launches_per_step": replay_launches,
+        # the first window's mismatches where a second window was taken
+        "profiler_first_window_missed": first_window or None,
         # paged attention's split and merge kernels together
         "paged_device_ms_per_step": sum(v for k, v in device.items() if "paged" in k) / n,
         "top_device_ms_per_step": {k[:80]: v / n for k, v in top},
@@ -1475,26 +1469,26 @@ KERNEL_EVENTS = {"rmsnorm": ("norm_kernel",),
                  "paged_attention": ("paged_attention_split", "paged_attention_merge")}
 
 
-def _replay_launches(phase: str, prof, added: dict, n: int) -> dict:
+def _replay_launches(prof, added: dict, n: int) -> tuple[dict, list[str]]:
     """Hold the launches that ``n`` profiled decode replays added to the
     wrappers' counts (the capture's counts, added at each replay) against
     the profiler's device events of those kernels: each counted launch
     must be one event of each of its kernel's names.  Returns the launches
-    per step."""
+    per step and the mismatches."""
     import re
 
     from torch.autograd import DeviceType
 
     names = [ev.name for ev in prof.events() if ev.device_type == DeviceType.CUDA]
-    out = {}
+    out, missed = {}, []
     for counter, kernel_names in KERNEL_EVENTS.items():
         for name in kernel_names:
             seen = sum(1 for ev in names if re.search(rf"(?<!\w){name}(?!\w)", ev))
             if seen != added[counter]:
-                raise AssertionError(f"{phase}: {n} replays counted {added[counter]} "
-                                     f"{counter} launches, the profiler saw {seen} {name}")
+                missed.append(f"{n} replays counted {added[counter]} {counter} launches, "
+                              f"the profiler saw {seen} {name}")
         out[counter] = added[counter] / n
-    return out
+    return out, missed
 
 
 def _tree(fn, tree):
@@ -2721,6 +2715,211 @@ def phase_analysis(torch) -> dict:
     return out
 
 
+#: phase 24's two cells at shapes the card runs (``SHAPES`` keeps the
+#: reference's four): llama's B=8 decode step with every slot at full
+#: context (1024), and phase 19's B=8, S=512 train step (one microbatch)
+COST_DECODE_SHAPE = ("decode_1k", 1024, 8, "decode")
+COST_TRAIN_SHAPE = ("train_512", TRAIN_SEQ, TRAIN_BATCH, "train")
+#: trials CostGuidedSearch measures in phase 24: the baseline and its top_k
+COST_TOP_K = 2
+
+
+def _record(rec: dict) -> dict:
+    """A dry-run record without its traceback, kernels by name."""
+    return {k: v for k, v in rec.items() if k != "traceback"}
+
+
+def _unlaunched(torch, label: str, fn):
+    """``fn()``, raising if any kernel launched meanwhile (a trace runs
+    nothing: every wrapper takes its abstract path)."""
+    import repro_torch.kernels as kernels
+
+    torch.cuda.synchronize()
+    before = kernels.launch_counts()
+    out = fn()
+    torch.cuda.synchronize()
+    after = kernels.launch_counts()
+    if after != before:
+        moved = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+        raise AssertionError(f"cost_model: {label} launched kernels: {moved}")
+    return out
+
+
+def _replay_device_ms(torch, fn, n: int = 20) -> float:
+    """Device ms of one replay of ``fn`` captured as a CUDA graph: CUDA
+    events around ``n`` back-to-back replays, median of 5 windows."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up outside the capture
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    times = []
+    for _ in range(5):
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(n):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    del graph
+    return sorted(times)[2]
+
+
+def _cost_decode(torch, cfg, shape) -> dict:
+    """The dry-run's decode cell at ``shape`` against the same step function
+    run on the card: its roofline against a CUDA-graph replay's device time
+    (every slot at position len - 1, reset inside the graph)."""
+    import numpy as np
+
+    from repro_torch.launch import dryrun, steps
+    from repro_torch.models import lm
+
+    rec = _unlaunched(torch, "the decode cell's trace",
+                      lambda: dryrun.run_cell(cfg.name, shape, device="cuda"))
+    if rec["status"] != "ok":
+        raise AssertionError(f"cost_model: decode cell: {rec.get('error')}")
+    params = lm.init_params(cfg, seed=0, device="cuda")  # the cell's f32 parameters
+    cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, device="cuda")
+    rng = np.random.default_rng(0)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab_size, (shape.global_batch, 1))
+                              .astype(np.int32)).to("cuda")
+    step = steps.make_decode_step(cfg)
+
+    def run():
+        cache["index"].fill_(shape.seq_len - 1)
+        return step(params, cache, {"tokens": tokens})
+
+    with torch.no_grad():
+        ms = _replay_device_ms(torch, run)
+    del params, cache
+    _free_dead_engines(torch)
+    return {"record": _record(rec), "measured_device_ms": ms,
+            "roofline_ms": rec["roofline_s"] * 1e3, "ratio": rec["roofline_s"] * 1e3 / ms}
+
+
+def _cost_search(torch) -> dict:
+    """``CostGuidedSearch(top_k=COST_TOP_K)`` with the default roofline over
+    llama3.2-1b's full-width decode binding space (torch, cuda) through
+    ``plan_zoo``, beside the zoo's default strategy on the same space."""
+    import tempfile
+    import warnings
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core.planner import CostGuidedSearch, make_roofline_cost_fn
+    from repro_torch.offload import OffloadSession
+
+    roofline = make_roofline_cost_fn()
+    ranked, moved = [], {}
+
+    def cost_fn(space, cand, args):
+        before, t0 = kernels.launch_counts(), time.perf_counter()
+        seconds = roofline(space, cand, args)
+        trace_seconds = time.perf_counter() - t0
+        after = kernels.launch_counts()
+        moved.update({k: after[k] - before[k] for k in after if after[k] != before[k]})
+        ranked.append({"binding": space.binding_of(cand), "roofline_ms": seconds * 1e3,
+                       "trace_seconds": trace_seconds})
+        return seconds
+
+    out = {}
+    cell = ("llama3.2-1b", "decode")
+    for label, strategy in (("cost_guided", CostGuidedSearch(top_k=COST_TOP_K, cost_fn=cost_fn)),
+                            ("default", None)):
+        _free_dead_engines(torch)
+        with tempfile.TemporaryDirectory(prefix="plans-") as plan_dir, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            results = OffloadSession.plan_zoo(
+                plan_dir, [cell], reduced=False, layers=0, batch=BINDING_BATCH,
+                seq=BINDING_SEQ, targets=("torch", "cuda"), strategy=strategy, device="cuda")
+            seconds = time.perf_counter() - t0
+        if cell not in results:
+            raise AssertionError(f"cost_model: plan_zoo with {label} committed no plan: "
+                                 f"{[str(w.message) for w in caught]}")
+        report = results[cell].report
+        out[label] = {"strategy": report.strategy, "winner": results[cell].mapping,
+                      "speedup": results[cell].speedup, "trials": len(report.trials),
+                      "evaluations": report.evaluations, "search_seconds": report.search_seconds,
+                      "plan_zoo_seconds": seconds,
+                      "trial_ms": {"+".join(f"{k}={v}" for k, v in t.mapping.items()) or
+                                   "baseline": t.seconds * 1e3 for t in report.trials}}
+        if strategy is not None:
+            out[label]["ranking_seconds"] = sum(r["trace_seconds"] for r in ranked)
+            out[label]["ranking"] = sorted(ranked, key=lambda r: r["roofline_ms"])
+    if moved:
+        raise AssertionError(f"cost_model: ranking launched kernels: {moved}")
+    if out["cost_guided"]["trials"] != 1 + COST_TOP_K:
+        raise AssertionError(f"cost_model: CostGuidedSearch measured "
+                             f"{out['cost_guided']['trials']} trials, not 1 + {COST_TOP_K}")
+    out["winners_agree"] = out["cost_guided"]["winner"] == out["default"]["winner"]
+    return out
+
+
+def phase_cost_model(torch, train: dict) -> dict:
+    """The cost model and the one-card dry-run (``repro_torch.launch.dryrun``,
+    ``launch/graph_cost.py``) at full width: (a) the dry-run's records of
+    llama3.2-1b's reference cells (``long_500k`` skipped by the
+    reference's rule), no kernel launched by their traces; (b) the
+    roofline as a lower bound, like for like: a B=8 decode step with every
+    slot at full context (1024) against its CUDA-graph replay's device time,
+    and phase 19's B=8, S=512 train step against that phase's profiled
+    device ms, each ``roofline_s`` no more than the measured time, with the
+    train step's estimated peak beside phase 19's measured one; (c)
+    ``CostGuidedSearch(top_k=2)`` with the default roofline through
+    ``plan_zoo`` on llama3.2-1b's decode bindings, exactly the baseline and
+    two trials measured, no kernel launched while ranking, its winner and
+    seconds beside the zoo's default strategy's."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    t_phase = time.perf_counter()
+    _free_dead_engines(torch)
+    arch = "llama3.2-1b"
+    cfg = get_config(arch)
+    cells = []
+    for name in SHAPES:
+        rec = _unlaunched(torch, f"the {name} trace",
+                          lambda: dryrun.run_cell(arch, name, device="cuda"))
+        want = "skipped" if name == "long_500k" else "ok"
+        if rec["status"] != want:
+            raise AssertionError(f"cost_model: {arch} x {name}: {rec['status']} "
+                                 f"{rec.get('error')}")
+        cells.append(_record(rec))
+        emit({"phase": "cost_model_cell", **_record(rec)})
+
+    decode = _cost_decode(torch, cfg, ShapeConfig(*COST_DECODE_SHAPE))
+    train_rec = _unlaunched(torch, "the train cell's trace", lambda: dryrun.run_cell(
+        arch, ShapeConfig(*COST_TRAIN_SHAPE), overrides={"microbatch": 1}, device="cuda"))
+    if train_rec["status"] != "ok":
+        raise AssertionError(f"cost_model: train cell: {train_rec.get('error')}")
+    train_ms = train["profiled_step"]["device_ms"]
+    bound = {
+        "decode": decode,
+        "train": {"record": _record(train_rec), "measured_device_ms": train_ms,
+                  "roofline_ms": train_rec["roofline_s"] * 1e3,
+                  "ratio": train_rec["roofline_s"] * 1e3 / train_ms,
+                  "peak_bytes_estimated": train_rec["peak_bytes_per_device"],
+                  "peak_bytes_measured": train["peak_memory_gb"] * 1e9},
+    }
+    over = {k: v["ratio"] for k, v in bound.items() if not v["ratio"] <= 1.0}
+    if over:
+        raise AssertionError(f"cost_model: roofline above the measured device time: {over}")
+    out = {"phase": "cost_model", "cells": [(c["shape"], c["status"], c.get("fits_device"),
+                                             c.get("roofline_s")) for c in cells],
+           "lower_bound": bound, "search": _cost_search(torch),
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def phase_main_path_train(torch) -> dict:
     """The train path: full llama3.2-1b (16 layers, d 2048, vocab 128256;
     f32 master weights and moments, bf16 compute, full remat) for
@@ -2997,6 +3196,9 @@ def main() -> int:
     phase_metering(torch)
     # static analysis: envelopes, capacity, lint, estimates, pre-filters, preflight
     phase_analysis(torch)
+    # the cost model and the dry-run: records, the roofline as a lower
+    # bound, the cost-guided search
+    phase_cost_model(torch, train)
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],

@@ -49,6 +49,14 @@ parent, each in a process of its own:
     python3 scripts/ab_parent_change.py main_path|main_path_ssm|main_path_hybrid|prefill|prefill_ssm|served_recurring|ssd_kernels|flash_kernels|paged_kernels|offload_kernels|norm_kernels|flash_bwd_kernels|norm_bwd_kernels|train_step
         [build/parent]
 
+``paged_kernels``, ``norm_kernels``, ``flash_bwd_kernels`` and
+``norm_bwd_kernels`` run this tree's cases against the other version's
+``src/``: the cases read each kernel's declared work (``paged_work``,
+``norm_work``, ``flash_bwd_work``, ``norm_bwd_work``) and the card's peaks
+(``repro_torch.launch.mesh``) from that version, so these four modes need
+a version in which the kernels declare their work (``kernels/build.py``'s
+``Work``); an older one fails with ImportError or AttributeError.
+
 Prints one JSON line per measurement with its version, with the step
 programs' ``graphs`` (captures, replays) and ``peak_memory_gb`` where the
 version has them.  Compare versions

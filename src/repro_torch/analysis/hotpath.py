@@ -46,7 +46,6 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 from torch._subclasses.fake_tensor import FakeTensor, FakeTensorMode
-from torch.fx.experimental.symbolic_shapes import ShapeEnv
 from torch.utils._pytree import tree_leaves, tree_map
 
 from repro_torch.analysis import features as features_mod
@@ -84,13 +83,6 @@ def _leaf_struct(leaf: Any) -> Any:
     if isinstance(leaf, np.ndarray):
         return Struct(leaf.shape, torch.from_numpy(np.empty(0, leaf.dtype)).dtype)
     return leaf
-
-
-def _fake_mode() -> FakeTensorMode:
-    """A fake mode for a lint's trace: static shapes, and a shape
-    environment, so a host read (``.item()``) traces as an unbacked value
-    instead of failing."""
-    return FakeTensorMode(allow_non_fake_inputs=True, shape_env=ShapeEnv(), static_shapes=True)
 
 
 def _tree_bytes(tree: Any) -> int:
@@ -307,7 +299,7 @@ class ProgramSet:
                             "pass an array to pin its dtype"
                         ),
                     ))
-        mode = _fake_mode()
+        mode = graph_analysis.fake_mode()
         try:
             args = self._fake(structs, mode)
             fn, fn_args = (rec.trace(args, kwargs) if rec.trace is not None
@@ -381,7 +373,7 @@ class ProgramSet:
         aten ops and the kernels its trace stood in for)."""
         rec = self.records[name]
         structs, kwargs = next(iter(rec.signatures.values()))
-        mode = _fake_mode()
+        mode = graph_analysis.fake_mode()
         args = self._fake(structs, mode)
         fn, fn_args = (rec.trace(args, kwargs) if rec.trace is not None
                        else (functools.partial(rec.fn, **kwargs), args))

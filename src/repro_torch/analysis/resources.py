@@ -175,6 +175,13 @@ def estimate_memory(
     port's engine writes it, needs no credit: in-place ops add no bytes.)
     """
     gm, _ = graph_analysis.trace(fn, *example_args)
+    return graph_memory(gm, example_args, donate_argnums)
+
+
+def graph_memory(gm: Any, example_args: tuple = (),
+                 donate_argnums: tuple[int, ...] = ()) -> MemoryEstimate:
+    """:func:`estimate_memory` of a program already traced into ``gm`` (from
+    ``example_args``)."""
     operand_bytes = sum(tensor_bytes(n.meta.get("val")) for n in gm.graph.nodes
                         if n.op == "placeholder")
     output_bytes = sum(tensor_bytes(v) for v in output_values(gm))

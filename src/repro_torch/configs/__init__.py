@@ -1,11 +1,12 @@
 """Architecture registry of the port: the reference's ten architectures
-(``repro/configs/__init__.py``), each config a copy of the reference's."""
+(``repro/configs/__init__.py``), each config a copy of the reference's,
+and the reference's four evaluation shapes with its cell rule."""
 
 from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import ArchConfig  # noqa: F401
+from repro_torch.configs.base import SHAPES, ArchConfig, ShapeConfig  # noqa: F401
 
 _MODULES = {
     "stablelm-1.6b": "repro_torch.configs.stablelm_1_6b",
@@ -31,3 +32,22 @@ def get_config(name: str) -> ArchConfig:
     if key not in _MODULES:
         raise KeyError(f"unknown arch '{name}'; known: {sorted(_MODULES)}")
     return importlib.import_module(_MODULES[key]).CONFIG
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+def cells(include_long_for_quadratic: bool = False):
+    """All (arch, shape) evaluation cells, honouring the long_500k skip rule
+    for pure full-attention architectures."""
+    out = []
+    for a in ARCH_NAMES:
+        cfg = get_config(a)
+        for s in SHAPES.values():
+            if s.name == "long_500k" and not (
+                cfg.subquadratic or include_long_for_quadratic
+            ):
+                continue
+            out.append((a, s.name))
+    return out

@@ -23,6 +23,7 @@ from repro_torch.core.interface import (  # noqa: F401
     match_interfaces,
 )
 from repro_torch.core.planner import (  # noqa: F401
+    CostGuidedSearch,
     ExhaustiveSearch,
     GeneticSearch,
     MeasurementCache,

@@ -213,6 +213,17 @@ def _attach_frames(gm: Any, ops: list[tuple[str, tuple[int, ...]]]) -> None:
             node.meta["frames"] = getattr(node.args[0], "meta", {}).get("frames", ())
 
 
+def fake_mode() -> Any:
+    """A fake mode for a trace: static shapes (the sizes in a trace stay
+    ints; the card's torch otherwise makes them symbolic), and a shape
+    environment, so a host read (``.item()``) traces as an unbacked value
+    instead of failing."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.fx.experimental.symbolic_shapes import ShapeEnv
+
+    return FakeTensorMode(allow_non_fake_inputs=True, shape_env=ShapeEnv(), static_shapes=True)
+
+
 def trace(fn: Callable[..., Any], *example_args: Any) -> tuple[Any, tuple[str, ...]]:
     """``fn`` traced under fake tensors: (its FX graph module, the kernels
     the trace stood in for).  ``example_args`` may be real tensors (on any
@@ -220,6 +231,13 @@ def trace(fn: Callable[..., Any], *example_args: Any) -> tuple[Any, tuple[str, .
     fake tensors, or pytrees of them; nothing runs and no memory is
     taken.  Each call node's ``meta["frames"]`` names the Python frames
     its op ran under (:class:`_FrameRecorder`)."""
+    gm, kernels = trace_with_work(fn, *example_args)
+    return gm, tuple(name for name, _ in kernels)
+
+
+def trace_with_work(fn: Callable[..., Any], *example_args: Any) -> tuple[Any, list]:
+    """:func:`trace`, each kernel the trace stood in for as ``(name,
+    build.Work)``: the work its wrapper declared."""
     from torch.fx.experimental.proxy_tensor import make_fx
 
     from repro_torch.kernels import build
@@ -230,10 +248,10 @@ def trace(fn: Callable[..., Any], *example_args: Any) -> tuple[Any, tuple[str, .
         with recorder:
             return fn(*args)
 
-    with build.collect_traced() as kernels:
+    with build.collect_work() as kernels:
         gm = make_fx(recorded, tracing_mode="fake", _allow_non_fake_inputs=True)(*example_args)
     _attach_frames(gm, recorder.ops)
-    return gm, tuple(kernels)
+    return gm, list(kernels)
 
 
 def trace_report(fn: Callable[..., Any], *example_args: Any) -> GraphReport:

@@ -14,11 +14,15 @@ Winner selection goes through a pluggable ``Objective``
   GeneticSearch       the prior-work loop-offload GA (paper §3.2, refs
                       [32][33]), now working over arbitrary axis
                       cardinalities (n-ary genome: gene = choice index).
+  CostGuidedSearch    rank candidates by a static cost model (the roofline
+                      of a fake trace by default, ``planner.cost``) and
+                      measure only the top-k — the FPGA pre-filter the
+                      paper motivates with hours-long compilations.
   ExhaustiveSearch    measure a listed (or fully enumerated) candidate set.
 
-The reference's ``CostGuidedSearch`` and ``GeneticSearch(seed_from_cost=
-True)`` rank candidates with an HLO roofline model of jitted JAX programs;
-both wait for a cost model of this port.
+``GeneticSearch(seed_from_cost=True)`` seeds its first generation from the
+same ranking.  The static pre-filters (legality, resources) run first: a
+pruned candidate is never traced.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from __future__ import annotations
 import dataclasses
 import random
 import time
-from typing import Any, Iterable, Sequence
+import warnings
+from typing import Any, Callable, Iterable, Sequence
 
 from repro_torch.core import verify
 from repro_torch.core.planner.cache import MeasurementCache
@@ -86,6 +91,39 @@ def to_verification_report(report: PlanReport) -> verify.VerificationReport:
         best=best,
         search_seconds=report.search_seconds,
     )
+
+
+def rank_candidates_by_cost(
+    space: SearchSpace,
+    args: Sequence[Any],
+    cost_fn: Callable[[SearchSpace, Candidate, Sequence[Any]], float]
+    | None = None,
+    skip: Callable[[Candidate], bool] | None = None,
+) -> list[tuple[float, Candidate]]:
+    """Every non-baseline candidate with its static cost estimate, sorted
+    cheapest first.  Unrankable candidates (cost_fn raised) estimate as
+    inf and sort last; callers detect a fully failed model by checking
+    ``all(est == inf)``.  ``cost_fn`` defaults to the roofline of a fake
+    trace.  ``skip`` drops candidates before the (tracing) cost model runs
+    — the legality pre-filter seam, so illegal bindings cost nothing."""
+    if cost_fn is None:
+        from repro_torch.core.planner.cost import make_roofline_cost_fn
+
+        cost_fn = make_roofline_cost_fn()
+    baseline = space.baseline()
+    ranked: list[tuple[float, Candidate]] = []
+    for cand in space.enumerate():
+        if cand == baseline:
+            continue
+        if skip is not None and skip(cand):
+            continue
+        try:
+            est = float(cost_fn(space, cand, args))
+        except Exception:  # noqa: BLE001 — unrankable candidate
+            est = float("inf")
+        ranked.append((est, cand))
+    ranked.sort(key=lambda rc: rc[0])
+    return ranked
 
 
 class SearchStrategy:
@@ -297,6 +335,12 @@ class GeneticSearch(SearchStrategy):
     crossover and per-gene mutation (prior work, paper §3.2).  Genes index
     into each axis's choice list, so the genome is binary on a SubsetSpace
     and n-ary on spaces with more choices per axis.
+
+    With ``seed_from_cost=True`` the initial population is not uniform
+    random: candidates are ranked by a static cost model (the roofline by
+    default, the ranking CostGuidedSearch measures the top of) and the
+    cheapest ones seed generation zero, so the GA starts from the cost
+    model's belief instead of noise.
     """
 
     name = "genetic"
@@ -309,6 +353,10 @@ class GeneticSearch(SearchStrategy):
         elite: int = 2,
         tournament: int = 3,
         seed: int = 0,
+        seed_from_cost: bool = False,
+        cost_fn: Callable[[SearchSpace, Candidate, Sequence[Any]], float]
+        | None = None,
+        max_enumeration: int = 1024,
     ) -> None:
         self.population = population
         self.generations = generations
@@ -316,6 +364,35 @@ class GeneticSearch(SearchStrategy):
         self.elite = elite
         self.tournament = tournament
         self.seed = seed
+        self.seed_from_cost = seed_from_cost
+        self.cost_fn = cost_fn
+        self.max_enumeration = max_enumeration
+
+    def _cost_seeded(
+        self, space: SearchSpace, args: Sequence[Any], skip: Callable[[Candidate], bool]
+    ) -> list[Candidate]:
+        """Initial genomes from the static cost ranking (cheapest first),
+        or [] when the space is too large / no candidate is rankable."""
+        if space.size() > self.max_enumeration:
+            warnings.warn(
+                f"seed_from_cost: space has {space.size()} candidates "
+                f"(> max_enumeration={self.max_enumeration}); seeding "
+                "randomly instead",
+                stacklevel=2,
+            )
+            return []
+        ranked = rank_candidates_by_cost(space, args, self.cost_fn, skip=skip)
+        if not ranked or all(est == float("inf") for est, _ in ranked):
+            warnings.warn(
+                "seed_from_cost: cost model failed on every candidate; "
+                "seeding randomly instead",
+                stacklevel=2,
+            )
+            return []
+        # baseline always participates so the GA can report "don't offload"
+        seeds = [space.baseline()]
+        seeds.extend(c for _, c in ranked[: max(self.population - 1, 1)])
+        return seeds[: self.population]
 
     def _mutate_gene(
         self, rng: random.Random, axis_card: int, gene: int
@@ -352,6 +429,8 @@ class GeneticSearch(SearchStrategy):
             return run.score_of(cand)
 
         pop: list[Candidate] = []
+        if self.seed_from_cost:
+            pop = self._cost_seeded(space, args, run.is_pruned)
         guard = 0
         while len(pop) < self.population and guard < self.population * 50:
             g = tuple(rng.randrange(c) for c in cards)
@@ -445,4 +524,66 @@ class ExhaustiveSearch(SearchStrategy):
         if self.include_baseline:
             run.measure(space.baseline())
         run.measure_many(run.prune(cands))
+        return run.report(self.name)
+
+
+class CostGuidedSearch(SearchStrategy):
+    """Rank candidates by a static cost model, measure only the top-k.
+
+    The paper motivates this for FPGA: a single candidate compilation takes
+    hours, so candidates are narrowed by arithmetic intensity *before* any
+    measurement.  ``cost_fn(space, candidate, args) -> estimated seconds``
+    defaults to the roofline of the candidate's fake trace
+    (``planner.cost``: nothing is launched); candidates whose cost cannot be
+    estimated rank last, and if no candidate can be ranked the strategy
+    degrades to exhaustive measurement with a warning.
+    """
+
+    name = "cost_guided"
+
+    def __init__(
+        self,
+        top_k: int = 4,
+        cost_fn: Callable[[SearchSpace, Candidate, Sequence[Any]], float]
+        | None = None,
+        max_enumeration: int = 1024,
+    ) -> None:
+        self.top_k = top_k
+        self.cost_fn = cost_fn
+        self.max_enumeration = max_enumeration
+
+    def search(
+        self,
+        space: SearchSpace,
+        args: Sequence[Any],
+        cache: MeasurementCache | None = None,
+        repeats: int = 3,
+        min_seconds: float = 0.0,
+        objective: Objective | str | None = None,
+    ) -> PlanReport:
+        cache = MeasurementCache() if cache is None else cache
+        run = _Run(space, args, cache, repeats, min_seconds, objective)
+
+        if space.size() > self.max_enumeration:
+            raise ValueError(
+                f"space has {space.size()} candidates; CostGuidedSearch "
+                f"enumerates the space — raise max_enumeration or shrink it"
+            )
+        # legality-pruned candidates are skipped before the cost model even
+        # traces them: an illegal binding may not trace at all
+        ranked = rank_candidates_by_cost(
+            space, args, self.cost_fn, skip=run.is_pruned
+        )
+
+        run.measure(space.baseline())
+        if ranked and all(est == float("inf") for est, _ in ranked):
+            warnings.warn(
+                "CostGuidedSearch: cost model failed on every candidate; "
+                "falling back to exhaustive measurement",
+                stacklevel=2,
+            )
+            chosen = [cand for _, cand in ranked]
+        else:
+            chosen = [cand for _, cand in ranked[: max(self.top_k, 1)]]
+        run.measure_many(chosen)
         return run.report(self.name)

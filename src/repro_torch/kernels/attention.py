@@ -55,6 +55,42 @@ def flash_attention_torch(
     return o.reshape(b, h, sq, v.shape[-1]).to(q.dtype)
 
 
+def causal_pairs(sq: int, skv: int, causal: bool = True) -> int:
+    """The (query, key) pairs a head attends: under the kernels'
+    start-aligned causal mask, query i sees keys 0..i."""
+    if not causal:
+        return sq * skv
+    if sq <= skv:
+        return sq * (sq + 1) // 2
+    return skv * (skv + 1) // 2 + (sq - skv) * skv
+
+
+def flash_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               causal: bool = True) -> build.Work:
+    """The forward's work: q, k and v read once, the (B, H, Sq, Dv) output
+    written once; q.k over Dqk and p.v over Dv for each attended pair (the
+    causal half), at the operands' peak."""
+    b, h, sq, d = q.shape
+    skv, dv = k.shape[2], v.shape[-1]
+    nbytes = q.element_size() * (q.numel() + k.numel() + v.numel() + b * h * sq * dv)
+    flops = 2 * (d + dv) * b * h * causal_pairs(sq, skv, causal)
+    return build.Work(flops, nbytes, build.peak_of(q.dtype))
+
+
+def flash_bwd_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                   causal: bool = True) -> build.Work:
+    """The backward's work: q, k, v, out, do (each of out's shape) and the
+    f32 lse read once, dq, dk, dv written once; five products over the
+    attended pairs: S and dK, dQ over Dqk, dP and dV over Dv."""
+    b, h, sq, d = q.shape
+    skv, dv = k.shape[2], v.shape[-1]
+    e = q.element_size()
+    out = b * h * sq * dv
+    nbytes = e * (2 * q.numel() + 2 * k.numel() + 2 * v.numel() + 2 * out) + 4 * b * h * sq
+    flops = 2 * b * h * causal_pairs(sq, skv, causal) * (3 * d + 2 * dv)
+    return build.Work(flops, nbytes, build.peak_of(q.dtype))
+
+
 def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel's route for these operands: bf16 with D == Dv <= 128,
     D % 8 == 0 and 16-byte aligned operands (what TMA loads) runs on
@@ -88,7 +124,7 @@ def _flash_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     if out.numel() == 0 or skv == 0:
         return out, lse
     route = flash_route(q, k, v)
-    if build.skip_launch("flash_attention", q):
+    if build.skip_launch("flash_attention", q, work=lambda: flash_work(q, k, v, causal)):
         return out, lse
     build.launch(
         "repro_flash_attention",
@@ -221,7 +257,8 @@ def _flash_attention_bwd_cuda(q, k, v, out, lse, do, causal):
         if route == "wgmma":  # the delta pass's rows: (lse, delta) of each query
             ws = torch.empty(bwd_workspace_shape(b, h, sq), dtype=torch.float32,
                              device=q.device)
-        if build.skip_launch("flash_attention_bwd", q):
+        if build.skip_launch("flash_attention_bwd", q,
+                             work=lambda: flash_bwd_work(q, k, v, causal)):
             return dq, dk, dvv
         build.launch(
             "repro_flash_attention_bwd",

@@ -16,13 +16,18 @@ reach :func:`launch` (on the card that would run a kernel on bogus
 pointers; without one, build with ``nvcc``).  Each wrapper runs its own
 checks, allocates its outputs and workspace, and then asks
 :func:`skip_launch`, which notes the kernel in :data:`traced` (never in the
-launch counters) and tells it to return them unlaunched.
+launch counters) and tells it to return them unlaunched.  Each wrapper
+declares there the work its kernel would do (:class:`Work`: FLOPs and the
+bytes it must move, from its own formula in the kernel's module, the one
+``chip_smoke.py`` phase 2 takes its bounds from): a trace counts no aten op
+for a kernel, so the cost model (``launch/graph_cost.py``) reads this.
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 import functools
 import hashlib
 import os
@@ -33,6 +38,7 @@ import threading
 import time
 from collections import Counter
 from pathlib import Path
+from typing import Callable
 
 import torch
 from torch._subclasses.fake_tensor import FakeTensor
@@ -93,9 +99,9 @@ build_info: dict = {}
 #: the abstract calls of each kernel (:func:`skip_launch`), by the name of
 #: its wrapper in ``kernels.KERNELS``: a trace's stand-ins, never launches
 traced: Counter = Counter()
-#: the lists :func:`collect_traced` is filling (any thread: autograd may
+#: the lists :func:`collect_work` is filling (any thread: autograd may
 #: trace a backward on a thread of its own)
-_collecting: list[list[str]] = []
+_collecting: list[list] = []
 #: the SMs of the card the kernels are written for (an H100 SXM): the
 #: launch plan of an abstract call on a host without a card
 H100_SMS = 132
@@ -204,31 +210,55 @@ def is_abstract(*tensors: "torch.Tensor | None") -> bool:
     return any(isinstance(t, FakeTensor) for t in tensors)
 
 
-def skip_launch(name: str, *tensors: "torch.Tensor | None") -> bool:
+@dataclasses.dataclass(frozen=True)
+class Work:
+    """What one kernel call must do, whatever its design: the FLOPs of the
+    function it computes, counted once; the bytes it must move, each input
+    read once and each output written once; the peak its FLOPs run at
+    (``"bfloat16"``, ``"tf32"``, ``"float32"``: the keys of
+    ``launch.mesh.HW.peak_flops``); and the tensor-core passes a product
+    takes (3 for 3xTF32), which the roofline multiplies in."""
+
+    flops: int
+    bytes: int
+    peak: str
+    passes: int = 1
+
+
+def peak_of(dtype: torch.dtype) -> str:
+    """The peak a kernel's FLOPs on ``dtype`` operands run at."""
+    return "bfloat16" if dtype in (torch.bfloat16, torch.float16) else "float32"
+
+
+def skip_launch(name: str, *tensors: "torch.Tensor | None",
+                work: "Callable[[], Work]") -> bool:
     """The abstract path's test, just before a launch: True (and ``name``
-    noted as traced) when the operands are abstract, so the wrapper
-    returns its outputs without building or launching anything."""
+    noted as traced, with ``work()``, the call's declared :class:`Work`)
+    when the operands are abstract, so the wrapper returns its outputs
+    without building or launching anything.  ``work`` is called only then:
+    a launch pays nothing for it."""
     if not is_abstract(*tensors):
         return False
+    declared = work()
     with _lock:
         traced[name] += 1
-        for names in _collecting:
-            names.append(name)
+        for out in _collecting:
+            out.append((name, declared))
     return True
 
 
 @contextlib.contextmanager
-def collect_traced():
+def collect_work():
     """The kernels the abstract calls in this scope stood in for, in call
-    order (a list filled as they are noted)."""
-    names: list[str] = []
+    order: a list of ``(name, Work)`` filled as they are noted."""
+    out: list = []
     with _lock:
-        _collecting.append(names)
+        _collecting.append(out)
     try:
-        yield names
+        yield out
     finally:
-        with _lock:
-            _collecting.remove(names)
+        with _lock:  # by identity: two lists may hold the same entries
+            del _collecting[next(i for i, e in enumerate(_collecting) if e is out)]
 
 
 def aligned(t: torch.Tensor) -> bool:

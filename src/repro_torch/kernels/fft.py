@@ -45,6 +45,13 @@ def complex_matmul_torch(ar, ai, br, bi, **_blocks) -> tuple[torch.Tensor, torch
     return ar @ br - ai @ bi, ar @ bi + ai @ br
 
 
+def complex_matmul_work(m: int, n: int, k: int) -> build.Work:
+    """(M, K) @ (K, N) complex as f32 planes: the four input planes read
+    once, the two output planes written once; four real products, 8 M N K
+    FLOPs, each product three TF32 passes (3xTF32)."""
+    return build.Work(8 * m * n * k, 4 * (2 * m * k + 2 * k * n + 2 * m * n), "tf32", passes=3)
+
+
 def complex_matmul(
     ar: torch.Tensor,
     ai: torch.Tensor,
@@ -73,7 +80,8 @@ def complex_matmul(
     k4, n4 = br.shape
     out_r = torch.empty((m, n4), dtype=torch.float32, device=ar.device)
     out_i = torch.empty_like(out_r)
-    if m and n and not build.skip_launch("complex_matmul", ar):
+    if m and n and not build.skip_launch("complex_matmul", ar,
+                                         work=lambda: complex_matmul_work(m, n, k)):
         build.launch(
             "repro_complex_matmul", ar.data_ptr(), ai.data_ptr(), br.data_ptr(),
             bi.data_ptr(), out_r.data_ptr(), out_i.data_ptr(), m, n4, k4,

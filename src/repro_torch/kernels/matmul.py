@@ -66,6 +66,17 @@ def tma_operands(
     )
 
 
+def matmul_work(m: int, n: int, k: int) -> build.Work:
+    """(M, K) @ (K, N) in f32: A and B read once, C written once; 2 M N K
+    FLOPs, each product three TF32 passes (3xTF32)."""
+    return build.Work(2 * m * n * k, 4 * (m * k + k * n + m * n), "tf32", passes=3)
+
+
+def schur_work(m: int, n: int, k: int) -> build.Work:
+    """C - A @ B in f32: C, A and B read once, the result written once."""
+    return build.Work(2 * m * n * k, 4 * (2 * m * n + m * k + k * n), "tf32", passes=3)
+
+
 def matmul(
     a: torch.Tensor,
     b: torch.Tensor,
@@ -88,7 +99,7 @@ def matmul(
     (a,), (b,), _ = tma_operands([a], [b])
     k4, n4 = b.shape
     out = torch.empty((m, n4), dtype=torch.float32, device=a.device)
-    if m and n and not build.skip_launch("matmul", a):
+    if m and n and not build.skip_launch("matmul", a, work=lambda: matmul_work(m, n, k)):
         build.launch(
             "repro_matmul", a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n4, k4,
             build.stream_of(a),
@@ -124,7 +135,7 @@ def schur_update(
     (a,), (b,), c = tma_operands([a], [b], c)
     k4, n4 = b.shape
     out = torch.empty_like(c)
-    if m and n and not build.skip_launch("schur_update", c):
+    if m and n and not build.skip_launch("schur_update", c, work=lambda: schur_work(m, n, k)):
         build.launch(
             "repro_schur_update", c.data_ptr(), a.data_ptr(), b.data_ptr(),
             out.data_ptr(), m, n4, k4, build.stream_of(c),

@@ -244,6 +244,45 @@ def sm_count(device: torch.device) -> int:
     return build.sm_count(device)
 
 
+def paged_work(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    pages: torch.Tensor,
+    lengths: "list[int] | None" = None,
+    *,
+    q_rope: torch.Tensor | None = None,
+) -> build.Work:
+    """The kernel's work: q (and q_rope) read once and the (B, H, S, Dv)
+    output written once; the K/V rows of the positions the slots reach read
+    once (a pool that is both keys and values, MLA's latent, once; the
+    rope pool's row beside it), the page table and ``index`` once; q.k,
+    q_rope.k_rope and p.v for each (query row, position) seen, causal
+    within the chunk.
+
+    The work depends on the data: slot b at ``lengths[b]`` reaches
+    ``lengths[b] + S`` positions.  Given concrete ``lengths`` (a host
+    list, as ``chip_smoke.py`` phase 2 has them) it counts the positions
+    seen; without them (a trace: the kernel's wrapper never reads
+    ``index`` on the host) every slot is counted at the full context the
+    page table's width admits, ``max_pages * page_size``."""
+    b, hh, s, dk = q.shape
+    kkh, ps = k_pool.shape[1], k_pool.shape[2]
+    dv = v_pool.shape[-1]
+    dr = 0 if q_rope is None else q_rope.shape[-1]
+    cap = pages.shape[1] * ps
+    if lengths is None:
+        lengths = [cap] * b
+    seen = sum(min(ln + si + 1, cap) for ln in lengths for si in range(s))
+    n_pos = sum(min(ln + s, cap) for ln in lengths)
+    e = q.element_size()
+    per_pos = kkh * (dk if v_pool is k_pool else dk + dv) + dr
+    nbytes = (e * (q.numel() + b * hh * s * dv + (0 if q_rope is None else q_rope.numel()))
+              + e * n_pos * per_pos + 4 * (pages.numel() + b))
+    flops = 2 * kkh * (hh // kkh) * seen * (dk + dv + dr)
+    return build.Work(flops, nbytes, build.peak_of(q.dtype))
+
+
 def paged_attention(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -301,7 +340,8 @@ def paged_attention(
     # each (split, group)'s (B*H*S, Dv) f32 accumulator, then its max / sum
     work = torch.empty(plan.n_splits * WORKSPACE_GROUPS * b * h * s * (dv + 2),
                        dtype=torch.float32, device=q.device)
-    if build.skip_launch("paged_attention", q):
+    if build.skip_launch("paged_attention", q, work=lambda: paged_work(
+            q, k_pool, v_pool, pages, q_rope=q_rope)):
         return out
     build.launch(
         "repro_paged_attention",

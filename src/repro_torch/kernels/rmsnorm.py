@@ -178,11 +178,39 @@ def _strides4(t: torch.Tensor) -> tuple[int, ...]:
     return tuple(st if n > 1 else 0 for n, st in zip(t.shape, t.stride()))
 
 
+def norm_work(form: str, x: torch.Tensor, w: torch.Tensor,
+              d_skip: torch.Tensor | None = None) -> build.Work:
+    """The forward kernel's work over ``x``'s rows of w's width (x in the
+    output's type; the gated form's ``z``): plain reads x and writes y; add
+    reads x and delta and writes s and y; gated reads the f32 y, x and z
+    and writes the output, and reads d_skip.  Each reads w.  FLOPs per
+    element: 4 (square, sum, scale, weight), 5 with the add, 12 gated."""
+    d = w.shape[0]
+    n = x.numel()
+    e = x.element_size()
+    wb = w.element_size() * d
+    if form == "plain":
+        return build.Work(4 * n, 2 * n * e + wb, build.peak_of(x.dtype))
+    if form == "add":
+        return build.Work(5 * n, 4 * n * e + wb, build.peak_of(x.dtype))
+    sb = d_skip.element_size() * d_skip.numel()
+    return build.Work(12 * n, n * (4 + 3 * e) + wb + sb, build.peak_of(x.dtype))
+
+
+def norm_bwd_work(x: torch.Tensor, w: torch.Tensor, add: bool = False) -> build.Work:
+    """The backward kernel's work: x, dy (and the add form's ds) read and dx
+    written in x's type, w read and dw written; 12 f32 FLOPs an element."""
+    n = x.numel()
+    n_in = 3 if add else 2
+    return build.Work(12 * n, (n_in + 1) * n * x.element_size() + 2 * w.element_size() * w.shape[0],
+                      "float32")
+
+
 def _launch(form: str, out: torch.Tensor, w: torch.Tensor, rows: int, seq: int, d: int,
             head_dim: int, eps: float, operands, *, skip=None, s_out=None) -> None:
     """``operands``: up to three (tensor, strides4) pairs, the C entry
     point's a, b, c.  The kernel picks its vector path itself."""
-    if build.skip_launch("rmsnorm", out):
+    if build.skip_launch("rmsnorm", out, work=lambda: norm_work(form, out, w, skip)):
         return
     plan = norm_plan(d)
     ops = list(operands) + [(None, (0, 0, 0, 0))] * (3 - len(operands))
@@ -359,7 +387,7 @@ def _rmsnorm_bwd_cuda(x, dy, w, eps, ds):
     plan = bwd_plan(rows, d, _sm_count(x.device), x.element_size(), ds is not None)
     partial = torch.empty((plan.ctas, d), dtype=torch.float32, device=x.device)
     form = "plain" if ds is None else "add"
-    if build.skip_launch("rmsnorm_bwd", x):
+    if build.skip_launch("rmsnorm_bwd", x, work=lambda: norm_bwd_work(x, w, ds is not None)):
         return dx, dw
     build.launch(
         "repro_rmsnorm_bwd", x.data_ptr(), dy.data_ptr(), None if ds is None else ds.data_ptr(),

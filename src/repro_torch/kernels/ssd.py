@@ -89,6 +89,22 @@ def _check_rows(name: str, t: torch.Tensor, inner: int) -> None:
         raise ValueError(f"ssd_chunks: {name}'s trailing dims must be contiguous")
 
 
+def ssd_work(x: torch.Tensor, n: int, chunk: int) -> build.Work:
+    """The chunk kernel's work at x (B, S, H, P) and B/C of width ``n``:
+    x, B and C read once in x's type, the f32 dt and a once, the four f32
+    outputs (y, the chunks' states, cumdecay, totals) written once; FLOPs:
+    the L(L+1)/2 entries of C B^T (N products each) once per (batch,
+    chunk), and per head those of W x (P each) and the state product."""
+    b, s, h, p = x.shape
+    nc = s // chunk
+    e = x.element_size()
+    nbytes = (e * (x.numel() + 2 * b * s * n) + 4 * (b * s * h + h)
+              + 4 * (x.numel() + b * nc * h * n * p + b * s * h + b * nc * h))
+    tri = chunk * (chunk + 1)  # twice the triangle's entries: 2 flops a product
+    flops = b * nc * (tri * n + h * (tri * p + 2 * chunk * n * p))
+    return build.Work(flops, nbytes, build.peak_of(x.dtype))
+
+
 def ssd_chunks(x, dt, a, bmat, cmat, *, chunk: int = 128):
     """x (B, S, H, P) f32/bf16, dt (B, S, H) f32, a (H,), B/C (B, S, N) in
     x's dtype -> (y_intra, states, cumdecay, totals), all f32.  bf16
@@ -112,6 +128,7 @@ def ssd_chunks(x, dt, a, bmat, cmat, *, chunk: int = 128):
     if bmat.shape != (b, s, n) or cmat.shape != (b, s, n) or dt.shape != (b, s, h):
         raise ValueError("ssd_chunks: dt (B,S,H), B/C (B,S,N) must match x (B,S,H,P)")
     nc = s // chunk
+    work = ssd_work(x, n, chunk) if build.is_abstract(x) else None  # before any padding
     f32 = dict(dtype=torch.float32, device=x.device)
     cumdecay = torch.empty((b, s, h), **f32)
     totals = torch.empty((b, nc, h), **f32)
@@ -123,7 +140,7 @@ def ssd_chunks(x, dt, a, bmat, cmat, *, chunk: int = 128):
     pp, nn = x.shape[-1], bmat.shape[-1]
     y = torch.empty((b, s, h, pp), **f32)
     states = torch.empty((b, nc, h, nn, pp), **f32)
-    if y.numel() and not build.skip_launch("ssd_chunks", x):
+    if y.numel() and not build.skip_launch("ssd_chunks", x, work=lambda: work):
         build.launch(
             "repro_ssd_chunks", x.data_ptr(), dt.data_ptr(), a.data_ptr(),
             bmat.data_ptr(), cmat.data_ptr(), y.data_ptr(), states.data_ptr(),

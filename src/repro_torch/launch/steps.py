@@ -1,7 +1,14 @@
-"""Step builders of the trainer (the port of ``repro/launch/steps.py``'s
-``TrainHyper`` and ``make_train_step``; the serving steps are the engine's
-own programs, and ``input_specs`` / ``abstract_*`` wait for the dry-run,
-ROADMAP A13).
+"""Step builders shared by the trainer and the dry-run (the port of
+``repro/launch/steps.py``).
+
+``input_specs``, ``abstract_state`` and ``abstract_cache`` build a cell's
+inputs as fake tensors (the counterpart of the reference's
+``ShapeDtypeStruct`` trees): every shape and dtype of the real ones, no
+memory taken, so the dry-run (``launch/dryrun.py``) traces the exact
+train, prefill and decode programs at any size.  ``make_prefill_step``
+and ``make_decode_step`` are the dry-run's serving steps, the reference's
+pure functions over a contiguous cache; the engine serves through its own
+step programs (``serve/programs.py``).
 
 The train step takes the loss's gradient with ``torch.autograd`` through
 the model's function blocks: on the card the CUDA kernels of flash
@@ -17,8 +24,10 @@ from typing import Any
 
 import torch
 
-from repro_torch.configs.base import ArchConfig
+from repro_torch.configs.base import ArchConfig, ShapeConfig
+from repro_torch.core import graph_analysis
 from repro_torch.models import lm
+from repro_torch.models import params as pm
 from repro_torch.models.params import torch_dtype
 from repro_torch.optim.adamw import AdamW, OptState, tree_leaves
 from repro_torch.optim.schedule import warmup_cosine
@@ -30,6 +39,75 @@ class TrainHyper:
     warmup_steps: int = 100
     total_steps: int = 10000
     microbatch: int | None = None  # grad-accumulation chunks of the batch
+
+
+# -- abstract inputs (the dry-run contract) ---------------------------------------------
+
+
+def _empty_tree(metas: Any, mode: Any, device: Any) -> Any:
+    with mode:
+        return pm.tree_map_metas(
+            lambda m: torch.empty(m.shape, dtype=torch_dtype(m.dtype), device=device), metas
+        )
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig, *, mode: Any = None,
+                device: Any = "cpu") -> dict[str, Any]:
+    """Fake stand-ins (in ``mode``, on ``device``) for every model input of
+    this cell."""
+    mode = mode or graph_analysis.fake_mode()
+    b, s = shape.global_batch, shape.seq_len
+    with mode:
+        tok = lambda bb, ss: torch.empty((bb, ss), dtype=torch.int32, device=device)  # noqa: E731
+        embeds = lambda: torch.empty((b, s, cfg.d_model),  # noqa: E731
+                                     dtype=torch_dtype(cfg.compute_dtype), device=device)
+        if shape.kind == "train":
+            if cfg.frontend == "patch_embed":
+                return {"embeds": embeds(), "labels": tok(b, s)}
+            return {"tokens": tok(b, s), "labels": tok(b, s)}
+        if shape.kind == "prefill":
+            if cfg.frontend == "patch_embed":
+                return {"embeds": embeds()}
+            return {"tokens": tok(b, s)}
+        # decode: one new token; the seq_len lives in the cache
+        return {"tokens": tok(b, 1)}
+
+
+def abstract_state(cfg: ArchConfig, opt: AdamW | None = None, *, mode: Any = None,
+                   device: Any = "cpu"):
+    """(params, opt_state) as fake tensors (opt_state None without ``opt``)."""
+    mode = mode or graph_analysis.fake_mode()
+    metas = lm.build_metas(cfg)
+    params = _empty_tree(metas, mode, device)
+    if opt is None:
+        return params, None
+    mdt = torch_dtype(opt.moment_dtype)
+    with mode:
+        mom = lambda: pm.tree_map_metas(  # noqa: E731
+            lambda m: torch.empty(m.shape, dtype=mdt, device=device), metas)
+        state = OptState(mu=mom(), nu=mom(),
+                         step=torch.empty((), dtype=torch.int32, device=device))
+    return params, state
+
+
+def abstract_cache(cfg: ArchConfig, shape: ShapeConfig, page_size: int | None = None,
+                   n_pages: int | None = None, *, mode: Any = None, device: Any = "cpu"):
+    """The cell's KV cache as fake tensors — contiguous, or block-paged when
+    ``page_size`` / ``n_pages`` are given, with the ``pages`` page table
+    ((B, max_pages) int32) the paged decode reads through."""
+    mode = mode or graph_analysis.fake_mode()
+    metas = lm.cache_metas_tree(cfg, shape.global_batch, shape.seq_len,
+                                page_size=page_size, n_pages=n_pages)
+    tree = _empty_tree(metas, mode, device)
+    if page_size is not None:
+        max_pages = -(-shape.seq_len // page_size)
+        with mode:
+            tree["pages"] = torch.empty((shape.global_batch, max_pages), dtype=torch.int32,
+                                        device=device)
+    return tree
+
+
+# -- steps --------------------------------------------------------------------------------
 
 
 def make_train_step(cfg: ArchConfig, opt: AdamW, hyper: TrainHyper = TrainHyper()):
@@ -89,3 +167,33 @@ def _unflatten_like(tree: Any, leaves: list) -> Any:
         return next(it)
 
     return build(tree)
+
+
+def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig):
+    """``prefill_step(params, batch) -> (logits (B, V) of the last
+    position, cache)``: a zeroed contiguous cache for the cell, filled by
+    the whole prompt.  Only the final hidden state is projected: the (B, S,
+    V) logits are never made."""
+
+    def prefill_step(params: Any, batch: dict):
+        device = next(iter(batch.values())).device
+        cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, device=device)
+        x, pending, cache, _ = lm._blocks(params, batch, cfg, "prefill", cache)
+        # the last position's rows, dense (the norm kernel takes contiguous rows)
+        last = None if pending is None else pending[:, -1:].contiguous()
+        logits = lm.head(params, x[:, -1:].contiguous(), cfg, last)
+        cache["index"].fill_(shape.seq_len)
+        return logits[:, 0, :], cache
+
+    return prefill_step
+
+
+def make_decode_step(cfg: ArchConfig):
+    """``decode_step(params, cache, batch) -> (logits (B, V), cache)``: one
+    token per row against the cache, which advances in place."""
+
+    def decode_step(params: Any, cache: Any, batch: dict):
+        logits, cache = lm.decode_step(params, batch["tokens"], cfg, cache)
+        return logits[:, 0, :], cache
+
+    return decode_step

@@ -20,7 +20,8 @@ for a patch-embed frontend (pixtral), and for training ``labels`` (B, S).
 Modes: ``train`` (:func:`loss_fn`: the loss, with each MoE layer's Switch
 aux loss summed and weighted by ``moe.aux_loss_coef``; with ``cfg.remat ==
 "full"`` each layer and the head with its cross entropy are checkpointed
-and recomputed in the backward, as the reference's ``jax.checkpoint``),
+and recomputed in the backward, as the reference's ``jax.checkpoint``;
+:data:`REMAT_POLICY` ``"save_moe"`` keeps each MoE block's output),
 ``prefill`` (fill the cache, logits), ``decode`` (one token per row
 against the cache) and ``extend`` (an S-token chunk per row, causal within
 the chunk).  ``cache["index"]`` is per-slot (B,): rows decode at their own
@@ -33,11 +34,18 @@ place and returned, ``cache["index"]`` too (the same tensor, advanced).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
+import threading
 from typing import Any
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 import repro_torch.kernels  # noqa: F401  (registers the function blocks)
 from repro_torch.configs.base import ArchConfig
@@ -66,6 +74,37 @@ from repro_torch.models.ssm import ssm_forward, ssm_metas, ssm_state_metas
 
 
 # -- pattern grouping ------------------------------------------------------------
+
+
+#: Remat policy for the per-layer checkpoint: "none" recomputes everything
+#: (the paper-faithful baseline); "save_moe" keeps what each MoE block
+#: computes so the backward never re-runs the expert forward, the
+#: counterpart of the reference's ``save_only_these_names("moe_out")`` (a
+#: dry-run knob).  The reference's XLA remat saves the block's output and
+#: recomputes only the part of the block its VJP reads; an eager recompute
+#: cannot drop part of a block, so the port saves every op run inside
+#: :func:`_moe_block` and recomputes the rest of the layer: the MoE forward
+#: runs once a layer a step.
+REMAT_POLICY = "none"
+#: depth of MoE blocks the current thread is inside (the policy's region)
+_moe_region = threading.local()
+
+
+@contextlib.contextmanager
+def _moe_block():
+    depth = getattr(_moe_region, "depth", 0)
+    _moe_region.depth = depth + 1
+    try:
+        yield
+    finally:
+        _moe_region.depth = depth
+
+
+def _save_moe_policy(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Save what an MoE block computes, recompute the rest."""
+    if getattr(_moe_region, "depth", 0):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -250,7 +289,10 @@ def _apply_attn_block(lp, x, pending, cfg, positions, cache, index, mode, pages=
     )
     x, ff_in = add_rmsnorm(lp["ln2"], x, attn_out, cfg.norm_eps)
     if "moe" in lp:
-        return (x, *moe_forward(lp["moe"], ff_in.to(cd), cfg, cd))
+        ff_in = ff_in.to(cd)
+        with _moe_block():
+            out, aux = moe_forward(lp["moe"], ff_in, cfg, cd)
+        return x, out, aux
     return x, mlp_forward(lp["mlp"], ff_in.to(cd), cd), None
 
 
@@ -270,20 +312,27 @@ def _apply_mamba_block(lp, x, pending, cfg, cache, mode):
 # -- forward / serve ----------------------------------------------------------------------
 
 
-def _remat(fn, *args):
+def _remat(fn, *args, policy=None):
     """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
-    recomputed in the backward.  The recompute runs under the block
-    bindings in force now: on the card autograd runs the backward on its
-    own device thread, where this thread's bindings (thread-local) are not,
-    and the recompute would otherwise take other targets than the forward
-    did."""
+    recomputed in the backward, but for what a selective ``policy`` saves.
+    The recompute runs under the block bindings in force now: on the card
+    autograd runs the backward on its own device thread, where this
+    thread's bindings (thread-local) are not, and the recompute would
+    otherwise take other targets than the forward did."""
     bound = blocks.registry.current_pattern()
 
     def run(*a):
         with blocks.bind(bound):
             return fn(*a)
 
-    return checkpoint(run, *args, use_reentrant=False)
+    kw = {}
+    if policy is not None:
+        # the saved region writes some of its buffers in place (the MoE
+        # router's scatters): the recompute takes each op's saved output,
+        # written as the forward left it, and runs none of them again
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, policy,
+                                             allow_cache_entry_mutation=True)
+    return checkpoint(run, *args, use_reentrant=False, **kw)
 
 
 def _pool_geometry(cfg: ArchConfig, cache: Any) -> tuple[int, int]:
@@ -330,6 +379,7 @@ def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
         positions = steps[None, :].expand(b, s)
 
     remat = mode == "train" and cfg.remat == "full" and torch.is_grad_enabled()
+    policy = _save_moe_policy if REMAT_POLICY == "save_moe" and cfg.moe else None
     pending = None
     aux = None
     for g in groups_of(cfg):
@@ -347,7 +397,7 @@ def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
                     return _apply_attn_block(lp, x, pending, cfg, positions, lcache, index,
                                              mode, pages, slots, scatter)
             if remat:
-                x, pending, layer_aux = _remat(block, x, pending)
+                x, pending, layer_aux = _remat(block, x, pending, policy=policy)
             else:
                 x, pending, layer_aux = block(x, pending)
             if mode == "train" and layer_aux is not None:
