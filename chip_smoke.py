@@ -198,7 +198,28 @@ JSON line, and any failure raises (exit code != 0):
    ``CostGuidedSearch(top_k=2)`` with the default roofline through
    ``plan_zoo`` on llama3.2-1b's decode bindings (torch, cuda): the
    baseline and two trials measured, nothing launched while ranking, its
-   winner and seconds beside the zoo's default strategy's.
+   winner and seconds beside the zoo's default strategy's;
+25. distributed: (a) a one-rank NCCL group and a (1, 1) ``("data",
+   "model")`` mesh: the parameters, optimizer state and batch placed as
+   ``DTensor``s (``shard_params``), the train step under ``use_sharding``
+   with ``grad_shardings``, under both settings (``DTensor`` propagation;
+   ``BF16_TP_REDUCE`` and ``MEGATRON_MLP``).  At 2 layers in f32 (phase
+   18's cell) the loss and every gradient leaf equal the unsharded ones
+   (loss 1e-5 relative, each leaf 1e-4 of its max |g|); at phase 19's
+   full llama3.2-1b (B 8, S 512, bf16, full remat) the step's loss, its
+   gradients' global norm and the stepped parameters equal the unsharded
+   step's within ``MESH_BF16_TOL``, the hand kernels launch as often as in
+   the unsharded step (flash and RMSNorm, forward and backward), and the
+   sharded step's wall and device ms stand beside phase 19's.  (b) The
+   mesh dry-run, traced with no launch on a fake process group:
+   llama3.2-1b's ``train_4k``, ``prefill_32k`` and ``decode_32k`` on
+   ``16x16`` and ``2x16x16``, deepseek-v2-236b's ``decode_32k`` cut to 4
+   layers on ``16x16`` under ``ep_mode`` gather and psum: per-device
+   peak, ``fits_device``, collective bytes by kind and trace seconds;
+26. examples: ``examples/quickstart_torch.py --fast``,
+   ``offload_existing_app_torch.py`` and ``train_lm_torch.py`` (40 steps
+   at d 128, 2 layers: its loss must fall) each as a process on the card,
+   each exiting 0.
 
 RMSNorm is held in its three forms (``kernels/rmsnorm.py``): plain at
 llama's decode and prefill (f32 and bf16 weights), at ragged widths (f32 d
@@ -252,6 +273,7 @@ the repository next to this file; exits non-zero without either.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -2920,6 +2942,281 @@ def phase_cost_model(torch, train: dict) -> dict:
     return out
 
 
+#: phase 25's full-size bf16 step, sharded (a one-card mesh) against
+#: unsharded: the loss within 1e-5 relative, the gradients' global norm
+#: within 1e-4 relative and each stepped parameter leaf within 1e-3 of its
+#: max |p|.  On one rank every local op is the unsharded op on the same
+#: tensor; the sums that change order are the loss's one-hot gold logit
+#: (exact: one non-zero term) and the reductions of the placement changes
+MESH_BF16_TOL = {"loss": 1e-5, "grad_norm": 1e-4, "param": 1e-3}
+#: phase 25 (b): (arch, shape, mesh, overrides, depth cut or None)
+MESH_CELLS = tuple(("llama3.2-1b", shape, mesh, None, None)
+                   for mesh in ("16x16", "2x16x16")
+                   for shape in ("train_4k", "prefill_32k", "decode_32k")) + tuple(
+    ("deepseek-v2-236b", "decode_32k", "16x16", {"ep_mode": ep}, 4) for ep in ("gather", "psum"))
+MESH_SETTINGS = (("propagation", (False, False)), ("manual", (True, True)))
+
+
+@contextlib.contextmanager
+def _one_rank_group(torch):
+    """A one-rank NCCL process group (a ``FileStore`` in a temp dir), torn
+    down after."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    store_dir = tempfile.mkdtemp(prefix="chip_smoke_pg_")
+    dist.init_process_group("nccl", store=dist.FileStore(f"{store_dir}/store", 1), rank=0,
+                            world_size=1)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def _sharded_grads(torch, params, batch, cfg, mesh, rules):
+    """(loss, gradient leaves) of ``lm.loss_fn`` on ``DTensor`` placements
+    of ``params`` / ``batch``, whole."""
+    from repro_torch.models import params as pm
+    from repro_torch.sharding import use_sharding
+
+    from repro_torch.models import lm
+
+    sp = pm.shard_params(params, lm.build_metas(cfg), mesh, rules)
+    sb = pm.shard_batch(batch, mesh, rules)
+    with use_sharding(mesh, rules):
+        loss, grads = _loss_and_grads(torch, sp, sb, cfg)
+    return loss.full_tensor(), [g.full_tensor() for g in grads]
+
+
+def _grad_check(phase: str, grads_s, grads_u) -> float:
+    """The largest leaf error over its max |g| (each within 1e-4)."""
+    import math
+
+    worst = 0.0
+    for gs, gu in zip(grads_s, grads_u):
+        scale = float(gu.abs().max())
+        err = float((gs.float() - gu.float()).abs().max())
+        if not (math.isfinite(scale) and err <= 1e-4 * max(scale, 1e-30)):
+            raise AssertionError(f"{phase}: a gradient leaf differs by {err:.3g} "
+                                 f"(max |g| {scale:.3g})")
+        worst = max(worst, err / max(scale, 1e-30))
+    return worst
+
+
+def phase_distributed(torch, train: dict) -> dict:
+    """Phase 25: the port's distribution on the card (see the module
+    docstring): (a) the sharded train step on a one-rank NCCL mesh against
+    the unsharded one, (b) the mesh dry-run's cells."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.kernels as kernels
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.models import layers, lm
+    from repro_torch.models import params as pm
+    from repro_torch.optim.adamw import AdamW, tree_leaves
+    from repro_torch.sharding import rules_for, use_sharding
+
+    t_phase = time.perf_counter()
+    _free_dead_engines(torch)
+    out: dict = {"phase": "distributed", "card": nvidia_smi()}
+    with _one_rank_group(torch):
+        mesh = make_mesh((1, 1), ("data", "model"), "cuda")
+        # (a1) phase 18's cell: 2 layers, f32, B 2, S 128
+        cfg = dataclasses.replace(get_config("llama3.2-1b"), compute_dtype="float32").cut(2)
+        rules = rules_for(cfg, ShapeConfig("t", 128, 2, "train"), {"data": 1, "model": 1})
+        params = lm.init_params(cfg, seed=1, device="cuda")
+        batch = _train_inputs(torch, cfg, 2, 128)
+        kernels.reset_launches()
+        loss_u, grads_u = _loss_and_grads(torch, params, batch, cfg)
+        counted_u = {c: kernels.counters()[c] for c in TRAIN_COUNTERS}
+        f32 = {}
+        try:
+            for name, flags in MESH_SETTINGS:
+                layers.BF16_TP_REDUCE, layers.MEGATRON_MLP = flags
+                kernels.reset_launches()
+                loss_s, grads_s = _sharded_grads(torch, params, batch, cfg, mesh, rules)
+                counted = {c: kernels.counters()[c] for c in TRAIN_COUNTERS}
+                loss_err = abs(float(loss_s) - float(loss_u)) / abs(float(loss_u))
+                if not loss_err <= 1e-5:
+                    raise AssertionError(f"distributed {name}: f32 loss {float(loss_s)} "
+                                         f"vs unsharded {float(loss_u)}")
+                if counted != counted_u or not all(counted.values()):
+                    raise AssertionError(f"distributed {name}: f32 launches {counted} "
+                                         f"vs unsharded {counted_u}")
+                f32[name] = {"loss_rel_err": loss_err, "launches": counted,
+                             "max_grad_err_over_max_abs_g": _grad_check(
+                                 f"distributed {name} f32", grads_s, grads_u)}
+        finally:
+            layers.BF16_TP_REDUCE = layers.MEGATRON_MLP = False
+        del params, grads_u, grads_s
+        out["f32_2_layers"] = f32
+        _free_dead_engines(torch)
+
+        # (a2) phase 19's step at full size, sharded against unsharded
+        cfg = get_config("llama3.2-1b")
+        shape = ShapeConfig("t", TRAIN_SEQ, TRAIN_BATCH, "train")
+        rules = rules_for(cfg, shape, {"data": 1, "model": 1})
+        metas = lm.build_metas(cfg)
+        opt = AdamW(moment_dtype=cfg.opt_dtype)
+        hyper = TrainHyper(warmup_steps=2, total_steps=TRAIN_STEPS)
+        params0 = lm.init_params(cfg, seed=0, device="cuda")
+        batches = [_train_inputs(torch, cfg, TRAIN_BATCH, TRAIN_SEQ, i) for i in range(4)]
+        step_u = make_train_step(cfg, opt, hyper)
+        kernels.reset_launches()
+        p_u, _, m_u = step_u(_clone_tree(torch, params0), opt.init(params0), batches[0])
+        loss_u = float(m_u["loss"])
+        counted_u = {c: kernels.counters()[c] for c in TRAIN_COUNTERS}
+        _, grads_u = _loss_and_grads(torch, params0, batches[0], cfg)
+        norm_u = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads_u)))
+        del grads_u
+        full = {}
+        try:
+            for name, flags in MESH_SETTINGS:
+                layers.BF16_TP_REDUCE, layers.MEGATRON_MLP = flags
+                step = make_train_step(cfg, opt, hyper,
+                                       grad_shardings=pm.placement_tree(metas, mesh, rules))
+                sp = pm.shard_params(_clone_tree(torch, params0), metas, mesh, rules)
+                so = pm.shard_opt_state(opt.init(params0), metas, mesh, rules)
+                sb = [pm.shard_batch(b, mesh, rules) for b in batches]
+                kernels.reset_launches()
+                with use_sharding(mesh, rules):
+                    sp, so, m_s = step(sp, so, sb[0])
+                loss_s = float(m_s["loss"])
+                counted = {c: kernels.counters()[c] for c in TRAIN_COUNTERS}
+                param_err = max(
+                    float((a.full_tensor() - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+                    for a, b in zip(tree_leaves(sp), tree_leaves(p_u)))
+                _, grads_s = _sharded_grads(torch, params0, batches[0], cfg, mesh, rules)
+                norm_s = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads_s)))
+                del grads_s
+                check = {"loss": loss_s, "unsharded_loss": loss_u,
+                         "loss_rel_err": abs(loss_s - loss_u) / abs(loss_u),
+                         "grad_norm": norm_s, "unsharded_grad_norm": norm_u,
+                         "grad_norm_rel_err": abs(norm_s - norm_u) / norm_u,
+                         "param_err_over_max_abs": param_err, "tol": MESH_BF16_TOL}
+                if not (check["loss_rel_err"] <= MESH_BF16_TOL["loss"]
+                        and check["grad_norm_rel_err"] <= MESH_BF16_TOL["grad_norm"]
+                        and param_err <= MESH_BF16_TOL["param"]):
+                    raise AssertionError(f"distributed {name}: sharded against unsharded "
+                                         f"{check}")
+                if counted != counted_u or not all(counted.values()):
+                    raise AssertionError(f"distributed {name}: launches {counted} "
+                                         f"vs unsharded {counted_u}")
+                # wall ms of two more steps, then one profiled step
+                wall = []
+                with use_sharding(mesh, rules):
+                    for b in sb[1:3]:
+                        t0 = time.perf_counter()
+                        sp, so, m = step(sp, so, b)
+                        float(m["loss"])
+                        wall.append((time.perf_counter() - t0) * 1e3)
+                    t0 = time.perf_counter()
+                    with profile(activities=[ProfilerActivity.CPU,
+                                             ProfilerActivity.CUDA]) as prof:
+                        sp, so, m = step(sp, so, sb[3])
+                        float(m["loss"])
+                        torch.cuda.synchronize()
+                    profiled_wall = (time.perf_counter() - t0) * 1e3
+                device, events = _device_events(prof)
+                full[name] = {**check, "launches": counted,
+                              "step_wall_ms": wall, "median_step_ms": float(np.median(wall)),
+                              "profiled_wall_ms": profiled_wall,
+                              "device_ms": sum(device.values()), "device_events": events,
+                              "nccl_device_ms": sum(v for k, v in device.items()
+                                                    if "nccl" in k.lower())}
+                del sp, so, sb
+                _free_dead_engines(torch)
+        finally:
+            layers.BF16_TP_REDUCE = layers.MEGATRON_MLP = False
+        out["full_size"] = {"arch": cfg.name, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+                            "unsharded_launches": counted_u, "settings": full,
+                            "phase19_median_step_ms": train["median_step_ms"],
+                            "phase19_device_ms": train["profiled_step"]["device_ms"]}
+        del params0, p_u
+    _free_dead_engines(torch)
+    emit({**out, "phase": "distributed_step"})
+    out["mesh_cells"] = _distributed_cells(torch, out["card"])
+    out["seconds"] = time.perf_counter() - t_phase
+    emit({"phase": "distributed", "card": out["card"], "seconds": out["seconds"],
+          "mesh_cells": out["mesh_cells"]})
+    return out
+
+
+def _distributed_cells(torch, card: str) -> list:
+    """Phase 25 (b): the mesh dry-run's cells, traced on a fake process
+    group with nothing launched."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun
+
+    cells = []
+    for arch, shape, mesh_name, overrides, depth in MESH_CELLS:
+        get = dryrun.get_config
+        if depth:
+            dryrun.get_config = lambda a, depth=depth: get_config(a).cut(depth)
+        try:
+            rec = _unlaunched(torch, f"the {arch} {shape} {mesh_name} trace",
+                              lambda: dryrun.run_cell(arch, shape, overrides=overrides,
+                                                      device="cuda", mesh=mesh_name))
+        finally:
+            dryrun.get_config = get
+        if rec["status"] != "ok":
+            raise AssertionError(f"distributed: {arch} x {shape} x {mesh_name}: "
+                                 f"{rec.get('error')}\n{rec.get('traceback', '')}")
+        cell = {"arch": arch, "shape": shape, "mesh": mesh_name, "layers": depth,
+                "overrides": overrides, "chips": rec["chips"], "trace_s": rec["trace_s"],
+                "peak_bytes_per_device": rec["peak_bytes_per_device"],
+                "fits_device": rec["fits_device"],
+                "collectives_per_device": rec["collectives_per_device"],
+                "collective_bytes_per_device": rec["collective_bytes_per_device"],
+                "graph_flops_per_device": rec["graph_flops_per_device"],
+                "roofline_s": rec["roofline_s"], "bound_by": rec["bound_by"]}
+        emit({"phase": "distributed_cell", "card": card, **cell})
+        cells.append(cell)
+    return [(c["arch"], c["shape"], c["mesh"], c["overrides"], c["peak_bytes_per_device"],
+             c["fits_device"], c["collective_bytes_per_device"], c["trace_s"]) for c in cells]
+
+
+#: phase 26: each example's arguments (its fast size on the card)
+EXAMPLES = (("quickstart_torch.py", ["--fast"]),
+            ("offload_existing_app_torch.py", []),
+            ("train_lm_torch.py", ["--steps", "40", "--d-model", "128", "--layers", "2"]))
+
+
+def phase_examples(torch) -> dict:
+    """Phase 26: each example as a process on the card (``PYTHONPATH`` the
+    checkout's ``src``), its exit code 0; ``train_lm_torch.py`` checkpoints
+    into a fresh temp dir."""
+    import os
+    import tempfile
+
+    t_phase = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    runs = []
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_examples_") as tmp:
+        for name, args in EXAMPLES:
+            if name == "train_lm_torch.py":
+                args = [*args, "--ckpt-dir", f"{tmp}/ckpt"]
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(ROOT / "examples" / name), *args],
+                                  capture_output=True, text=True, timeout=300, env=env,
+                                  cwd=str(ROOT))
+            runs.append({"example": name, "args": args, "returncode": proc.returncode,
+                         "seconds": time.perf_counter() - t0,
+                         "last_lines": proc.stdout.strip().splitlines()[-3:]})
+            if proc.returncode != 0:
+                raise AssertionError(f"examples: {name} exited {proc.returncode}: "
+                                     f"{proc.stdout[-2000:]}{proc.stderr[-3000:]}")
+    out = {"phase": "examples", "runs": runs, "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
+
+
 def phase_main_path_train(torch) -> dict:
     """The train path: full llama3.2-1b (16 layers, d 2048, vocab 128256;
     f32 master weights and moments, bf16 compute, full remat) for
@@ -3199,6 +3496,10 @@ def main() -> int:
     # the cost model and the dry-run: records, the roofline as a lower
     # bound, the cost-guided search
     phase_cost_model(torch, train)
+    # distribution: the sharded train step on a one-card mesh, the mesh
+    # dry-run's 256- and 512-GPU cells; then the examples
+    phase_distributed(torch, train)
+    phase_examples(torch)
 
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],

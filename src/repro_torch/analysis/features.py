@@ -60,9 +60,10 @@ def dtype_name(dtype: torch.dtype) -> str:
 
 def tensor_bytes(t: Any) -> int:
     """Bytes of a tensor (or fake value); 0 for non-tensors and symbolic
-    shapes."""
+    shapes.  A ``DTensor`` counts this device's shard."""
     if not isinstance(t, torch.Tensor):
         return 0
+    t = getattr(t, "_local_tensor", t)
     try:
         return int(t.numel()) * t.element_size()
     except (TypeError, RuntimeError):  # unbacked SymInt: not sizeable

@@ -181,7 +181,11 @@ def estimate_memory(
 def graph_memory(gm: Any, example_args: tuple = (),
                  donate_argnums: tuple[int, ...] = ()) -> MemoryEstimate:
     """:func:`estimate_memory` of a program already traced into ``gm`` (from
-    ``example_args``)."""
+    ``example_args``).  A constant counts the elements its strides reach:
+    an expanded view (a mesh trace's weight broadcast over the batch) holds
+    its base's storage, not its shape's."""
+    from repro_torch.launch.graph_cost import reached_bytes
+
     operand_bytes = sum(tensor_bytes(n.meta.get("val")) for n in gm.graph.nodes
                         if n.op == "placeholder")
     output_bytes = sum(tensor_bytes(v) for v in output_values(gm))
@@ -189,7 +193,7 @@ def graph_memory(gm: Any, example_args: tuple = (),
                   if 0 <= i < len(example_args))
     return MemoryEstimate(
         operand_bytes=operand_bytes,
-        const_bytes=sum(tensor_bytes(c) for c in graph_constants(gm)),
+        const_bytes=sum(reached_bytes(c) for c in graph_constants(gm)),
         output_bytes=output_bytes,
         peak_intermediate_bytes=graph_peak_bytes(gm),
         donated_bytes=donated,

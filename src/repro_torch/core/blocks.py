@@ -26,6 +26,11 @@ to ``xla``, which XLA differentiates.  Each such resolution is counted in
 :attr:`FunctionBlockRegistry.grad_defaults`, by block and form.  A bound
 target is never replaced: ``bind({"ssd_scan": "cuda"})`` under autograd
 reaches the kernel's wrapper, which raises.
+
+A call whose arguments are ``DTensor``s (under a mesh) runs the resolved
+implementation on the local shards (:mod:`repro_torch.sharding.shelf`):
+the target is chosen as for plain tensors, never changed because the
+input is sharded.
 """
 
 from __future__ import annotations
@@ -36,6 +41,8 @@ import threading
 from typing import Any, Callable, Iterable, Iterator, Mapping
 
 import torch
+
+from repro_torch.sharding.shelf import call_local, has_dtensor
 
 TARGETS = ("ref", "torch", "cuda")
 
@@ -166,7 +173,10 @@ class FunctionBlockRegistry:
         return impls[target].fn
 
     def call(self, block: str, *args: Any, **kwargs: Any) -> Any:
-        return self.resolve(block, *args, **kwargs)(*args, **kwargs)
+        fn = self.resolve(block, *args, **kwargs)
+        if has_dtensor(args, kwargs):  # under a mesh: on the local shards
+            return call_local(block, fn, args, kwargs)
+        return fn(*args, **kwargs)
 
 
 def implementations_fingerprint(

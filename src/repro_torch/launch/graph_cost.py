@@ -12,7 +12,8 @@ execution:
 * ``flops`` — the matmuls', convolutions' and FFTs' FLOPs with the FX
   walker's formulas (held to the reference's jaxpr counts), at the peak of
   their result's type: bf16 on the tensor cores, f32 on the CUDA cores
-  (tf32 when torch allows it for matmuls);
+  (tf32 when torch allows it for matmuls); under a mesh every value is
+  this device's shard, so each count is per device;
 * ``bytes`` — what the kernel reads and writes, each operand and result
   once.  A view (``view``, ``t``, ``permute``, ``expand``, ``slice``,
   ``select``, ``unsqueeze``, ``as_strided``, ...) moves nothing.  An
@@ -24,7 +25,8 @@ execution:
   reads and writes its buffer;
 * ``collective`` — a ``_c10d_functional`` collective's kind and its
   result bytes (``collective_bytes``), as the reference counts them (none
-  on one device; the port's distribution, ROADMAP A6, reuses them);
+  on one device; a mesh trace's ``DTensor`` redistributions and the
+  manual tensor-parallel paths emit them);
 * the hand-written kernels run no aten op under a trace: each wrapper
   declares its call's :class:`~repro_torch.kernels.build.Work` there, and
   each becomes a row of its own (``op`` = ``kernel.<name>``).
@@ -80,9 +82,11 @@ _SCATTERS = {
 
 def reached_bytes(t: Any) -> int:
     """Bytes of the elements a tensor's strides reach: ``numel`` times the
-    item size, less every broadcast (stride 0) dim."""
+    item size, less every broadcast (stride 0) dim (a ``DTensor``: of this
+    device's shard)."""
     if not isinstance(t, torch.Tensor):
         return 0
+    t = getattr(t, "_local_tensor", t)
     n = 1
     for size, stride in zip(t.shape, t.stride()):
         if int(size) == 0:

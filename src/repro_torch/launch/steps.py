@@ -31,6 +31,7 @@ from repro_torch.models import params as pm
 from repro_torch.models.params import torch_dtype
 from repro_torch.optim.adamw import AdamW, OptState, tree_leaves
 from repro_torch.optim.schedule import warmup_cosine
+from repro_torch.sharding.utils import is_dtensor
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,14 +111,22 @@ def abstract_cache(cfg: ArchConfig, shape: ShapeConfig, page_size: int | None = 
 # -- steps --------------------------------------------------------------------------------
 
 
-def make_train_step(cfg: ArchConfig, opt: AdamW, hyper: TrainHyper = TrainHyper()):
+def make_train_step(cfg: ArchConfig, opt: AdamW, hyper: TrainHyper = TrainHyper(),
+                    grad_shardings: Any = None):
     """``train_step(params, opt_state, batch) -> (params, opt_state,
     metrics)``: the loss and its gradient (with ``hyper.microbatch`` > 1,
     summed over that many slices of the batch in the moment dtype and
     averaged, the metrics too), the warm-up / cosine learning rate at the
     optimizer's step, and one AdamW update, in place.  ``batch`` holds
     tensors on the parameters' device; ``metrics`` are detached f32
-    scalars on it."""
+    scalars on it (whole tensors under a mesh).
+
+    Under a mesh (``DTensor`` parameters and batch, the step called inside
+    ``use_sharding``) ``grad_shardings`` — a tree of placement tuples
+    matching ``params`` (:func:`repro_torch.models.params.placement_tree`)
+    — redistributes each gradient to its parameter's placements: partial
+    sums reduce-scatter into the ZeRO shards instead of all-reducing the
+    whole gradient tree."""
 
     def grads_of(params: Any, leaves: list, batch: dict):
         with torch.enable_grad():
@@ -126,7 +135,10 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, hyper: TrainHyper = TrainHyper(
         # a leaf the loss does not reach (pixtral's token embedding under
         # patch embeddings) gets zeros, as jax.grad gives it
         grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
-        return grads, {k: v.detach() for k, v in metrics.items()}
+        if grad_shardings is not None:
+            grads = [g.redistribute(g.device_mesh, pl)
+                     for g, pl in zip(grads, tree_leaves(grad_shardings))]
+        return grads, {k: _whole(v.detach()) for k, v in metrics.items()}
 
     def train_step(params: Any, opt_state: OptState, batch: dict):
         leaves = tree_leaves(params)
@@ -135,7 +147,9 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, hyper: TrainHyper = TrainHyper(
         n = hyper.microbatch or 1
         if n > 1:
             acc_dt = torch_dtype(opt.moment_dtype)
-            acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in leaves]
+            # a DTensor leaf's accumulator takes its placements
+            acc = [torch.zeros_like(p, dtype=acc_dt) if is_dtensor(p)
+                   else torch.zeros(p.shape, dtype=acc_dt, device=p.device) for p in leaves]
             metrics = None
             for i in range(n):
                 mb = {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
@@ -156,6 +170,11 @@ def make_train_step(cfg: ArchConfig, opt: AdamW, hyper: TrainHyper = TrainHyper(
     return train_step
 
 
+def _whole(t: torch.Tensor) -> torch.Tensor:
+    """A metric as a plain tensor (a ``DTensor``'s full value)."""
+    return t.full_tensor() if is_dtensor(t) else t
+
+
 def _unflatten_like(tree: Any, leaves: list) -> Any:
     """``leaves`` (in :func:`tree_leaves` order) as a tree of ``tree``'s
     structure."""
@@ -169,15 +188,20 @@ def _unflatten_like(tree: Any, leaves: list) -> Any:
     return build(tree)
 
 
-def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig):
+def make_prefill_step(cfg: ArchConfig, shape: ShapeConfig, init_cache: Any = None):
     """``prefill_step(params, batch) -> (logits (B, V) of the last
     position, cache)``: a zeroed contiguous cache for the cell, filled by
     the whole prompt.  Only the final hidden state is projected: the (B, S,
-    V) logits are never made."""
+    V) logits are never made.  ``init_cache`` (device -> cache), if given,
+    makes the zeroed cache (under a mesh: ``DTensor`` shards, the
+    counterpart of the reference's ``out_shardings``)."""
 
     def prefill_step(params: Any, batch: dict):
         device = next(iter(batch.values())).device
-        cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, device=device)
+        if init_cache is not None:
+            cache = init_cache(device)
+        else:
+            cache = lm.init_cache(cfg, shape.global_batch, shape.seq_len, device=device)
         x, pending, cache, _ = lm._blocks(params, batch, cfg, "prefill", cache)
         # the last position's rows, dense (the norm kernel takes contiguous rows)
         last = None if pending is None else pending[:, -1:].contiguous()

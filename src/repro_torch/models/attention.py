@@ -26,8 +26,9 @@ from repro_torch.kernels.paged_attention import (  # noqa: F401  (re-exported)
     scatter_chunk_pages,
     scatter_token_pages,
 )
-from repro_torch.models.layers import rmsnorm, rope
+from repro_torch.models.layers import rmsnorm, rope, tp_out_einsum
 from repro_torch.models.params import ParamMeta, torch_dtype
+from repro_torch.sharding.utils import constrain, is_dtensor
 
 _NEG = -1e30
 
@@ -110,6 +111,10 @@ def _update_slot_rows(
     slot's index keeps counting past the end).  ``slots`` (B,) names the
     cache rows that ``update``'s rows go to (default: row ``b`` to row
     ``b``)."""
+    if is_dtensor(cache):
+        if slots is not None:
+            raise ValueError("a sharded cache extends no slots of a larger cache")
+        return _update_sharded_rows(cache, update, index, axis)
     s = update.shape[axis]
     start = torch.clamp(index.long(), 0, cache.shape[axis] - s)
     pos = start[:, None] + torch.arange(s, device=cache.device)  # (B, S)
@@ -121,6 +126,40 @@ def _update_slot_rows(
     return cache
 
 
+def _update_sharded_rows(cache, update, index, axis: int):
+    """:func:`_update_slot_rows` on a ``DTensor`` cache, whose sequence
+    axis may be sharded (``cache_seq``): each rank writes, in place in its
+    own shard, the new positions that fall in it, token by token (one
+    position per row a write: a position outside the shard rewrites the
+    value it reads)."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh, pl = cache.device_mesh, tuple(cache.placements)
+    total, s = cache.shape[axis], update.shape[axis]
+    seq_dims = [i for i, p in enumerate(pl) if p == Shard(axis)]
+    upd_pl = tuple(Replicate() if i in seq_dims else p for i, p in enumerate(pl))
+    idx_pl = tuple(p if p == Shard(0) else Replicate() for p in pl)
+
+    def local(c, u, ix):
+        n = c.shape[axis]
+        shard = 0
+        for i in seq_dims:  # the shard's number, the first mesh dim major
+            shard = shard * mesh.size(i) + mesh.get_local_rank(i)
+        start = torch.clamp(ix.long(), 0, total - s) - shard * n
+        rows = torch.arange(c.shape[0], device=c.device)
+        cm, um = torch.movedim(c, axis, 1), torch.movedim(u, axis, 1).to(c.dtype)
+        for t in range(s):
+            pos = start + t
+            inside = ((pos >= 0) & (pos < n)).view(-1, *([1] * (cm.ndim - 2)))
+            at = pos.clamp(0, n - 1)
+            cm[rows, at] = torch.where(inside, um[:, t], cm[rows, at])
+        return c
+
+    return local_map(local, out_placements=list(pl), in_placements=(pl, upd_pl, idx_pl),
+                     device_mesh=mesh, redistribute_inputs=True)(cache, update, index)
+
+
 def decode_attention_gqa(
     q: torch.Tensor,  # (B, H, S, D) — S=1 decode, S>1 extend
     k_cache: torch.Tensor,  # (B, KH, Smax, D)
@@ -130,6 +169,9 @@ def decode_attention_gqa(
     b, h, s, d = q.shape
     _, kh, smax, _ = k_cache.shape
     g = h // kh
+    # under a mesh: every head of the rank's rows (the group split needs
+    # whole heads); the cache may stay sharded on its sequence
+    q = constrain(q, "act_batch", None, None, None)
     qg = q.reshape(b, kh, g, s, d).float() / (d ** 0.5)
     sc = torch.einsum("bkgqd,bktd->bkgqt", qg, k_cache.float())
     qpos = index.long()[:, None] + torch.arange(s, device=q.device)  # (B, S)
@@ -168,11 +210,14 @@ def gqa_forward(
     cd = torch_dtype(cfg.compute_dtype)
     xc = x.to(cd)
     h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    q = (xc @ p["wq"].to(cd)).reshape(b, s, h, dh)
-    k = (xc @ p["wk"].to(cd)).reshape(b, s, kh, dh)
-    v = (xc @ p["wv"].to(cd)).reshape(b, s, kh, dh)
+    # under a mesh the projections keep whole heads before the split
+    q = constrain(xc @ p["wq"].to(cd), "act_batch", None, "heads_act").reshape(b, s, h, dh)
+    k = constrain(xc @ p["wk"].to(cd), "act_batch", None, "kv_heads_act").reshape(b, s, kh, dh)
+    v = constrain(xc @ p["wv"].to(cd), "act_batch", None, "kv_heads_act").reshape(b, s, kh, dh)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
+    q = constrain(q, "act_batch", None, "heads_act", None)
+    k = constrain(k, "act_batch", None, "kv_heads_act", None)
 
     qt = q.transpose(1, 2).contiguous()  # (B, H, S, dh)
     kt = k.transpose(1, 2)
@@ -203,8 +248,8 @@ def gqa_forward(
         if cache is not None:  # prefill: persist kv
             cache["k"][:, :, :s] = kt
             cache["v"][:, :, :s] = vt
-    o = o.transpose(1, 2).reshape(b, s, h * dh)
-    return o.to(cd) @ p["wo"].to(cd), cache
+    o = constrain(o.transpose(1, 2).reshape(b, s, h * dh), "act_batch", None, "heads_act")
+    return tp_out_einsum(o.to(cd), p["wo"].to(cd), cd), cache
 
 
 # -- the MLA mixer -----------------------------------------------------------------
@@ -282,7 +327,9 @@ def mla_forward(
         kn = (c @ p["w_uk"].to(cd)).reshape(b, s, h, dn)
         v = (c @ p["w_uv"].to(cd)).reshape(b, s, h, dv)
         k = torch.cat([kn, kr[:, :, None, :].expand(b, s, h, dr)], dim=-1)
-        qf = torch.cat([qn, qr], dim=-1)
+        qf = constrain(torch.cat([qn, qr], dim=-1), "act_batch", None, "heads_act", None)
+        k = constrain(k, "act_batch", None, "heads_act", None)
+        v = constrain(v, "act_batch", None, "heads_act", None)
         o = blocks.call(
             "attention", qf.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
             v.transpose(1, 2).contiguous(), causal=True,
@@ -291,7 +338,7 @@ def mla_forward(
             cache["c"][:, :s] = c
             cache["kr"][:, :s] = kr
     o = o.reshape(b, s, h * dv)
-    return o.to(cd) @ p["wo"].to(cd), cache
+    return tp_out_einsum(o.to(cd), p["wo"].to(cd), cd), cache
 
 
 def attention_forward(p, x, cfg, positions, cache=None, index=None, mode="train", pages=None,

@@ -71,6 +71,7 @@ from repro_torch.models.layers import (
 from repro_torch.models.moe import moe_forward, moe_metas
 from repro_torch.models.params import ParamMeta, torch_dtype
 from repro_torch.models.ssm import ssm_forward, ssm_metas, ssm_state_metas
+from repro_torch.sharding.utils import constrain, current_mesh, current_rules, use_sharding
 
 
 # -- pattern grouping ------------------------------------------------------------
@@ -276,6 +277,15 @@ def _layer(tree: Any, i: int) -> Any:
     return tree[i]
 
 
+def _region_input(h: torch.Tensor) -> torch.Tensor:
+    """A mixer's or the head's input with the whole sequence (the
+    sequence-parallel all-gather that opens a region; a no-op off a mesh).
+    Gathered here, the projections' ``(B, S)`` flatten splits the batch
+    only: a flatten of a batch and a sequence both sharded makes a strided
+    shard, whose redistribution reads every offset on the host."""
+    return constrain(h, "act_batch", None, None)
+
+
 def _apply_attn_block(lp, x, pending, cfg, positions, cache, index, mode, pages=None,
                       slots=None, scatter=None):
     """Returns (x, pending, aux): the residual stream with the attention
@@ -284,6 +294,7 @@ def _apply_attn_block(lp, x, pending, cfg, positions, cache, index, mode, pages=
     dense layer)."""
     cd = torch_dtype(cfg.compute_dtype)
     x, h_in = add_rmsnorm(lp["ln1"], x, pending, cfg.norm_eps)
+    h_in = _region_input(h_in)
     attn_out, cache = attention_forward(
         lp["attn"], h_in.to(cd), cfg, positions, cache, index, mode, pages, slots, scatter
     )
@@ -305,6 +316,7 @@ def _apply_mamba_block(lp, x, pending, cfg, cache, mode):
         )
     cd = torch_dtype(cfg.compute_dtype)
     x, h_in = add_rmsnorm(lp["ln"], x, pending, cfg.norm_eps)
+    h_in = _region_input(h_in)
     out, _ = ssm_forward(lp["mixer"], h_in.to(cd), cfg, cache, mode)
     return x, out, None
 
@@ -315,14 +327,16 @@ def _apply_mamba_block(lp, x, pending, cfg, cache, mode):
 def _remat(fn, *args, policy=None):
     """``fn(*args)`` under ``torch.utils.checkpoint``: its activations are
     recomputed in the backward, but for what a selective ``policy`` saves.
-    The recompute runs under the block bindings in force now: on the card
+    The recompute runs under the block bindings and the sharding context
+    in force now: on the card
     autograd runs the backward on its own device thread, where this
     thread's bindings (thread-local) are not, and the recompute would
     otherwise take other targets than the forward did."""
     bound = blocks.registry.current_pattern()
+    mesh, rules = current_mesh(), current_rules()
 
     def run(*a):
-        with blocks.bind(bound):
+        with blocks.bind(bound), use_sharding(mesh, rules):
             return fn(*a)
 
     kw = {}
@@ -360,6 +374,7 @@ def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
         x = batch["embeds"].to(cd)
     else:
         x = embed_lookup(params["embed"], batch["tokens"], cd)
+    x = constrain(x, "act_batch", "act_seq", None)
     b, s = x.shape[0], x.shape[1]
     steps = torch.arange(s, dtype=torch.int32, device=x.device)
 
@@ -400,6 +415,9 @@ def _blocks(params: Any, batch: dict, cfg: ArchConfig, mode: str, cache: Any):
                 x, pending, layer_aux = _remat(block, x, pending, policy=policy)
             else:
                 x, pending, layer_aux = block(x, pending)
+            # the residual stream (x + pending) between blocks
+            x = constrain(x, "act_batch", "act_seq", None)
+            pending = constrain(pending, "act_batch", "act_seq", None)
             if mode == "train" and layer_aux is not None:
                 aux = layer_aux if aux is None else aux + layer_aux
     return x, pending, cache, aux
@@ -417,6 +435,7 @@ def head(params: Any, x: torch.Tensor, cfg: ArchConfig,
     """The final norm (of ``x + pending``, fused, when the last block's
     output is pending) and the logits."""
     _, x = add_rmsnorm(params["final_norm"], x, pending, cfg.norm_eps)
+    x = _region_input(x)
     return lm_logits(params["embed"], x, cfg, torch_dtype(cfg.compute_dtype))
 
 

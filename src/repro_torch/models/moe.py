@@ -23,6 +23,7 @@ step program captures it as it stands.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -31,6 +32,7 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig, MoEConfig
 from repro_torch.models.layers import mlp_forward, mlp_metas
 from repro_torch.models.params import ParamMeta
+from repro_torch.sharding.utils import constrain, is_dtensor
 
 
 def moe_metas(cfg: ArchConfig) -> dict:
@@ -105,6 +107,19 @@ def route(gates: torch.Tensor, top_k: int, capacity: int):
     return idx, w, frac, torch.stack(where, -1)
 
 
+def _route_sharded(gates: torch.Tensor, top_k: int, capacity: int):
+    """:func:`route` of a ``DTensor`` ``gates`` on each rank's own rows (the
+    routing is row-local): the rows keep their batch shards, the tokens and
+    experts of a row are whole."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    rows = [Shard(0) if p == Shard(0) else Replicate() for p in gates.placements]
+    return local_map(functools.partial(route, top_k=top_k, capacity=capacity),
+                     out_placements=(rows, rows, rows, rows), in_placements=(rows,),
+                     redistribute_inputs=True)(gates)
+
+
 def route_row(gates: torch.Tensor, top_k: int, capacity: int):
     """Route one row of S tokens, ``gates`` (S, E) f32: (idx (E, C), w (E, C),
     frac (E,)) as the reference's ``route_row``."""
@@ -119,21 +134,28 @@ def moe_forward(
     m = cfg.moe
     b, s, d = x.shape
     e = m.n_experts
-    xc = x.to(compute_dtype)
+    xc = constrain(x, "act_batch", None, None).to(compute_dtype)  # the region's all-gather
     gates = torch.softmax(xc.float() @ p["router"].float(), dim=-1)  # (B, S, E)
     cap = capacity_of(s, m)
-    idx, w, frac, where = route(gates, m.top_k, cap)
+    if is_dtensor(gates):
+        idx, w, frac, where = _route_sharded(gates, m.top_k, cap)
+    else:
+        idx, w, frac, where = route(gates, m.top_k, cap)
 
     # dispatch: row-local gather, the sentinel S reading the appended zero row
     rows = torch.arange(b, device=x.device)
     xpad = torch.cat([xc, xc.new_zeros(b, 1, d)], dim=1)  # (B, S + 1, D)
     xin = xpad[rows[:, None, None], idx]  # (B, E, C, D)
+    xin = constrain(xin, "act_batch", "experts_act", None, None)
 
-    # the expert products, batched over the expert axis
+    # the expert products, batched over the expert axis (B*C rows, B major)
     xe = xin.transpose(0, 1).reshape(e, b * cap, d)
     g = torch.matmul(xe, p["w_gate"].to(compute_dtype))
     u = torch.matmul(xe, p["w_up"].to(compute_dtype))
-    eo = torch.matmul(F.silu(g) * u, p["w_down"].to(compute_dtype))  # (E, B*C, D)
+    # the reference's manual TP skips this batched product (tp_out_einsum
+    # takes (B, S, Q) x (Q, D) only): a plain matmul in both
+    eo = torch.matmul(constrain(F.silu(g) * u, "experts_act", "act_batch", None),
+                      p["w_down"].to(compute_dtype))  # (E, B*C, D)
     eo = eo.reshape(e, b, cap, d).transpose(0, 1)  # (B, E, C, D)
     eo = eo * w[..., None].to(compute_dtype)
 
@@ -144,6 +166,7 @@ def moe_forward(
     out = picked[:, :, 0]
     for slot in range(1, m.top_k):
         out = out + picked[:, :, slot]
+    out = constrain(out, "act_batch", None, None)
 
     # Switch aux loss: E * sum_e f_e * mean_gate_e
     mean_gate = gates.mean(dim=(0, 1))

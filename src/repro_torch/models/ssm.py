@@ -15,8 +15,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import blocks
-from repro_torch.models.layers import gated_rmsnorm
+from repro_torch.models.layers import gated_rmsnorm, tp_out_einsum
 from repro_torch.models.params import ParamMeta, torch_dtype
+from repro_torch.sharding.utils import constrain, is_dtensor
 
 
 def ssm_metas(cfg: ArchConfig) -> dict:
@@ -53,6 +54,24 @@ def ssm_state_metas(cfg: ArchConfig, batch: int) -> dict:
             ("act_batch", "ssm_heads_act", None, None), "float32", init="zeros",
         ),
     }
+
+
+def _causal_conv_sharded(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """:func:`_causal_conv` of ``DTensor``s on each rank's shards: the
+    batch and the channels (each its own group) may stay sharded, the
+    sequence is whole."""
+    from torch.distributed.tensor.experimental import local_map
+
+    from repro_torch.sharding.shelf import follow, lead_placements
+
+    lead = lead_placements(xbc, {0, 2})
+    return local_map(
+        _causal_conv, out_placements=list(lead),
+        in_placements=(lead, follow(lead, {2: 1}), follow(lead, {2: 0})),
+        in_grad_placements=(lead, follow(lead, {2: 1}, grad=True),
+                            follow(lead, {2: 0}, grad=True)),
+        redistribute_inputs=True,
+    )(xbc, w, b)
 
 
 def _causal_conv(xbc: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -99,7 +118,7 @@ def ssm_forward(
     h = s.n_heads(d)
     xc = x.to(cdty)
 
-    zxbcdt = xc @ p["in_proj"].to(cdty)
+    zxbcdt = constrain(xc @ p["in_proj"].to(cdty), "act_batch", None, "ssm_inner_act")
     z, xbc, dt_raw = _split_zxbcdt(zxbcdt, cfg)
 
     if mode == "decode":
@@ -110,7 +129,8 @@ def ssm_forward(
         conv_out = (conv_out + p["conv_b"].to(cdty))[:, None, :]
         new_conv = window[:, 1:, :]
     else:
-        conv_out = _causal_conv(xbc, p["conv_w"], p["conv_b"])
+        conv = _causal_conv_sharded if is_dtensor(xbc) else _causal_conv
+        conv_out = conv(xbc, p["conv_w"], p["conv_b"])
         new_conv = _conv_tail(xbc, s.d_conv - 1) if state is not None else None
     xbc_a = F.silu(conv_out)
 
@@ -143,4 +163,4 @@ def ssm_forward(
     # the D skip and the gated RMSNorm (Mamba-2), norm((y + D x) * silu(z)) * w
     # in f32: one call of the rmsnorm block, reading x and z in place
     g = gated_rmsnorm(p["norm"], y, x_ssm, p["d_skip"], z, cfg.norm_eps)
-    return g @ p["out_proj"].to(cdty), state
+    return tp_out_einsum(g, p["out_proj"].to(cdty), cdty), state

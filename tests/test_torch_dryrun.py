@@ -3,8 +3,9 @@
 (``repro.launch.dryrun`` / ``repro.launch.steps``): the abstract inputs'
 shapes and dtypes for every arch, the prefill and decode steps' values,
 a record with every key through the CLI, the graph FLOPs of the cells
-against ``hlo_cost`` of the reference's jitted steps, the overrides
-that wait for distribution and the precision ones the port refuses.
+against ``hlo_cost`` of the reference's jitted steps, the sharding
+overrides a one-card cell refuses and the precision ones the port
+refuses.
 Reduced configs, CPU only.
 
 Tolerances: prefill and decode logits and caches in f32 within 1e-4
@@ -202,12 +203,14 @@ def test_cell_graph_flops_match_hlo_cost(arch, kind, monkeypatch):
 
 @pytest.mark.parametrize("override", ["ep_mode", "bf16_tp_reduce", "megatron_mlp"])
 def test_sharding_overrides_raise(override):
-    with pytest.raises(ValueError, match="ROADMAP A6"):
+    """On one card (no mesh) the sharding overrides raise; mesh cells take
+    them (``tests/test_torch_dryrun_mesh.py``)."""
+    with pytest.raises(ValueError, match="shard across devices: give a mesh cell"):
         dryrun.build_cell("llama3.2-1b", "train_4k", {override: True}, device="cpu")
     with pytest.raises(ValueError, match="unknown overrides"):
         dryrun.build_cell("llama3.2-1b", "train_4k", {"no_such_knob": 1}, device="cpu")
     rec = dryrun.run_cell("llama3.2-1b", "train_4k", overrides={override: "psum"}, device="cpu")
-    assert rec["status"] == "error" and "ROADMAP A6" in rec["error"]
+    assert rec["status"] == "error" and "give a mesh cell" in rec["error"]
 
 
 @pytest.mark.parametrize("override", ["scores_dtype", "norm_precision"])

@@ -1,5 +1,5 @@
-"""Import isolation of the port: ``repro_torch`` and ``chip_smoke.py`` import
-``torch`` and never ``jax``, anything of the JAX package ``repro``, or
+"""Import isolation of the port: ``repro_torch``, ``chip_smoke.py`` and the
+port's examples import ``torch`` and never ``jax``, anything of the JAX package ``repro``, or
 ``pynvml``."""
 
 import ast
@@ -13,7 +13,8 @@ import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = (sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-              + sorted((ROOT / "scripts").glob("*.py")))
+              + sorted((ROOT / "scripts").glob("*.py"))
+              + sorted((ROOT / "examples").glob("*_torch.py")))
 #: pynvml too: the port reads NVML through libnvidia-ml.so.1 with ctypes
 FORBIDDEN = ("jax", "jaxlib", "repro", "pynvml")
 
