@@ -108,11 +108,18 @@ JSON line, and any failure raises (exit code != 0):
 15. main_path_mla_moe: deepseek-v2-236b at full width cut to 4 layers
    (``daaa``, ~27 GB of bf16 weights) served as phase 4 (the same engine
    settings and trace; decode as graph replays), with the rmsnorm, paged
-   attention (its MLA route: the latent pool as keys and values, the rope
-   pool beside it, G = 128 rows) and flash (its CUDA-core route, qk 192 /
-   v 128) launch counts, each > 0, and one decode replay against its
-   eager call (``replay_vs_eager``);
-16. extend_mla: phase 15 with ``prefill_chunk=128``: the chunk programs
+   attention (the latent pool as keys and values, the rope pool beside
+   it, G = 128 rows: every launch on the latent walk) and flash (qk 192 /
+   v 128: every launch on wgmma) launch counts, each > 0, one decode
+   replay against its eager call (``replay_vs_eager``), and the bf16 path
+   as a whole (``bf16_path_vs_plain``): with 8 requests decoding, one
+   prefill's and one decode step's logits against the same calls with
+   ``attention`` and ``paged_attention`` bound to ``torch`` and the MoE's
+   expert choices pinned to the kernel run's, within ``PATH_TOL`` of the
+   plain logits' largest |value| (the unpinned comparison and the flipped
+   expert choices reported beside it);
+16. extend_mla: phase 15 with ``prefill_chunk=128`` (every paged launch on
+   the latent walk, every flash launch on wgmma): the chunk programs
    extend the latent and rope pools; ``extend`` captures once and replays
    every later call; an MoE's final chunk runs at its exact width (no
    overlapped tokens, a key per width); one replay of each chunk program
@@ -237,8 +244,8 @@ dv from the forward kernel's ``out`` and ``lse``, the ``lse`` itself
 against the plain forward's) at llama's train shape (B 8, H 32, KH 8, S
 512, D 64, bf16: the wgmma route), bf16 at B 2, S 300 (its ragged edge),
 zamba2's D 112 and arctic's D 128 (wgmma, two column boxes), f32 at B 2,
-S 300 and deepseek-v2's qk 192 / v 128 (the CUDA-core route; each row
-names its route);
+S 300 and deepseek-v2's qk 192 / v 128 (the CUDA-core route: the
+backward's wgmma route stops at 128; each row names its route);
 RMSNorm's backward, plain and add forms, at 4096 x 2048 bf16 and f32 at d
 = 100, and 4096 bf16 rows of deepseek-v2's 512-wide ``kv_norm`` (plain, a
 bf16 weight) and of arctic-480b's d = 7168 (plain and add), the add form
@@ -254,15 +261,16 @@ whose N or K is not a multiple of 4 (matmul and complex matmul at 99^3,
 the Schur update at (100, 100, 30)); the SSD chunk kernel
 at mamba2's and zamba2's prefill shapes, at chunk 256 (bf16 and f32) and
 at N = 256 with P = 128; paged and flash attention at zamba2's head dim
-112 too (flash also at B=2 and a ragged S=300, and on its CUDA-core route
-at qk 48 / v 32, deepseek-v2's qk 192 / v 128 and a bf16 D = 100).  Each
-flash and SSD row names the route it ran; each paged row names its split
-plan's ``n_splits`` (paged attention also runs with all eight slots near
+112 too (flash also at B=2 and a ragged S=300, at qk 48 / v 32 in f32 (the
+CUDA-core route) and bf16, at deepseek-v2's MLA prefill, qk 192 / v 128 (the
+wgmma route at dv != d), and at a bf16 D = 100 (the CUDA cores)).  Each
+flash, paged and SSD row names the route it ran; each paged row names its
+split plan's ``n_splits`` (paged attention also runs with all eight slots near
 1024 positions, at B=1 with a one-page table, and on phase 11's extend
 chunk: B=1, S=128 from position 384; and at deepseek-v2's MLA decode, B=8,
 H=128 over one 512-wide latent that is both keys and values, rope 64,
 and its S=16 (phase 14's) and S=128 (phase 16's) extend chunks from
-position 384; at arctic-480b's decode, H=56, KH=8, D=128;
+position 384, each on the latent walk; at arctic-480b's decode, H=56, KH=8, D=128;
 flash also at arctic's prefill, H=56 over KH=8, D=128).  Phase 5 sums the
 device time of paged attention's split and merge kernels per step.
 
@@ -629,10 +637,10 @@ def phase_kernels(torch) -> dict:
         lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
         work=flash_work(q, k, v), extra=route,
     ))
-    # the shapes the wgmma route does not take, on the CUDA-core route: v's
-    # head dim apart from q's (the reference test's qk 48 / v 32, in f32
-    # and bf16; deepseek-v2's MLA prefill, H = KH = 128, qk 192 / v 128),
-    # and a bf16 head dim that is not a multiple of 8
+    # v's head dim apart from q's: the reference test's qk 48 / v 32 in f32
+    # (the CUDA cores) and bf16 (wgmma), deepseek-v2's MLA prefill, H = KH =
+    # 128, qk 192 / v 128 (wgmma: three column boxes for q and k, two for
+    # v); and a bf16 head dim that is not a multiple of 8 (the CUDA cores)
     for (hh, s, dqk, dv), dtype in (((4, 128, 48, 32), torch.float32),
                                     ((4, 128, 48, 32), torch.bfloat16),
                                     ((128, 512, 192, 128), torch.bfloat16),
@@ -940,14 +948,19 @@ def _paged_cases(torch, timer, randn, gen) -> list:
     (16384 pages, more page ids a split than a CTA has threads, more than
     32 splits).  Last, chunked prefill's extend at llama's shape: one slot,
     a 128-token chunk from position 384 (tensor-core walk, 512 rows a kv
-    head).  Null pages are poisoned.  Each row names the split plan's
+    head).  Then deepseek-v2's MLA (one latent pool as keys and values,
+    rope 64) at decode and at 16- and 128-token chunks, and a reduced
+    latent (256 wide, rope 32, pages of 8), each on the latent walk (the
+    wgmma route, ``paged_route``), and arctic-480b's decode.  Null pages are
+    poisoned.  Each row names its walk (``route``) and its split plan's
     ``n_splits``."""
     from repro_torch.kernels import paged_attention as pa
 
     h, kh, dh = 32, 8, 64
     dev = "cuda"
 
-    def paged_case(b, hh, kkh, s, dk, dv, lengths, dtype, dr=0, ps=16, mp=None, latent=False):
+    def paged_case(b, hh, kkh, s, dk, dv, lengths, dtype, dr=0, ps=16, mp=None, latent=False,
+                   expect=None):
         mp = mp or 1024 // ps
         n_pages = b * mp
         null = n_pages
@@ -972,23 +985,36 @@ def _paged_cases(torch, timer, randn, gen) -> list:
         # the positions the lengths reach (the kernel's declared work counts
         # every position of the table's width: a trace has no lengths)
         work = pa.paged_work(q, k_pool, v_pool, pages, list(lengths), q_rope=kw.get("q_rope"))
-        # the parent of a comparison (scripts/ab_parent_change.py) has no plan
-        extra = None
-        if hasattr(pa, "sm_count"):
+        # the walk the launch took, from the wrapper's per-route counts (the
+        # parent of a comparison, scripts/ab_parent_change.py, may have none)
+        routes = dict(getattr(pa.paged_attention, "routes", {}))
+        got = pa.paged_attention(*args, **kw)
+        extra = {"route": next((r for r, n in getattr(pa.paged_attention, "routes", {}).items()
+                                if n > routes[r]), None)}
+        if hasattr(pa, "latent_plan") and extra["route"] == "latent":
+            plan = pa.latent_plan(b, hh * s, mp, ps, dk, pa.sm_count(q.device))
+        elif hasattr(pa, "sm_count"):  # the parent's may have no plan
             plan = pa.split_plan(b, kkh, mp, ps, dk, dv, pa.sm_count(q.device))
-            extra = {"n_splits": plan.n_splits, "pages_per_split": plan.pages_per_split}
+        else:
+            plan = None
+        if plan is not None:
+            extra.update(n_splits=plan.n_splits, pages_per_split=plan.pages_per_split)
+        if expect is not None and extra["route"] != expect:
+            raise AssertionError(f"paged_attention: {extra['route']} route, {expect} expected")
         return _case(
             torch, "paged_attention", str(dtype).split(".")[1],
             {"B": b, "H": hh, "KH": kkh, "S": s, "Dk": dk, "Dv": dv, "Dr": dr,
              "page_size": ps, "max_pages": mp, "lengths": list(lengths),
              **({"latent": True} if latent else {})},
-            pa.paged_attention(*args, **kw), pa.paged_attention_torch(*args, **kw), timer,
+            got, pa.paged_attention_torch(*args, **kw), timer,
             lambda: pa.paged_attention(*args, **kw), lambda: pa.paged_attention_torch(*args, **kw),
             None, work=work, extra=extra,
         )
 
     bf16 = torch.bfloat16
     decode_lengths = [1022, 700, 511, 256, 95, 16, 15, 0]
+    # the MLA rows' walk (a parent without routes names none)
+    latent_walk = "latent" if hasattr(pa, "paged_route") else None
     return [
         paged_case(8, h, kh, 1, dh, dh, decode_lengths, bf16),
         paged_case(8, h, kh, 4, dh, dh, [1000, 300, 17, 0, 64, 5, 900, 250], bf16),
@@ -1005,10 +1031,17 @@ def _paged_cases(torch, timer, randn, gen) -> list:
         # deepseek-v2's MLA decode (G = 128 query rows over the 512-wide
         # latent, keys and values, with 64 rope dims), a 16-token extend
         # chunk from position 384 (phase 14's) and a 128-token one (phase
-        # 16's); arctic-480b's GQA decode (H=56, KH=8)
-        paged_case(8, 128, 1, 1, 512, 512, decode_lengths, bf16, dr=64, latent=True),
-        paged_case(1, 128, 1, 16, 512, 512, [384], bf16, dr=64, latent=True),
-        paged_case(1, 128, 1, CHUNK, 512, 512, [384], bf16, dr=64, latent=True),
+        # 16's), each on the latent walk; arctic-480b's GQA decode (H=56,
+        # KH=8)
+        paged_case(8, 128, 1, 1, 512, 512, decode_lengths, bf16, dr=64, latent=True,
+                   expect=latent_walk),
+        paged_case(1, 128, 1, 16, 512, 512, [384], bf16, dr=64, latent=True, expect=latent_walk),
+        paged_case(1, 128, 1, CHUNK, 512, 512, [384], bf16, dr=64, latent=True,
+                   expect=latent_walk),
+        # the latent walk off deepseek's widths: a 256-wide latent (boxes
+        # past it zeros), rope 32, pages of 8, a second 64-row tile half full
+        paged_case(2, 24, 1, 4, 256, 256, [37, 150], bf16, dr=32, ps=8, mp=32, latent=True,
+                   expect=latent_walk),
         paged_case(8, 56, 8, 1, 128, 128, decode_lengths, bf16),
     ]
 
@@ -1303,6 +1336,8 @@ def phase_main_path(torch, arch: str = "llama3.2-1b", expect=SERVE_KERNELS,
     }
     if "flash_attention" in expect:  # the routes the prefills' launches took
         out["flash_routes"] = dict(kernels.KERNELS["flash_attention"].routes)
+    if "paged_attention" in expect:  # the walks paged attention's launches took
+        out["paged_routes"] = dict(kernels.KERNELS["paged_attention"].routes)
     if report is not None:
         report(engine, out)
     emit(out)
@@ -2063,8 +2098,121 @@ def phase_binding(torch) -> dict:
 
 
 #: flash's route on each MoE config's prefill: deepseek-v2's MLA attends
-#: at qk 192 / v 128 (the CUDA cores), arctic-480b at D = 128 (wgmma)
-MOE_FLASH_ROUTE = {"deepseek-v2-236b": "cuda_cores", "arctic-480b": "wgmma"}
+#: at qk 192 / v 128, arctic-480b at D = 128, both on wgmma
+MOE_FLASH_ROUTE = {"deepseek-v2-236b": "wgmma", "arctic-480b": "wgmma"}
+#: paged attention's walk on each MoE config's decode: deepseek-v2's latent
+#: pool is keys and values (the latent walk), arctic-480b is GQA
+MOE_PAGED_ROUTE = {"deepseek-v2-236b": "latent", "arctic-480b": "split"}
+#: the attention blocks' plain versions, against which the bf16 path is held
+PLAIN_ATTENTION = {"attention": "torch", "paged_attention": "torch"}
+#: the bf16 path's logits against the plain attention's with every MoE
+#: layer's expert choices pinned to the kernel run's: max abs error over
+#: the plain logits' largest |value|.  What is left differs only in the
+#: attention kernels' rounding (P in bf16 among it) across 4 layers: 1.2%
+#: at prefill and 1.3% at decode on the H100, where faults planted in the
+#: latent walk (scripts/paged_variants.py bf16_path) read 18-135% at decode
+PATH_TOL = 0.04
+
+
+def _check_routes(phase: str, routes: dict, launches: int, want: str) -> None:
+    if routes.get(want, 0) != launches:
+        raise AssertionError(f"{phase}: routes {routes}, all {launches} on {want} expected")
+
+
+def _bf16_path_vs_plain(torch, engine, n_req: int = 8) -> dict:
+    """The served path as a whole in bf16 on ``engine`` (idle): 8 new
+    requests are admitted and decoding; then, from that state, one batch-1
+    prefill of the longest prompt and one decode step of the slot batch run
+    eagerly three times (the cache cloned and restored): with the default
+    bindings (``kernels``), with ``attention`` and ``paged_attention``
+    bound to ``torch`` (``PLAIN_ATTENTION``: ``plain``), and so bound with
+    each MoE layer's expert choices pinned to the kernel run's (``pinned``:
+    the gates outside them set to -inf, so each token's top-k takes the
+    same experts at its own gate values).  A choice that flips between
+    ``kernels`` and ``plain`` moves a token's whole expert output, so
+    ``pinned`` holds the attention kernels alone: its logits must be
+    within ``PATH_TOL`` of its largest |logit| (``within_tol``).  Each step
+    reports both comparisons and the tokens whose expert set flipped
+    (``routing_flips``: [flipped, token-layers]).  The requests then run
+    to completion."""
+    import numpy as np
+
+    from repro_torch.core import blocks
+    from repro_torch.models import moe
+    from repro_torch.serve import Request
+
+    rng = np.random.default_rng(1)
+    vocab = engine.cfg.vocab_size
+    prompts = [rng.integers(0, vocab, int(n)).tolist() for n in rng.integers(64, 513, n_req)]
+    for p in prompts:
+        engine.submit(Request(p, max_new_tokens=64))
+    for _ in range(32):  # until every request is admitted, prefilled and decoding
+        engine.step()
+        if len(engine.scheduler.active) == n_req and not engine._prefilling:
+            break
+    else:
+        raise AssertionError(f"bf16 path: {len(engine.scheduler.active)} of {n_req} active")
+    dev = engine.device
+    prompt = max(prompts, key=len)
+    pre_in = [np.asarray([len(prompt) - 1], np.int32), np.zeros(1, np.int32),
+              np.zeros(1, np.int32), np.ones(1, np.float32), np.zeros(1, np.int32),
+              np.asarray([prompt], np.int32)]
+    pre_in = [torch.from_numpy(a).to(dev) for a in pre_in]
+    dec_in = [torch.from_numpy(a.copy()).to(dev) for a in _decode_inputs(engine, "greedy")]
+    saved = _tree(torch.clone, engine.cache)
+    route = moe.route
+
+    def run(binding, pin=None):
+        """(prefill logits, decode logits), and each step's expert choices
+        (one (B, S, top_k) tensor per MoE layer)."""
+        chosen = ([], [])
+        step = [0]
+
+        def routed(gates, top_k, capacity):
+            picks = chosen[step[0]]
+            top = torch.topk(gates, top_k, dim=-1).indices
+            if pin is not None:
+                top = pin[step[0]][len(picks)]
+                keep = torch.zeros_like(gates, dtype=torch.bool).scatter_(-1, top, True)
+                gates = gates.masked_fill(~keep, float("-inf"))
+            picks.append(top)
+            return route(gates, top_k, capacity)
+
+        moe.route = routed
+        try:
+            with blocks.bind(binding) if binding else contextlib.nullcontext():
+                _, pre = engine._prefill_step(*pre_in, policy="greedy")
+                step[0] = 1
+                _, dec = engine._decode_step(*dec_in, policy="greedy")
+        finally:
+            moe.route = route
+        logits = (pre.float().clone(), dec.float().clone())
+        _tree(lambda pair: pair[0].copy_(pair[1]), _zip_trees(engine.cache, saved))
+        return logits, chosen
+
+    with torch.no_grad():
+        kern, kern_chosen = run(None)
+        plain, plain_chosen = run(PLAIN_ATTENTION)
+        pinned, _ = run(PLAIN_ATTENTION, pin=kern_chosen)
+        torch.cuda.synchronize()
+    out = {"tol": PATH_TOL, "prompt_tokens": len(prompt), "decode_slots": n_req,
+           "within_tol": True}
+    for i, step in enumerate(("prefill", "decode")):
+        got = kern[i]
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"bf16 path: {step} logits are not finite")
+        flips = sum(int((a.sort(-1).values != b.sort(-1).values).any(-1).sum())
+                    for a, b in zip(kern_chosen[i], plain_chosen[i]))
+        out[step] = {"routing_flips": [flips, sum(a[..., 0].numel() for a in kern_chosen[i])]}
+        for name, want in (("pinned", pinned[i]), ("plain", plain[i])):
+            err = float((got - want).abs().max())
+            scale = float(want.abs().max())
+            out[step][name] = {
+                "max_abs_err": err, "max_abs_logit": scale, "rel": err / scale,
+                "argmax_equal": float((got.argmax(-1) == want.argmax(-1)).float().mean())}
+        out["within_tol"] &= out[step]["pinned"]["rel"] <= PATH_TOL
+    engine.run_until_idle(max_steps=1000)
+    return out
 
 
 def phase_main_path_moe(torch, arch: str, phase: str, **engine_kw) -> dict:
@@ -2077,14 +2225,19 @@ def phase_main_path_moe(torch, arch: str, phase: str, **engine_kw) -> dict:
     from repro_torch.configs import get_config
 
     def report(engine, out):
-        routes = out["flash_routes"]
-        want = MOE_FLASH_ROUTE[arch]
-        if routes[want] != out["launches"]["flash_attention"]:
-            raise AssertionError(f"{phase}: flash routes {routes}, all {want} expected")
+        _check_routes(phase, out["flash_routes"], out["launches"]["flash_attention"],
+                      MOE_FLASH_ROUTE[arch])
+        _check_routes(phase, out["paged_routes"], out["launches"]["paged_attention"],
+                      MOE_PAGED_ROUTE[arch])
         out["cut"] = f"{MOE_LAYERS[arch]} of {get_config(arch).n_layers} layers, full width"
         check = _replay_vs_eager(torch, engine, "greedy")
         check["bit_identical"] = all(e == 0.0 for e in check["max_abs_err"].values())
         out["replay_vs_eager"] = [check]
+        if MOE_PAGED_ROUTE[arch] == "latent":  # deepseek-v2: its bf16 path as a whole
+            path = out["bf16_path_vs_plain"] = _bf16_path_vs_plain(torch, engine)
+            if not path["within_tol"]:
+                raise AssertionError(f"{phase}: bf16 logits with pinned routing over "
+                                     f"{PATH_TOL} of the largest |logit|: {path}")
 
     return phase_main_path(torch, arch, phase=phase, report=report, **engine_kw)
 
@@ -2100,6 +2253,10 @@ def phase_extend_mla(torch, main: dict) -> dict:
     eager call from a cloned cache."""
 
     def report(engine, out):
+        _check_routes("extend_mla", out["flash_routes"], out["launches"]["flash_attention"],
+                      MOE_FLASH_ROUTE["deepseek-v2-236b"])
+        _check_routes("extend_mla", out["paged_routes"], out["launches"]["paged_attention"],
+                      MOE_PAGED_ROUTE["deepseek-v2-236b"])
         graphs = out["graphs"]
         ext, fin = graphs["extend"], graphs["extend_sample"]
         if ext["captures"] != 1 or ext["eager_calls"] != 1 or ext["replays"] != ext["calls"] - 1:

@@ -26,7 +26,8 @@ parent, each in a process of its own:
 - ``ssd_kernels``: chip_smoke.py's phase-2 cases of the SSD chunk kernel
   (CUDA graphs, cold L2), each case's ms beside its plain version's;
 - ``flash_kernels``: the flash kernel at phase 2's main shapes (f32 at
-  S=300, bf16 at S=512 with D 64 and 112; CUDA graphs, cold L2);
+  S=300, bf16 at S=512 with D 64 and 112, arctic's D 128 and deepseek-v2's
+  qk 192 / v 128; CUDA graphs, cold L2), each row with its route;
 - ``paged_kernels``: this tree's chip_smoke.py phase-2 cases of paged
   attention (CUDA graphs, cold L2), run against each version's kernel;
 - ``offload_kernels``: chip_smoke.py's phase-2 cases of the offload GEMM
@@ -179,11 +180,19 @@ import chip_smoke as c
 from repro_torch.kernels.attention import flash_attention
 g = torch.Generator(device="cuda").manual_seed(0)
 timer = c.Timer(torch)
-for h, kh, s, d, dtype in ((32, 8, 300, 64, torch.float32), (32, 8, 512, 64, torch.bfloat16),
-                           (32, 32, 512, 112, torch.bfloat16)):
-    q, k, v = (torch.randn((1, n, s, d), generator=g, device="cuda").to(dtype) for n in (h, kh, kh))
-    print(json.dumps({"phase": "kernel", "name": "flash_attention", "shape": [1, h, kh, s, d],
-                      "dtype": str(dtype), "ms": timer.ms(lambda: flash_attention(q, k, v))}))
+for h, kh, s, d, dv, dtype in ((32, 8, 300, 64, 64, torch.float32),
+                               (32, 8, 512, 64, 64, torch.bfloat16),
+                               (32, 32, 512, 112, 112, torch.bfloat16),
+                               (56, 8, 512, 128, 128, torch.bfloat16),
+                               (128, 128, 512, 192, 128, torch.bfloat16)):
+    q, k, v = (torch.randn((1, n, s, e), generator=g, device="cuda").to(dtype)
+               for n, e in ((h, d), (kh, d), (kh, dv)))
+    before = dict(flash_attention.routes)
+    flash_attention(q, k, v)
+    route = [r for r, n in flash_attention.routes.items() if n > before[r]]
+    print(json.dumps({"phase": "kernel", "name": "flash_attention", "shape": [1, h, kh, s, d, dv],
+                      "dtype": str(dtype), "route": route[0],
+                      "ms": timer.ms(lambda: flash_attention(q, k, v))}))
 '''
 MAIN_PATH_SSM = MAIN_PATH.replace(
     "c.phase_main_path(torch); c.phase_main_path(torch); c.phase_decode_profile(torch, sampled=False)",

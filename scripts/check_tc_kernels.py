@@ -4,8 +4,9 @@ print ptxas's lines for flash_attention.cu, ssd_chunks.cu and the three
 GEMM kernels (matmul.cu: matmul and the Schur update; complex_matmul.cu),
 hold the SSD kernel's two routes against the plain version
 (chip_smoke.SSD_TOL) with each output's error against an f64 computation
-beside the plain version's, the flash kernel's two routes (dv != d, D up
-to 512 and D % 8 != 0 on the CUDA cores) and the three 3xTF32 GEMM kernels against their
+beside the plain version's, the flash kernel's two routes (f32, v's head
+dim past 128, D past 256 and D % 8 != 0 on the CUDA cores; dv != d up to
+qk 256 / v 128 on wgmma) and the three 3xTF32 GEMM kernels against their
 plain versions (chip_smoke.py's tolerances) at the serving and offload
 shapes, ragged shapes whose N or K is not a multiple of 4 and a misaligned
 operand view (both padded or copied by the wrappers for TMA), and time
@@ -36,7 +37,8 @@ FLASH_CASES = [  # B, H, KH, S, D, Dv, dtype, causal
     (1, 32, 8, 512, 64, 64, torch.bfloat16, True), (1, 32, 8, 300, 64, 64, torch.bfloat16, True),
     (2, 32, 32, 300, 112, 112, torch.bfloat16, True), (1, 32, 32, 512, 112, 112, torch.bfloat16, True),
     (1, 8, 8, 200, 64, 64, torch.bfloat16, False), (1, 32, 8, 300, 64, 64, torch.float32, True),
-    # the CUDA-core route's shapes: dv != d, D past 128, a D not a multiple of 8
+    # dv != d (f32 on the CUDA cores, bf16 on wgmma up to qk 256 / v 128), D
+    # past 256, a D not a multiple of 8 (the CUDA cores)
     (1, 4, 4, 128, 48, 32, torch.float32, True), (1, 4, 2, 128, 48, 32, torch.bfloat16, True),
     (1, 128, 128, 512, 192, 128, torch.bfloat16, True), (1, 8, 8, 300, 100, 100, torch.bfloat16, True),
     (1, 4, 4, 70, 512, 512, torch.bfloat16, True), (1, 2, 1, 33, 7, 200, torch.float32, False),

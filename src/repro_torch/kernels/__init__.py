@@ -49,7 +49,7 @@ KERNELS = {
 GRAD_DEFAULT = "grad_default"
 #: the counters kept per route or form beside a kernel's launches
 _SUBCOUNTS = {"flash_attention": "routes", "flash_attention_bwd": "routes", "rmsnorm": "forms",
-              "rmsnorm_bwd": "forms"}
+              "rmsnorm_bwd": "forms", "paged_attention": "routes"}
 
 
 #: (block, target) -> the calls that target cannot differentiate
@@ -228,6 +228,7 @@ def reset_launches() -> None:
         fn.launches = 0
     attention.flash_attention.routes = dict.fromkeys(attention.ROUTES, 0)
     attention.flash_attention_bwd.routes = dict.fromkeys(attention.BWD_ROUTES, 0)
+    paged_attention.paged_attention.routes = dict.fromkeys(paged_attention.ROUTES, 0)
     rmsnorm.rmsnorm.forms = dict.fromkeys(rmsnorm.FORMS, 0)
     rmsnorm.rmsnorm_bwd.forms = dict.fromkeys(rmsnorm.BWD_FORMS, 0)
     blocks.registry.grad_defaults.clear()
@@ -238,8 +239,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def counters() -> dict[str, int]:
-    """Every launch counter by name: each kernel's launches, flash's per
-    route and rmsnorm's (forward and backward) per form; and
+    """Every launch counter by name: each kernel's launches, flash's and
+    paged attention's per route and rmsnorm's (forward and backward) per
+    form; and
     ``grad_default/<block>[.<form>]``, the unbound calls resolved to
     ``torch`` for a gradient their ``cuda`` target cannot take (never
     under a CUDA graph's capture, which records no gradient).  A CUDA graph

@@ -27,6 +27,10 @@ MAX_HEAD_DIM = 512
 MAX_BWD_HEAD_DIM = 256
 #: the kernel's routes, by the code the C entry point takes
 ROUTES = ("cuda_cores", "wgmma")
+#: the largest head dims the forward's wgmma route takes: four column boxes
+#: of 64 for q and k, two for v
+MAX_WGMMA_HEAD_DIM = 256
+MAX_WGMMA_V_HEAD_DIM = 128
 #: the backward kernel's routes, by the code its C entry point takes
 BWD_ROUTES = ("cuda_cores", "wgmma")
 #: the largest head dim the backward's wgmma route takes (two column boxes)
@@ -92,12 +96,15 @@ def flash_bwd_work(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
-    """The kernel's route for these operands: bf16 with D == Dv <= 128,
-    D % 8 == 0 and 16-byte aligned operands (what TMA loads) runs on
-    wgmma; f32 and every other bf16 shape on the CUDA cores."""
+    """The kernel's route for these operands: bf16 with D and Dv multiples
+    of 8, D <= ``MAX_WGMMA_HEAD_DIM``, Dv <= ``MAX_WGMMA_V_HEAD_DIM`` and
+    16-byte aligned operands (what TMA loads: deepseek-v2's qk 192 / v 128
+    among them) runs on wgmma; f32 and every other bf16 shape on the CUDA
+    cores."""
     d, dv = q.shape[-1], v.shape[-1]
     aligned = all(build.aligned(t) for t in (q, k, v))
-    tma = q.dtype == torch.bfloat16 and d == dv <= 128 and d % 8 == 0 and aligned
+    tma = (q.dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0
+           and d <= MAX_WGMMA_HEAD_DIM and dv <= MAX_WGMMA_V_HEAD_DIM and aligned)
     return "wgmma" if tma else "cuda_cores"
 
 
@@ -200,8 +207,9 @@ def flash_attention(
     """The CUDA kernel for CUDA tensors, the plain version for CPU ones.
 
     The route comes from :func:`flash_route` (D, Dv <= 512 on the CUDA
-    cores); ``flash_attention.routes`` counts the launches of each.  Under
-    autograd (grad mode on, an input requiring grad) the call goes through
+    cores; bf16 up to qk 256 / v 128 on wgmma); ``flash_attention.routes``
+    counts the launches of each.  Under autograd (grad mode on, an input
+    requiring grad) the call goes through
     :class:`FlashAttentionFn`, whose backward is the backward kernel (head
     dims up to ``MAX_BWD_HEAD_DIM``, a sequence attending to itself)."""
     if q.device.type == "cpu":

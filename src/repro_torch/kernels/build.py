@@ -66,8 +66,8 @@ ENTRY_POINTS = {
     "repro_rmsnorm": [_I] + [_P] * 7 + [_L] * 12 + [_I] * 4 + [_F] + [_I] * 4 + [_P],
     # q, k_pool, v_pool, q_rope, kr_pool, pages, index, out, workspace,
     # workspace_elems, B, H, KH, S, Dk, Dv, Dr, page_size, max_pages,
-    # pool_pages, pages_per_split, n_splits, scale, dtype, stream
-    "repro_paged_attention": [_P] * 9 + [_L] + [_I] * 12 + [_F, _I, _P],
+    # pool_pages, pages_per_split, n_splits, scale, dtype, route, stream
+    "repro_paged_attention": [_P] * 9 + [_L] + [_I] * 12 + [_F, _I, _I, _P],
     # q, k, v, out, lse (or null), B, H, KH, Sq, Skv, D, Dv, causal, scale,
     # dtype, route, stream
     "repro_flash_attention": [_P] * 5 + [_I] * 8 + [_F, _I, _I, _P],

@@ -24,8 +24,9 @@
 // dtype, shape and alignment and passes it in; repro_flash_attention
 // refuses a wgmma request that TMA cannot load:
 //
-// bf16 with D == Dv <= 128, D % 8 == 0 and 16-byte aligned operands (every
-// serving config's prefill): an FA3-shaped kernel on the tensor cores.
+// bf16 with D and Dv multiples of 8, D <= 256, Dv <= 128 and 16-byte
+// aligned operands (every serving config's prefill, deepseek-v2's MLA at qk
+// 192 / v 128 among them): an FA3-shaped kernel on the tensor cores.
 // One CTA per (query tile of 64 rows, head, batch): one consumer warpgroup
 // and one producer warp.  The producer loads the q tile once and keeps TMA
 // loads of the K and V tiles in flight through two shared-memory stages,
@@ -34,22 +35,26 @@
 // accumulators), scales S after the product, takes the online softmax on
 // the accumulator fragment in registers, converts P to bf16 in registers
 // as the A operand of O += P V (V read MN-major, as stored), and writes
-// O / l once.  Loads use 3-D tensor maps (D, S, B * heads): a ragged
-// sequence edge is out of bounds, zero-filled, and masked, never the next
-// head's rows.  Head dims are loaded in column boxes of 64 (128 bytes,
-// the swizzle's row): D <= 64 takes one box and 128-key tiles, 64 < D <=
-// 128 (zamba2's 112) two boxes and 64-key tiles, so both keep 96 f32
-// accumulator registers a thread; dims past D are zero-filled, so Q K^T
-// runs ceil(D / 16) k16 steps and P V an N of 64 or 128.  Key tiles above
-// the diagonal are skipped, and only the diagonal tile and the ragged edge
-// are masked.  The grid runs the heaviest (last) query tiles first.  The
-// KV head's G = H / KH query heads are not packed into one CTA: each CTA
-// reads its KV head's tiles, which the G heads' CTAs find in L2.  Head
-// dims must be multiples of 8 (TMA's 16-byte strides).
+// O / l once, rows Dv apart.  Loads use 3-D tensor maps (D or Dv, S, B *
+// heads): a ragged sequence edge is out of bounds, zero-filled, and
+// masked, never the next head's rows.  Head dims are loaded in column
+// boxes of 64 (128 bytes, the swizzle's row), NBK = ceil(D / 64) for q and
+// k (1-4) and NBV = ceil(Dv / 64) for v (1-2), each pair an instantiation;
+// key tiles are 128 / NBV wide, so S (64 / NBV registers a thread) and O
+// (32 NBV) keep 96 f32 accumulators a thread at every width (D = Dv = 64:
+// one box, 128 keys; zamba2's 112 and arctic's 128: two boxes, 64 keys;
+// qk 192 / v 128: three and two, 64 keys, 104 KB of shared memory).  Dims
+// past D or Dv are zero-filled, so Q K^T runs ceil(D / 16) k16 steps and P V
+// an N of 64 NBV.  Key tiles above the diagonal are skipped, and only the
+// diagonal tile and the ragged edge are masked.  The grid runs the
+// heaviest (last) query tiles first.  The KV head's G = H / KH query heads
+// are not packed into one CTA: each CTA reads its KV head's tiles, which
+// the G heads' CTAs find in L2.
 //
-// f32, and every other bf16 shape (dv != d as MLA's qk 192 / v 128, D up
-// to 512, any D or alignment): a CUDA-core kernel, templated on the
-// element type and on v's head dims per lane; chip_smoke's f32 served
+// f32, and every other bf16 shape (v's head dim past 128, q's past 256, a
+// head dim not a multiple of 8, an unaligned operand; D and Dv up to 512):
+// a CUDA-core kernel, templated on the element type and on v's head dims
+// per lane; chip_smoke's f32 served
 // traces hold it token for token against the plain version.  Shared
 // memory grows with D and Dv (~194 KB at 512 / 512), set above 48 KB
 // through cudaFuncAttributeMaxDynamicSharedMemorySize.  One CTA of 4 warps per
@@ -251,17 +256,20 @@ constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
-// NB column boxes of 64 head dims, BKV keys per tile
-template <int NB>
+// NBK column boxes of 64 head dims for q and k, NBV for v, BKV keys per
+// tile: 128 / NBV, so S (BKV / 2 registers a thread) and O (32 NBV) hold
+// 96 f32 accumulators a thread at every width
+template <int NBK, int NBV>
 struct Cfg {
-  static constexpr int kBKV = 128 / NB;
-  static constexpr int kQBytes = NB * kBM * kRow;
-  static constexpr int kTileBytes = NB * kBKV * kRow;  // a K or V tile
-  static constexpr int kStageBytes = 2 * kTileBytes;
+  static constexpr int kBKV = 128 / NBV;
+  static constexpr int kQBytes = NBK * kBM * kRow;
+  static constexpr int kKBytes = NBK * kBKV * kRow;  // a K tile
+  static constexpr int kVBytes = NBV * kBKV * kRow;  // a V tile
+  static constexpr int kStageBytes = kKBytes + kVBytes;
   static constexpr int kBarOffset = kQBytes + kStages * kStageBytes;
   static constexpr int kSmem = kBarOffset + (2 * kStages + 1) * 8 + 1024;
   static constexpr int kS = kBKV / 2;  // score registers a thread
-  static constexpr int kO = 32 * NB;   // output registers a thread
+  static constexpr int kO = 32 * NBV;  // output registers a thread
 };
 
 // S = Q K^T (N = keys) and O += P V (N = head dims) at the tile widths
@@ -278,20 +286,20 @@ __device__ __forceinline__ void mma_pv(float (&d)[64], const uint32_t (&a)[4], u
   mma_bf16_rs_n128(d, a, b, 1);
 }
 
-template <int NB>
+template <int NBK, int NBV>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const __grid_constant__ CUtensorMap q_map,
              const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map,
              __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int H,
-             int KH, int Sq, int Skv, int D, int causal, float scale_log2) {
-  using C = Cfg<NB>;
+             int KH, int Sq, int Skv, int D, int Dv, int causal, float scale_log2) {
+  using C = Cfg<NBK, NBV>;
   constexpr int kBKV = C::kBKV;
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* qs = smem;
-  uint8_t* kv = smem + C::kQBytes;  // stage s: K at s * kStageBytes, V after
+  uint8_t* kv = smem + C::kQBytes;  // stage s: K at s * kStageBytes, V after it
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kBarOffset);
   uint64_t* empty = full + kStages;
   uint64_t* q_full = empty + kStages;
@@ -317,7 +325,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
     if (tid == kConsumers) {
       mbar_expect_tx(q_full, C::kQBytes);
 #pragma unroll
-      for (int c = 0; c < NB; ++c) {
+      for (int c = 0; c < NBK; ++c) {
         tma_load_3d(qs + c * kBM * kRow, &q_map, q_full, 64 * c, q0, b * H + h);
       }
       for (int t = 0; t < n_kv; ++t) {
@@ -326,9 +334,12 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
         mbar_expect_tx(&full[s], C::kStageBytes);
         uint8_t* ks = kv + s * C::kStageBytes;
 #pragma unroll
-        for (int c = 0; c < NB; ++c) {
+        for (int c = 0; c < NBK; ++c) {
           tma_load_3d(ks + c * kBKV * kRow, &k_map, &full[s], 64 * c, t * kBKV, b * KH + kh);
-          tma_load_3d(ks + C::kTileBytes + c * kBKV * kRow, &v_map, &full[s], 64 * c,
+        }
+#pragma unroll
+        for (int c = 0; c < NBV; ++c) {
+          tma_load_3d(ks + C::kKBytes + c * kBKV * kRow, &v_map, &full[s], 64 * c,
                       t * kBKV, b * KH + kh);
         }
       }
@@ -348,7 +359,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int t = 0; t < n_kv; ++t) {
     const int s = t % kStages;
     const uint8_t* ks = kv + s * C::kStageBytes;
-    const uint8_t* vs = ks + C::kTileBytes;
+    const uint8_t* vs = ks + C::kKBytes;
     mbar_wait(&full[s], (t / kStages) & 1);
 
     float sc[C::kS];
@@ -356,7 +367,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
     for (int i = 0; i < C::kS; ++i) sc[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < 4 * NB; ++kk) {  // k16 steps: 32 bytes of a row each
+    for (int kk = 0; kk < 4 * NBK; ++kk) {  // k16 steps: 32 bytes of a row each
       if (kk < ksteps) {
         const int c = kk / 4, off = (kk % 4) * 32;
         mma_qk(sc, desc_sw128(qs + c * kBM * kRow + off),
@@ -419,7 +430,7 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
     mbar_arrive(&empty[s]);
   }
 
-  __nv_bfloat16* ob = out + (static_cast<size_t>(b) * H + h) * Sq * D;
+  __nv_bfloat16* ob = out + (static_cast<size_t>(b) * H + h) * Sq * Dv;
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
@@ -435,31 +446,44 @@ flash_kernel(const __grid_constant__ CUtensorMap q_map,
   for (int i = 0; i < C::kO; i += 2) {
     const int row = r0 + 8 * ((i / 2) % 2);
     const int col = 8 * (i / 4) + 2 * (lane % 4);
-    if (row < Sq && col < D) {  // D % 8 == 0, so col + 1 < D too
+    if (row < Sq && col < Dv) {  // Dv % 8 == 0, so col + 1 < Dv too
       const float lv = l[(i / 2) % 2];
-      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(row) * D + col) =
+      *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(row) * Dv + col) =
           __floats2bfloat162_rn(o[i] / lv, o[i + 1] / lv);
     }
   }
 }
 
-template <int NB>
+template <int NBK, int NBV>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    float* lse, int B, int H, int KH, int Sq, int Skv, int D,
-                   int causal, float scale, cudaStream_t stream) {
-  using C = Cfg<NB>;
+                   int Dv, int causal, float scale, cudaStream_t stream) {
+  using C = Cfg<NBK, NBV>;
   CUtensorMap q_map, k_map, v_map;
   cudaError_t err = map_heads(&q_map, q, D, Sq, B * H, kBM);
   if (err == cudaSuccess) err = map_heads(&k_map, k, D, Skv, B * KH, C::kBKV);
-  if (err == cudaSuccess) err = map_heads(&v_map, v, D, Skv, B * KH, C::kBKV);
+  if (err == cudaSuccess) err = map_heads(&v_map, v, Dv, Skv, B * KH, C::kBKV);
   if (err != cudaSuccess) return err;
-  static const cudaError_t smem_err = allow_smem(flash_kernel<NB>, C::kSmem);
+  static const cudaError_t smem_err = allow_smem(flash_kernel<NBK, NBV>, C::kSmem);
   if (smem_err != cudaSuccess) return smem_err;
   const dim3 grid(H, B, (Sq + kBM - 1) / kBM);
-  flash_kernel<NB><<<grid, kThreads, C::kSmem, stream>>>(
+  flash_kernel<NBK, NBV><<<grid, kThreads, C::kSmem, stream>>>(
       q_map, k_map, v_map, static_cast<__nv_bfloat16*>(out), lse, H, KH, Sq,
-      Skv, D, causal, scale * kLog2e);
+      Skv, D, Dv, causal, scale * kLog2e);
   return cudaSuccess;
+}
+
+// the instantiation for q / k's column boxes (1-4) and v's (1-2)
+template <int NBV>
+cudaError_t launch_nbk(int nbk, const void* q, const void* k, const void* v, void* out,
+                       float* lse, int B, int H, int KH, int Sq, int Skv, int D, int Dv,
+                       int causal, float scale, cudaStream_t stream) {
+  switch (nbk) {
+    case 1: return launch<1, NBV>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal, scale, stream);
+    case 2: return launch<2, NBV>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal, scale, stream);
+    case 3: return launch<3, NBV>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal, scale, stream);
+    default: return launch<4, NBV>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal, scale, stream);
+  }
 }
 
 }  // namespace tc
@@ -485,16 +509,19 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   float* lse = static_cast<float*>(lse_out);  // null: not asked for
   cudaError_t err;
   if (route == kRouteWgmma) {
-    // what TMA can load: bf16, one head dim for q, k and v, at most two
-    // column boxes, 16-byte rows and bases
+    // what TMA can load: bf16, head dims multiples of 8 (16-byte rows) in at
+    // most four column boxes for q and k and two for v, 16-byte bases
     const bool aligned = (reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                           reinterpret_cast<uintptr_t>(v)) % 16 == 0;
-    if (dtype != repro::kBFloat16 || D != Dv || D > 128 || D % 8 || !aligned) {
+    if (dtype != repro::kBFloat16 || D % 8 || Dv % 8 || D > 256 || Dv > 128 || !aligned) {
       return cudaErrorInvalidValue;
     }
-    err = D <= 64
-              ? tc::launch<1>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, causal, scale, s)
-              : tc::launch<2>(q, k, v, out, lse, B, H, KH, Sq, Skv, D, causal, scale, s);
+    const int nbk = (D + 63) / 64;
+    err = Dv <= 64
+              ? tc::launch_nbk<1>(nbk, q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal,
+                                  scale, s)
+              : tc::launch_nbk<2>(nbk, q, k, v, out, lse, B, H, KH, Sq, Skv, D, Dv, causal,
+                                  scale, s);
   } else if (route != kRouteCudaCores) {
     return cudaErrorInvalidValue;
   } else if (dtype == repro::kBFloat16) {

@@ -22,7 +22,13 @@
 // the merge), how many SMs share the walk, and how many loads are in
 // flight.  Measured on the card, each step of that chain costs a warp far
 // more than its arithmetic, so the design shortens the chain and keeps the
-// instructions on it few.
+// instructions on it few.  MLA is another matter: deepseek-v2's G = 128
+// rows read one 576-wide row (512 latent, 64 rope) per position as keys
+// and the 512 latent dims again as values, ~2 * 128 * 1088 flops per 1152
+// bytes, ~240 flops a byte at decode, near the card's ~295 balance; its
+// extend chunks (S times the rows on the same bytes) are bound by
+// operations.
+// Its own walk (the latent walk, below) puts them on wgmma.
 //
 // Design:
 // - Grid (n_splits, KH * row blocks, B).  A split is a run of
@@ -63,6 +69,15 @@
 //   tensor cores gain 1.2-1.3x at 8-16 rows and lose at 1-4 rows (up to
 //   1.2x slower), whose 16-row M is mostly zeros.  Divisors are set on the
 //   host (FastDiv); the inner loops carry no branch.
+// - The latent walk (the wrapper's route "latent": bf16, one pool passed
+//   as keys and values, Dk == Dv a multiple of 64 up to 512, rope rows of
+//   up to 64 dims, pages of a multiple of 8 rows; latent:: below): a CTA
+//   per (split, 64 query rows, slot), a producer warpgroup staging each
+//   64-position sub-tile by TMA once, two consumer warpgroups on wgmma
+//   (S = [q | q_rope] [c | k_rope]^T with K = 576, then 256 of the latent's
+//   512 columns each of O = P c).  The split plan comes from the wrapper
+//   (latent_plan: one CTA an SM, splits of >= 128 positions); a plan of
+//   one split writes the output itself and launches no merge.
 // - Each (split, group) writes its partial (max, sum, f32 accumulator) to a
 //   workspace; a second kernel merges each row's partials with log-sum-exp
 //   weights, the l == 0 -> 1 guard and the cast to q's type (no counters,
@@ -820,6 +835,259 @@ paged_attention_split(const __grid_constant__ CUtensorMap k_map,
   walk.write(p, (static_cast<size_t>(sp) * p.pg + group) * p.NR + row0 + r_lo, r_n, lane);
 }
 
+// -- the latent walk: MLA's latent pool as keys and values, on wgmma ---------
+
+namespace latent {
+
+using namespace repro::hopper;
+
+constexpr int kRows = 64;              // query rows a CTA: the M of wgmma
+constexpr int kSub = 64;               // positions a sub-tile: the N of S
+constexpr int kStages = 2;
+constexpr int kLatBoxes = 8;           // 64-dim column boxes of a 512-wide latent row
+constexpr int kBoxes = kLatBoxes + 1;  // and the rope keys' box (Dr <= 64)
+constexpr int kQBox = kRows * 128;     // bytes of a column box of q's tile
+constexpr int kBox = kSub * 128;       // of a sub-tile
+constexpr int kQBytes = kBoxes * kQBox;
+constexpr int kSlotBytes = kBoxes * kBox;
+constexpr int kHalf = 256;             // latent columns a consumer warpgroup holds
+constexpr int kConsumers = 256;        // two warpgroups: columns [0, 256) and [256, 512)
+constexpr int kThreads = kConsumers + 128;  // and a producer warpgroup
+constexpr int kSmemFixed = 1024 + kQBytes + kStages * kSlotBytes + (2 * kStages + 1) * 8;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+// A CTA per (split, 64-row tile of the kv head's R = G * S rows, slot): the
+// two tiles of a decode step's 128 rows run side by side, each reading the
+// latent once (one CTA walking both, the second reading it again from L2,
+// was slower on the H100 at decode and at 16-token chunks).  The producer
+// warpgroup gives its registers to the consumers, loads the tile's q and
+// q_rope once (3-D maps (D, R, B): rows past R come as zeros) and keeps
+// each sub-tile of kSub positions in flight by TMA through two stages: the
+// latent rows once, as keys and as values, and the rope rows beside them,
+// page by page, each stage completing on an mbarrier.  Each consumer
+// warpgroup computes S = [q | q_rope] [c | k_rope]^T (K = 576 in k16
+// steps, both operands K-major, f32 accumulators) for the whole tile,
+// takes the online softmax on S's fragment with the explicit re-mask, and
+// O[:, half] += P C[:, half] (P rounded to bf16 in registers as the A
+// operand, C read MN-major from the same staged rows, N = 256).  The two
+// warpgroups compute the same S and the same softmax (the same
+// instructions on the same operands give the same bits), so nothing passes
+// between them: a second Q K^T costs tensor-core time, not a handoff.
+__global__ void __launch_bounds__(kThreads, 1)
+paged_attention_latent(const __grid_constant__ CUtensorMap q_map,
+                       const __grid_constant__ CUtensorMap qr_map,
+                       const __grid_constant__ CUtensorMap c_map,
+                       const __grid_constant__ CUtensorMap kr_map,
+                       const __grid_constant__ Params p) {
+  extern __shared__ __align__(16) char smem_raw[];
+  char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");  // the merge may start
+  const int tid = threadIdx.x;
+  const int sp = blockIdx.x;
+  const int b = blockIdx.z;
+  char* qs = smem;
+  char* slots = smem + kQBytes;
+  uint64_t* full = reinterpret_cast<uint64_t*>(slots + kStages * kSlotBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* q_full = empty + kStages;
+  int* page_s = reinterpret_cast<int*>(q_full + 1);
+
+  const int split_len = p.pps * p.ps;
+  const int pos0 = sp * split_len;
+  const int base = p.index[b];
+  // positions the slot's last row attends (the merge reads a partial of
+  // every split that starts before them); the split's share of them
+  const int n_pos = min(base + p.S, p.ps * p.mp);
+  if (pos0 >= n_pos) return;
+  const int pos1 = min(pos0 + split_len, n_pos);
+  // the tile's rows, the end of the positions they see in the split (its
+  // largest chunk position bounds them: the causal skip) and the sub-tiles
+  // that cover them
+  const int rbase = blockIdx.y * kRows;
+  const int rows = min(kRows, p.R - rbase);
+  const int s0 = rbase - p.by_s.div(rbase) * p.S;
+  const int end = min(pos1, base + min(s0 + rows, p.S));
+  const int n_sub = end > pos0 ? (end - pos0 + kSub - 1) / kSub : 0;
+  const int* split_pages = p.pages + static_cast<size_t>(b) * p.mp + sp * p.pps;
+  for (int i = tid; i < (pos1 - pos0 + p.ps - 1) / p.ps; i += kThreads) page_s[i] = split_pages[i];
+  // rows a sub-tile does not load (and q's and the slots' boxes past Dk)
+  // hold zeros, never stale bits: P = 0 times them is 0
+  for (int i = 16 * tid; i < kQBytes + kStages * kSlotBytes; i += 16 * kThreads) {
+    if (i >= kQBytes || p.Dk < 64 * kLatBoxes) *reinterpret_cast<uint4*>(smem + i) = make_uint4(0, 0, 0, 0);
+  }
+  fence_async_smem();
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  const int nbl = p.Dk / 64;  // latent boxes loaded
+
+  if (tid >= kConsumers) {  // the producer warpgroup: one thread issues the loads
+    regs_dealloc<40>();
+    if (tid != kConsumers) return;
+    mbar_expect_tx(q_full, (nbl + 1) * kQBox);
+    for (int c = 0; c < nbl; ++c) tma_load_3d(qs + c * kQBox, &q_map, q_full, 64 * c, rbase, b);
+    tma_load_3d(qs + kLatBoxes * kQBox, &qr_map, q_full, 0, rbase, b);
+    for (int k = 0; k < n_sub; ++k) {
+      const int st = k % kStages;
+      mbar_wait(&empty[st], ((k / kStages) & 1) ^ 1);
+      char* slot = slots + st * kSlotBytes;
+      const int t0 = k * kSub;  // from the split's first position
+      const int n = min(kSub, end - pos0 - t0);
+      const int boxes = (n + p.bh - 1) / p.bh;
+      mbar_expect_tx(&full[st], boxes * p.bh * 128 * (nbl + 1));
+      for (int x = 0; x < boxes; ++x) {
+        const int tp = t0 + x * p.bh;
+        const int page_i = p.by_ps.div(tp);
+        const int row = page_s[page_i] * p.ps + tp - page_i * p.ps;  // KH = 1
+        char* dst = slot + x * p.bh * 128;
+        for (int c = 0; c < nbl; ++c) tma_load_2d(dst + c * kBox, &c_map, &full[st], 64 * c, row);
+        tma_load_2d(dst + kLatBoxes * kBox, &kr_map, &full[st], 0, row);
+      }
+    }
+    return;
+  }
+
+  regs_alloc<232>();
+  const int wg = tid / 128;  // this warpgroup's half of the latent's columns
+  const int warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = 16 * warp + lane / 4;  // this thread's rows: r0, r0 + 8
+  const float scale_log2 = p.scale * kLog2e;
+  int qpos[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = rbase + r0 + 8 * h;
+    qpos[h] = r0 + 8 * h < rows ? base + row - p.by_s.div(row) * p.S : -1;
+  }
+  float o[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) o[i] = 0.f;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.f, 0.f};
+  mbar_wait(q_full, 0);
+
+  for (int k = 0; k < n_sub; ++k) {
+    const int st = k % kStages;
+    const char* slot = slots + st * kSlotBytes;
+    mbar_wait(&full[st], (k / kStages) & 1);
+    float sc[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < kBoxes; ++c) {
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // k16 steps: 32 bytes of a row each
+        mma_bf16_ss_n64(sc, desc_sw128(qs + c * kQBox + kk * 32),
+                        desc_sw128(slot + c * kBox + kk * 32), c > 0 || kk > 0);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    // online softmax on the fragment: register i holds row r0 + 8 * ((i /
+    // 2) % 2), position t0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2; the
+    // explicit re-mask: a masked position contributes exactly nothing, also
+    // to a row that has seen none yet
+    const int t0 = pos0 + k * kSub;
+    const int n = min(kSub, end - t0);
+    float mx[2] = {m[0], m[1]};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+      const bool valid = j < n && t0 + j <= qpos[(i / 2) % 2];
+      sc[i] = valid ? sc[i] * scale_log2 : kNeg;
+      mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], sc[i]);
+    }
+    float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      alpha[h] = exp2f(m[h] - mx[h]);
+      m[h] = mx[h];
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const float pv = sc[i] > kNeg ? exp2f(sc[i] - m[(i / 2) % 2]) : 0.f;
+      sc[i] = pv;
+      sum[(i / 2) % 2] += pv;
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) l[h] = l[h] * alpha[h] + sum[h];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) o[i] *= alpha[(i / 2) % 2];
+
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kSub / 16; ++kk) {
+      // the A fragment of positions 16 kk .. 16 kk + 15 is S's registers 8
+      // kk .. 8 kk + 7, packed in pairs
+      const uint32_t a[4] = {
+          pack_bf16(sc[8 * kk + 0], sc[8 * kk + 1]), pack_bf16(sc[8 * kk + 2], sc[8 * kk + 3]),
+          pack_bf16(sc[8 * kk + 4], sc[8 * kk + 5]), pack_bf16(sc[8 * kk + 6], sc[8 * kk + 7])};
+      mma_bf16_rs_n256(o, a, desc_sw128(slot + 4 * wg * kBox + kk * 16 * 128, kBox), 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(o);
+    mbar_arrive(&empty[st]);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  const size_t at0 = static_cast<size_t>(sp) * p.NR + static_cast<size_t>(b) * p.R + rbase;
+  if (p.n_splits == 1) {
+    // one split: the tile's rows are whole, so it writes them as the merge
+    // of one partial would (acc * (1 / l), l == 0 -> 1, one rounding to
+    // bf16), and no merge runs
+    const float inv[2] = {1.f / (l[0] == 0.f ? 1.f : l[0]), 1.f / (l[1] == 0.f ? 1.f : l[1])};
+    __nv_bfloat16* ob = static_cast<__nv_bfloat16*>(p.out) + at0 * p.Dv;
+#pragma unroll
+    for (int i = 0; i < 128; i += 2) {
+      const int r = r0 + 8 * ((i / 2) % 2);
+      const int col = kHalf * wg + 8 * (i / 4) + 2 * (lane % 4);
+      if (r < rows && col < p.Dv) {
+        const float w = inv[(i / 2) % 2];
+        *reinterpret_cast<__nv_bfloat162*>(ob + static_cast<size_t>(r) * p.Dv + col) =
+            __floats2bfloat162_rn(o[i] * w, o[i + 1] * w);
+      }
+    }
+    return;
+  }
+
+  // the tile's partial, as one (split, group) of the workspace: the
+  // accumulator's half of each row, and (by the first warpgroup) its max,
+  // in natural-log units as the merge weighs it, and its sum
+#pragma unroll
+  for (int i = 0; i < 128; i += 2) {
+    const int r = r0 + 8 * ((i / 2) % 2);
+    const int col = kHalf * wg + 8 * (i / 4) + 2 * (lane % 4);
+    if (r < rows && col < p.Dv) {
+      *reinterpret_cast<float2*>(p.part_acc + (at0 + r) * p.Dv + col) = make_float2(o[i], o[i + 1]);
+    }
+  }
+  if (wg == 0 && lane % 4 == 0) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      if (r < rows) {
+        *reinterpret_cast<float2*>(p.part_ml + (at0 + r) * 2) = make_float2(m[h] * kLn2, l[h]);
+      }
+    }
+  }
+}
+
+}  // namespace latent
+
 // A warp per (query row, 64 of its head dims): merge the partials of every
 // (split, group) that ran for the row's slot with log-sum-exp weights.  A
 // partial that saw no position of this row holds (kNeg, 0, 0) and adds
@@ -905,6 +1173,25 @@ cudaError_t pool_map(CUtensorMap* map, const void* pool, int D, long long rows, 
   return repro::hopper::make_map(
       map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
       2, pool, dims, strides, box, CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// the merge of the partials, as the split kernel's programmatic dependent
+template <typename T>
+cudaError_t launch_merge(const Params& p, cudaStream_t stream) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((p.NR * ((p.Dv + 63) / 64) + 7) / 8));
+  cfg.blockDim = dim3(256);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr;
+  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr.val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = &attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, paged_attention_merge<T>,
+                            static_cast<const float*>(p.part_acc),
+                            static_cast<const float*>(p.part_ml), p.index, static_cast<T*>(p.out),
+                            p.NR, p.KH * p.R, p.S, p.Dv, p.ps * p.mp, p.pps * p.ps, p.n_splits,
+                            p.pg);
 }
 
 template <typename T, typename Walk>
@@ -1030,38 +1317,67 @@ cudaError_t launch(Params p, int B, int pool_pages, long long work_elems, cudaSt
     err = launch_core<T>(maps, p, pairs, k_rows, B, smem, stream);
   }
   if (err != cudaSuccess) return err;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>((p.NR * ((p.Dv + 63) / 64) + 7) / 8));
-  cfg.blockDim = dim3(256);
-  cfg.stream = stream;
-  cudaLaunchAttribute attr;
-  attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  attr.val.programmaticStreamSerializationAllowed = 1;
-  cfg.attrs = &attr;
-  cfg.numAttrs = 1;
-  return cudaLaunchKernelEx(&cfg, paged_attention_merge<T>,
-                            static_cast<const float*>(p.part_acc),
-                            static_cast<const float*>(p.part_ml), p.index, static_cast<T*>(p.out),
-                            p.NR, p.KH * p.R, p.S, p.Dv, p.ps * p.mp, p.pps * p.ps, p.n_splits,
-                            p.pg);
+  return launch_merge<T>(p, stream);
 }
+
+// The latent walk: bf16, one kv head whose pool is both keys and values
+// (Dk == Dv, a multiple of 64 up to 512), rope keys of at most 64 dims
+// beside it, pages of a multiple of 8 rows, 16-byte aligned operands
+// (repro_paged_attention checks); an error code for a request it cannot
+// take.  One position group a CTA: its tile's partial is (split, 0).
+cudaError_t launch_latent(Params p, int B, int pool_pages, long long work_elems,
+                          cudaStream_t stream) {
+  p.bh = p.ps % 32 == 0 ? 32 : p.ps % 16 == 0 ? 16 : 8;  // divides kSub and the page
+  p.nrb = (p.R + latent::kRows - 1) / latent::kRows;  // tiles
+  p.pg = 1;
+  p.by_ps = make_div(p.ps);
+  p.by_s = make_div(p.S);
+  const long long parts = static_cast<long long>(p.n_splits) * p.NR;
+  const long long ml_at = (parts * p.Dv + 1) & ~1ll;
+  if (ml_at + 2 * parts > work_elems) return cudaErrorInvalidValue;
+  p.part_ml = p.part_acc + ml_at;
+  const int smem = latent::kSmemFixed + 4 * p.pps;
+  if (smem > kSmemLimit) return cudaErrorInvalidValue;
+  CUtensorMap q_map, qr_map, c_map, kr_map;
+  const long long rows = static_cast<long long>(pool_pages) * p.ps;
+  cudaError_t err = repro::hopper::map_heads(&q_map, p.q, p.Dk, p.R, B, latent::kRows);
+  if (err == cudaSuccess) err = repro::hopper::map_heads(&qr_map, p.q_rope, p.Dr, p.R, B, latent::kRows);
+  if (err == cudaSuccess) err = pool_map<__nv_bfloat16>(&c_map, p.k_pool, p.Dk, rows, p.bh);
+  if (err == cudaSuccess) err = pool_map<__nv_bfloat16>(&kr_map, p.kr_pool, p.Dr, rows, p.bh);
+  if (err != cudaSuccess) return err;
+  static const cudaError_t smem_err =
+      repro::hopper::allow_smem(latent::paged_attention_latent, kSmemLimit);
+  if (smem_err != cudaSuccess) return smem_err;
+  const dim3 grid(p.n_splits, p.nrb, B);
+  latent::paged_attention_latent<<<grid, latent::kThreads, smem, stream>>>(
+      q_map, qr_map, c_map, kr_map, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.n_splits == 1) return err;  // one split: no merge
+  return launch_merge<__nv_bfloat16>(p, stream);
+}
+
+// route codes: kernels/paged_attention.py's ROUTES
+constexpr int kRouteSplit = 0;
+constexpr int kRouteLatent = 1;
 
 }  // namespace
 
 // The pools hold `pool_pages` pages; `workspace` holds `workspace_elems`
 // floats, at least a partial of every (split, position group) and query
 // row: n_splits * groups * B * H * S * (Dv + 2), rounded up to even, with
-// at most kWarps groups a CTA (an error code if it is short);
-// `pages_per_split` and `n_splits` are the wrapper's split plan
-// (repro_torch/kernels/paged_attention.py, split_plan), of any size that
-// covers the table.
+// at most kWarps groups a CTA on the split walk and one on the latent walk
+// (an error code if it is short); `pages_per_split` and `n_splits` are the
+// wrapper's split plan (repro_torch/kernels/paged_attention.py,
+// split_plan), of any size that covers the table.  `route` is the walk the
+// wrapper picked (paged_route): the split walk takes every request; the
+// latent walk refuses one it cannot take, and nothing falls back.
 extern "C" int repro_paged_attention(
     const void* q, const void* k_pool, const void* v_pool, const void* q_rope,
     const void* kr_pool, const void* pages, const void* index, void* out,
     void* workspace, long long workspace_elems, int B, int H, int KH, int S, int Dk, int Dv,
     int Dr,
     int page_size, int max_pages, int pool_pages, int pages_per_split, int n_splits,
-    float scale, int dtype, void* stream) {
+    float scale, int dtype, int route, void* stream) {
   if (B <= 0 || KH <= 0 || S <= 0 || H % KH || page_size <= 0 || pool_pages <= 0 ||
       max_pages <= 0 || Dk <= 0 || Dv <= 0 || Dk > kMaxDim || Dv > kMaxDim ||
       Dr < 0 || Dr > kMaxDim ||
@@ -1094,6 +1410,17 @@ extern "C" int repro_paged_attention(
   p.scale = scale;
   p.part_acc = static_cast<float*>(workspace);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (route == kRouteLatent) {
+    const uintptr_t addr = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(q_rope) |
+                           reinterpret_cast<uintptr_t>(k_pool) |
+                           reinterpret_cast<uintptr_t>(kr_pool);
+    if (dtype != repro::kBFloat16 || k_pool != v_pool || KH != 1 || Dk != Dv || Dk % 64 ||
+        Dr <= 0 || Dr > 64 || Dr % 8 || page_size % 8 || addr % 16) {
+      return cudaErrorInvalidValue;
+    }
+    return launch_latent(p, B, pool_pages, workspace_elems, s);
+  }
+  if (route != kRouteSplit) return cudaErrorInvalidValue;
   if (dtype == repro::kFloat32) return launch<float>(p, B, pool_pages, workspace_elems, s);
   if (dtype == repro::kBFloat16) {
     return launch<__nv_bfloat16>(p, B, pool_pages, workspace_elems, s);

@@ -8,7 +8,8 @@ last pool row), whose garbage rows the mask ``t <= index + s`` always hides.
 
 * :func:`paged_attention` — the wrapper of the fused CUDA kernel
   (``csrc/paged_attention.cu``, replacing ``paged_attention_pallas``),
-  whose page walk is split across CTAs by :func:`split_plan`;
+  whose page walk is split across CTAs by :func:`split_plan`, on the walk
+  :func:`paged_route` picks (MLA's latent pool on wgmma, or the split walk);
 * :func:`paged_attention_torch` — its plain version, operation for
   operation the reference's ``paged_attention_xla`` (page gather, then
   dense masked softmax), used for CPU tensors and as the kernel's yardstick;
@@ -46,6 +47,28 @@ MAX_PAGES_PER_SPLIT = 1024
 #: kernel's position groups of a CTA at most (its warps); the C entry
 #: point checks the workspace against what its launch needs
 WORKSPACE_GROUPS = 4
+#: the kernel's walks, by the code the C entry point takes: the split walk
+#: (the CUDA cores, or mma.sync for bf16 GQA up to 128 dims, picked by the
+#: kernel from shapes) and the latent walk (MLA on wgmma)
+ROUTES = ("split", "latent")
+#: the latent walk: query rows a CTA (wgmma's M), the widest latent and
+#: rope rows it stages, one position group a CTA, and its split plan's
+#: CTAs an SM and shortest split (a split's partial of a 64-row tile, 128
+#: KB at a 512-wide latent, costs as much to write as 128 positions of
+#: latent and rope rows cost to read).  One CTA fills an SM's shared
+#: memory, so two an SM are two waves if every split is live; but the plan
+#: covers the table's width, and the live positions (the lengths, which a
+#: shape-only plan does not see) often reach a part of it, whose splits
+#: then share the SMs (a 16-token chunk from position 384 in a 1024-wide
+#: table on the H100: scripts/paged_variants.py latent_one_cta_an_sm).  A
+#: plan that one CTA an SM covers in one split keeps it: that split writes
+#: its rows itself and no merge runs.
+LATENT_ROWS = 64
+LATENT_MAX_DIM = 512
+LATENT_MAX_ROPE = 64
+LATENT_GROUPS = 1
+LATENT_CTAS_PER_SM = 2
+LATENT_MIN_POSITIONS = 128
 
 
 # -- page-table plumbing --------------------------------------------------------
@@ -244,6 +267,44 @@ def sm_count(device: torch.device) -> int:
     return build.sm_count(device)
 
 
+def paged_route(
+    q: torch.Tensor,
+    k_pool: torch.Tensor,
+    v_pool: torch.Tensor,
+    q_rope: torch.Tensor | None = None,
+    kr_pool: torch.Tensor | None = None,
+) -> str:
+    """The kernel's walk for these operands: ``latent`` (wgmma) for MLA's
+    served shape, bf16 with one pool as keys and values (``v_pool is
+    k_pool``: one kv head, Dk == Dv a multiple of 64 up to 512), its rope
+    pool beside it (Dr a multiple of 8 up to 64), pages of a multiple of 8
+    rows and 16-byte aligned operands (what TMA loads); ``split`` for the
+    rest (f32, GQA, separate pools with rope, other head dims)."""
+    if q_rope is None or kr_pool is None or v_pool is not k_pool:
+        return "split"
+    _, kh, ps, dk = k_pool.shape
+    dr = q_rope.shape[-1]
+    latent = (q.dtype == torch.bfloat16 and kh == 1 and dk % 64 == 0
+              and dk <= LATENT_MAX_DIM
+              and dr % 8 == 0 and 0 < dr <= LATENT_MAX_ROPE and ps % 8 == 0
+              and all(build.aligned(t) for t in (q, k_pool, q_rope, kr_pool)))
+    return "latent" if latent else "split"
+
+
+def latent_plan(b: int, r: int, max_pages: int, page_size: int, dk: int, sms: int) -> SplitPlan:
+    """The latent walk's split plan: :func:`split_plan` over the ``b *
+    ceil(r / LATENT_ROWS)`` (slot, row tile) CTAs of a split, no split
+    shorter than ``LATENT_MIN_POSITIONS``: one split where one CTA an SM
+    covers the tiles in one, else aiming at ``LATENT_CTAS_PER_SM`` a SM."""
+    tiles = -(-r // LATENT_ROWS)
+    for ctas_per_sm in (1, LATENT_CTAS_PER_SM):
+        plan = split_plan(b, tiles, max_pages, page_size, dk, dk, sms,
+                          ctas_per_sm=ctas_per_sm, min_positions=LATENT_MIN_POSITIONS)
+        if plan.n_splits == 1:
+            break
+    return plan
+
+
 def paged_work(
     q: torch.Tensor,
     k_pool: torch.Tensor,
@@ -296,7 +357,11 @@ def paged_attention(
 ) -> torch.Tensor:
     """Fused paged attention: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors.  Returns (B, H, S, Dv) in q's dtype.  A call
-    is two launches, the split walk and the merge of its partials."""
+    is two launches, the walk and the merge of its partials (one, the
+    walk, for a latent plan of one split); the walk comes
+    from :func:`paged_route` and its split plan from :func:`split_plan`
+    (:func:`latent_plan` for the latent walk), and
+    ``paged_attention.routes`` counts the launches of each walk."""
     if q.device.type == "cpu":
         return paged_attention_torch(
             q, k_pool, v_pool, pages, index, q_rope=q_rope, kr_pool=kr_pool,
@@ -335,10 +400,14 @@ def paged_attention(
             raise ValueError(f"paged_attention: {name} head dim {n} exceeds 512")
     if scale is None:
         scale = 1.0 / (dk ** 0.5)
-    plan = split_plan(b, kh, mp, ps, dk, dv, sm_count(q.device))
+    route = paged_route(q, k_pool, v_pool, q_rope, kr_pool)
+    if route == "latent":
+        plan, groups = latent_plan(b, h * s, mp, ps, dk, sm_count(q.device)), LATENT_GROUPS
+    else:
+        plan, groups = split_plan(b, kh, mp, ps, dk, dv, sm_count(q.device)), WORKSPACE_GROUPS
     out = torch.empty((b, h, s, dv), dtype=q.dtype, device=q.device)
     # each (split, group)'s (B*H*S, Dv) f32 accumulator, then its max / sum
-    work = torch.empty(plan.n_splits * WORKSPACE_GROUPS * b * h * s * (dv + 2),
+    work = torch.empty(plan.n_splits * groups * b * h * s * (dv + 2),
                        dtype=torch.float32, device=q.device)
     if build.skip_launch("paged_attention", q, work=lambda: paged_work(
             q, k_pool, v_pool, pages, q_rope=q_rope)):
@@ -350,10 +419,12 @@ def paged_attention(
         kr_pool.data_ptr() if rope else None,
         pages.data_ptr(), index.data_ptr(), out.data_ptr(), work.data_ptr(), work.numel(),
         b, h, kh, s, dk, dv, dr, ps, mp, n_pool, *plan, scale,
-        build.dtype_code(q), build.stream_of(q),
+        build.dtype_code(q), ROUTES.index(route), build.stream_of(q),
     )
     paged_attention.launches += 1
+    paged_attention.routes[route] += 1
     return out
 
 
 paged_attention.launches = 0
+paged_attention.routes = dict.fromkeys(ROUTES, 0)

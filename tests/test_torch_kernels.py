@@ -563,19 +563,20 @@ def test_blocks_pick_target_from_device_and_bind_overrides(monkeypatch):
 
 
 def test_flash_route_is_picked_by_the_wrapper_passed_and_counted(monkeypatch):
-    """The wrapper alone picks flash's route: what TMA can load (bf16, one
-    head dim <= 128 and a multiple of 8, 16-byte aligned operands) goes to
-    wgmma, the rest to the CUDA cores.  It passes the route's code to the C
-    entry point and counts the launch under it; ``reset_launches`` clears
-    the counts.  (Meta tensors stand in for CUDA ones.)"""
+    """The wrapper alone picks flash's route: what TMA can load (bf16, head
+    dims multiples of 8, q's <= 256 and v's <= 128, 16-byte aligned
+    operands; deepseek-v2's qk 192 / v 128 among them) goes to wgmma, the
+    rest to the CUDA cores.  It passes the route's code to the C entry
+    point and counts the launch under it; ``reset_launches`` clears the
+    counts.  (Meta tensors stand in for CUDA ones.)"""
     from repro_torch import kernels
 
     def qkv(d, dv, dtype=torch.bfloat16, device="cpu"):
         return tuple(torch.zeros(1, 4, 8, e, dtype=dtype, device=device) for e in (d, d, dv))
 
-    assert tatt.flash_route(*qkv(64, 64)) == tatt.flash_route(*qkv(112, 112)) == "wgmma"
-    for args in (qkv(48, 32), qkv(192, 128), qkv(100, 100), qkv(256, 256),
-                 qkv(64, 64, torch.float32)):
+    for args in (qkv(64, 64), qkv(112, 112), qkv(48, 32), qkv(192, 128)):
+        assert tatt.flash_route(*args) == "wgmma"
+    for args in (qkv(100, 100), qkv(256, 256), qkv(64, 64, torch.float32)):
         assert tatt.flash_route(*args) == "cuda_cores"
     q, k, v = qkv(64, 64)
     shifted = torch.zeros(1 + q.numel(), dtype=torch.bfloat16)[1:].view(q.shape)
@@ -589,12 +590,14 @@ def test_flash_route_is_picked_by_the_wrapper_passed_and_counted(monkeypatch):
     tatt.flash_attention(*qkv(64, 64, device="meta"))
     out = tatt.flash_attention(*qkv(192, 128, device="meta"))
     assert tuple(out.shape) == (1, 4, 8, 128)
+    tatt.flash_attention(*qkv(256, 256, device="meta"))
     # the route code follows q, k, v, out, lse and the eight sizes
     assert [args[15] for _, args in calls] == [tatt.ROUTES.index("wgmma"),
+                                               tatt.ROUTES.index("wgmma"),
                                                tatt.ROUTES.index("cuda_cores")]
-    assert [args[4] for _, args in calls] == [None, None]  # serving asks for no lse
-    assert tatt.flash_attention.routes == {"cuda_cores": 1, "wgmma": 1}
-    assert launch_counts()["flash_attention"] == 2
+    assert [args[4] for _, args in calls] == [None, None, None]  # serving asks for no lse
+    assert tatt.flash_attention.routes == {"cuda_cores": 1, "wgmma": 2}
+    assert launch_counts()["flash_attention"] == 3
     kernels.reset_launches()
     assert tatt.flash_attention.routes == {"cuda_cores": 0, "wgmma": 0}
 
