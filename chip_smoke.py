@@ -160,6 +160,14 @@ JSON line, and any failure raises (exit code != 0):
    and backward; every SSD scan and gated norm resolves to ``torch`` for
    its gradient (``grad_default/ssd_scan``, ``grad_default/rmsnorm.gated``
    > 0) and ``ssd_chunks`` launches nothing;
+21b. train_mla: deepseek-v2-236b at full width cut to its dense layer
+   (``TRAIN_MLA``: pattern ``d``, MLA at qk 192 / v 128 and the 12288-wide
+   FFN, bf16 params and moments) for four ``make_train_step`` steps at B
+   2, S 512: every loss finite, ms a step, tok/s, peak memory beside the
+   dry-run's estimate of the same step; flash's forward and backward and
+   RMSNorm's backward launched, every backward launch on wgmma; one step
+   twice from one state bit-identical; the loss and grad norm against the
+   plain bindings within ``TRAIN_BF16_TOL``;
 22. metering: the port's power meters (``repro_torch.metering``).
    ``autodetect()`` must be the NVML meter (NVIDIA's NVML library
    through ctypes), on the card torch runs on (its name, and the NVML
@@ -243,9 +251,10 @@ The backward kernels are held in phase 2 too: flash's backward (dq, dk,
 dv from the forward kernel's ``out`` and ``lse``, the ``lse`` itself
 against the plain forward's) at llama's train shape (B 8, H 32, KH 8, S
 512, D 64, bf16: the wgmma route), bf16 at B 2, S 300 (its ragged edge),
-zamba2's D 112 and arctic's D 128 (wgmma, two column boxes), f32 at B 2,
-S 300 and deepseek-v2's qk 192 / v 128 (the CUDA-core route: the
-backward's wgmma route stops at 128; each row names its route);
+zamba2's D 112 and arctic's D 128 (wgmma, two column boxes), deepseek-v2's
+qk 192 / v 128 and qk 256 / v 128 at H 16 over KH 4, S 300 (wgmma, dK / dV
+on two consumer warpgroups; their kernels' own device ms), f32 at B 2, S
+300 and at qk 192 / v 128 (the CUDA cores; each row names its route);
 RMSNorm's backward, plain and add forms, at 4096 x 2048 bf16 and f32 at d
 = 100, and 4096 bf16 rows of deepseek-v2's 512-wide ``kv_norm`` (plain, a
 bf16 weight) and of arctic-480b's d = 7168 (plain and add), the add form
@@ -681,10 +690,14 @@ def _flash_bwd_cases(torch, timer, randn) -> list:
     train shape (B 8, H 32, KH 8, S 512, D 64, bf16; the headline; the
     wgmma route), bf16 and f32 at B 2 and a ragged S 300 (the wgmma
     route's padded edge; the CUDA cores), deepseek-v2's MLA prefill (qk
-    192 / v 128, H = KH = 128, S 512, bf16: the CUDA cores' 32-row tiles),
-    and on the wgmma route zamba2's shared attention (H = KH = 32, D 112:
-    two column boxes, zero-filled past 112) and arctic's (H 56, KH 8, D
-    128).  Each row names its route and is called twice, bit for bit.  The
+    192 / v 128, H = KH = 128, S 512, bf16: wgmma, dK / dV on two consumer
+    warpgroups), qk 256 / v 128 at H 16 over KH 4 and a ragged S 300
+    (four column boxes, a group), the same qk 192 / v 128 in f32 (the CUDA
+    cores' 32-row tiles), and on the wgmma route zamba2's shared attention
+    (H = KH = 32, D 112: two column boxes, zero-filled past 112) and
+    arctic's (H 56, KH 8, D 128).  Each row names its route and is called
+    twice, bit for bit; a row past D 128 on wgmma gives its kernels' own
+    device ms (``ms_by_kernel``: the delta pass, dK / dV, dQ).  The
     library call is the backward alone of ``F.scaled_dot_product_attention``
     (causal, GQA), through ``torch.autograd.grad`` from a kept graph."""
     import torch.nn.functional as F
@@ -697,6 +710,8 @@ def _flash_bwd_cases(torch, timer, randn) -> list:
                                       (2, 32, 8, 300, 64, 64, torch.bfloat16),
                                       (2, 32, 8, 300, 64, 64, torch.float32),
                                       (1, 128, 128, 512, 192, 128, torch.bfloat16),
+                                      (1, 16, 4, 300, 256, 128, torch.bfloat16),
+                                      (1, 8, 8, 300, 192, 128, torch.float32),
                                       (1, 32, 32, 512, 112, 112, torch.bfloat16),
                                       (1, 56, 8, 512, 128, 128, torch.bfloat16)):
         q, k = randn(b, h, s, d, dtype=dtype), randn(b, kh, s, d, dtype=dtype)
@@ -716,13 +731,16 @@ def _flash_bwd_cases(torch, timer, randn) -> list:
             torch.autograd.grad(lib_out, (ql, kl, vl), do, retain_graph=True)
 
         name = str(dtype).split(".")[1]
+        extra = {"route": route, "repeat_bit_identical": True}
+        if route == "wgmma" and d > 128:
+            extra["ms_by_kernel"] = _kernel_split(
+                torch, timer, lambda: fa.flash_attention_bwd(*args), ("flash_bwd_",))
         rows.append(_case(
             torch, "flash_attention_bwd", name,
             {"B": b, "H": h, "KH": kh, "S": s, "Dqk": d, "Dv": dv}, got, want, timer,
             lambda: fa.flash_attention_bwd(*args), lambda: flash_attention_bwd_torch(*args),
             None, tol={**{k_: TOL[name] for k_ in ("dq", "dk", "dv")}, "lse": TOL["float32"]},
-            work=fa.flash_bwd_work(q, k, v),
-            extra={"route": route, "repeat_bit_identical": True}, library_eager=library,
+            work=fa.flash_bwd_work(q, k, v), extra=extra, library_eager=library,
         ))
     return rows
 
@@ -1446,7 +1464,7 @@ def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
     ``sampled`` a top-k batch too) and the CUDA-event time of back-to-back
     decode steps."""
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
 
     import repro_torch.kernels as kernels
     from repro_torch.serve import Request, ServeEngine
@@ -1472,8 +1490,14 @@ def phase_decode_profile(torch, arch: str = "llama3.2-1b", sampled: bool = True,
     wall_ms = (time.perf_counter() - t0) * 1e3 / n
 
     def profiled_window():
-        counted, replays = kernels.counters(), engine.graph_stats()["decode"]["replays"]
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # one decode step while the profiler warms up (its tracing starts,
+        # nothing is kept), then the n steps it records
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                     schedule=schedule(wait=0, warmup=1, active=1)) as prof:
+            engine.step()
+            torch.cuda.synchronize()
+            prof.step()
+            counted, replays = kernels.counters(), engine.graph_stats()["decode"]["replays"]
             for _ in range(n):
                 engine.step()
             torch.cuda.synchronize()
@@ -2408,6 +2432,138 @@ def phase_train_ssm(torch) -> dict:
     return phase_train_f32(torch, "mamba2-2.7b", "train_ssm", SSM_TRAIN_COUNTERS,
                            PLAIN_SSM_TRAIN, seq=256, never=("ssd_chunks", "rmsnorm/gated"),
                            defaults=SSM_GRAD_DEFAULTS)
+
+
+#: phase 21b: deepseek-v2-236b at full width cut to its leading dense
+#: layer (pattern ``d``: MLA, 128 heads at qk 192 / v 128, and the 12288-wide
+#: FFN; 1.467 B parameters, bf16 params and moments as its config has them)
+TRAIN_MLA = {"arch": "deepseek-v2-236b", "layers": 1, "batch": 2, "seq": 512, "steps": 4}
+TRAIN_MLA_COUNTERS = ("flash_attention", "flash_attention_bwd", "rmsnorm_bwd/plain",
+                      "rmsnorm_bwd/add")
+
+
+def train_mla_config():
+    from repro_torch.configs import get_config
+
+    return get_config(TRAIN_MLA["arch"]).cut(TRAIN_MLA["layers"])
+
+
+def train_mla_estimate(device: str = "cuda") -> dict:
+    """The dry-run's record of phase 21b's step (``launch/dryrun.run_cell``
+    on ``train_mla_config``, traced with fake tensors, nothing launched),
+    as phase 24 takes a train step's: its estimated peak bytes beside the
+    card's (``fits_device``)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    shape = ShapeConfig("train_mla", TRAIN_MLA["seq"], TRAIN_MLA["batch"], "train")
+    get = dryrun.get_config
+    dryrun.get_config = lambda arch: train_mla_config()
+    try:
+        return dryrun.run_cell(TRAIN_MLA["arch"], shape, overrides={"microbatch": 1},
+                               device=device)
+    finally:
+        dryrun.get_config = get
+
+
+def phase_train_mla(torch) -> dict:
+    """Phase 21b: ``TRAIN_MLA``'s steps of ``make_train_step`` on
+    ``SyntheticLMData``: every loss finite, ms a step (median after the
+    first), tok/s, peak memory beside the dry-run's estimate; flash's
+    forward and backward and RMSNorm's backward launch, every backward
+    launch on wgmma (qk 192 / v 128); one profiled step (device ms, the
+    top kernels, the flash backward's kernels); one step twice from one
+    state bit-identical (``_repeat_step``); the loss and the global grad
+    norm through the kernels against ``attention`` / ``rmsnorm`` bound to
+    ``torch``, within ``TRAIN_BF16_TOL``."""
+    import math
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import repro_torch.kernels as kernels
+    from repro_torch.core import blocks
+    from repro_torch.launch.steps import TrainHyper, make_train_step
+    from repro_torch.models import lm
+    from repro_torch.optim.adamw import AdamW
+
+    t_phase = time.perf_counter()
+    _free_dead_engines(torch)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = train_mla_config()
+    b, seq, n_steps = TRAIN_MLA["batch"], TRAIN_MLA["seq"], TRAIN_MLA["steps"]
+    params = lm.init_params(cfg, seed=0, device="cuda")
+    opt = AdamW(moment_dtype=cfg.opt_dtype)
+    state = opt.init(params)
+    step_fn = make_train_step(cfg, opt, TrainHyper(warmup_steps=2, total_steps=n_steps))
+    batches = [_train_inputs(torch, cfg, b, seq, i) for i in range(n_steps)]
+
+    kernels.reset_launches()
+    losses, step_ms = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        params, state, metrics = step_fn(params, state, batch)
+        losses.append(float(metrics["loss"]))  # reads the loss: the step is done
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    counted = kernels.counters()
+    routes = {r: counted[f"flash_attention_bwd/{r}"] for r in ("cuda_cores", "wgmma")}
+    launches = {c: counted[c] for c in TRAIN_MLA_COUNTERS}
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"train_mla: losses {losses}")
+    if any(n <= 0 for n in launches.values()) or routes["cuda_cores"] or not routes["wgmma"]:
+        raise AssertionError(f"train_mla: launches {launches}, backward routes {routes}")
+
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        p, s, metrics = step_fn(_clone_tree(torch, params), _clone_opt(torch, state), batches[0])
+        float(metrics["loss"])
+        torch.cuda.synchronize()
+    profiled_wall = (time.perf_counter() - t0) * 1e3
+    del p, s
+    device, events = _device_events(prof)
+    top = sorted(device.items(), key=lambda kv: -kv[1])[:8]
+    flash_bwd = {k[:80]: v for k, v in device.items() if "flash_bwd_" in k}
+
+    repeat = _repeat_step(torch, step_fn, params, state, batches[0])
+    if not repeat["bit_identical"]:
+        raise AssertionError(f"train_mla: a repeated step differs: {repeat}")
+    loss_k, grads = _loss_and_grads(torch, params, batches[0], cfg)
+    norm_k = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads)))
+    del grads
+    with blocks.bind(PLAIN_TRAIN):
+        loss_p, grads = _loss_and_grads(torch, params, batches[0], cfg)
+    norm_p = float(torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads)))
+    del grads
+    check = {"loss": float(loss_k), "plain_loss": float(loss_p),
+             "loss_rel_err": abs(float(loss_k) - float(loss_p)) / abs(float(loss_p)),
+             "grad_norm": norm_k, "plain_grad_norm": norm_p,
+             "grad_norm_rel_err": abs(norm_k - norm_p) / norm_p, "tol": TRAIN_BF16_TOL}
+    if not (check["loss_rel_err"] <= TRAIN_BF16_TOL["loss"]
+            and check["grad_norm_rel_err"] <= TRAIN_BF16_TOL["grad_norm"]):  # NaN fails
+        raise AssertionError(f"train_mla: kernels against plain: {check}")
+    del params, state
+    estimate = _unlaunched(torch, "the train_mla trace", lambda: train_mla_estimate("cuda"))
+    median = float(np.median(step_ms[1:]))
+    out = {"phase": "train_mla", "arch": cfg.name, "pattern": cfg.pattern(),
+           "layers": cfg.n_layers, "params": cfg.param_count(), "batch": b, "seq": seq,
+           "steps": n_steps, "param_dtype": cfg.param_dtype, "moment_dtype": cfg.opt_dtype,
+           "compute_dtype": cfg.compute_dtype, "remat": cfg.remat,
+           "losses": losses, "step_ms": step_ms, "median_step_ms": median,
+           "tok_per_s": b * seq / (median / 1e3), "peak_memory_gb": peak,
+           "estimated_peak_gb": estimate.get("peak_bytes_per_device", 0) / 1e9,
+           "estimate_status": estimate["status"],
+           "launches": launches, "flash_bwd_routes": routes,
+           "flash_routes": {r: counted[f"flash_attention/{r}"] for r in ("cuda_cores", "wgmma")},
+           "kernels_vs_plain": check, "repeat_step": repeat,
+           "profiled_step": {"wall_ms": profiled_wall, "device_ms": sum(device.values()),
+                             "device_events": events,
+                             "top_device_ms": {k[:80]: v for k, v in top},
+                             "flash_bwd_device_ms": sum(flash_bwd.values()),
+                             "flash_bwd_device_ms_by_kernel": flash_bwd},
+           "seconds": time.perf_counter() - t_phase}
+    emit(out)
+    return out
 
 
 #: phase 22: the seconds of steady decode load the meter is held to NVML's
@@ -3498,18 +3654,23 @@ def phase_main_path_train(torch) -> dict:
     return out
 
 
+def _clone_opt(torch, state):
+    """A copy of an ``OptState`` (its moments and step)."""
+    from repro_torch.optim.adamw import OptState
+
+    return OptState(_clone_tree(torch, state.mu), _clone_tree(torch, state.nu),
+                    state.step.clone())
+
+
 def _repeat_step(torch, step_fn, params, state, batch) -> dict:
     """``step_fn`` twice from copies of (``params``, ``state``) on one
     batch: whether every parameter leaf comes out bit-identical (a restart
     replays its steps exactly only if so), the largest |difference| and
     the leaves that differ."""
     from repro_torch.checkpoint.manager import flatten
-    from repro_torch.optim.adamw import OptState
 
     def one():
-        opt = OptState(_clone_tree(torch, state.mu), _clone_tree(torch, state.nu),
-                       state.step.clone())
-        p, _, _ = step_fn(_clone_tree(torch, params), opt, batch)
+        p, _, _ = step_fn(_clone_tree(torch, params), _clone_opt(torch, state), batch)
         return flatten(p)
 
     first = one()
@@ -3646,6 +3807,8 @@ def main() -> int:
     phase_train_loop(torch)
     # an SSM trains on default bindings (the SSD scan and gated norm on torch)
     phase_train_ssm(torch)
+    # MLA trains through the backward's wgmma route at qk 192 / v 128
+    train_mla = phase_train_mla(torch)
     # the power meters: NVML on the card, the metered serving and offload paths
     phase_metering(torch)
     # static analysis: envelopes, capacity, lint, estimates, pre-filters, preflight
@@ -3661,7 +3824,8 @@ def main() -> int:
     # each kernel's launches come from the path that runs it
     launches = {**main["launches"], **offload["launches"],
                 "ssd_chunks": ssm["launches"]["ssd_chunks"],
-                "flash_attention_bwd": train["launches"]["flash_attention_bwd"],
+                "flash_attention_bwd": (train["launches"]["flash_attention_bwd"]
+                                        + train_mla["launches"]["flash_attention_bwd"]),
                 "rmsnorm_bwd": (train["launches"]["rmsnorm_bwd/plain"]
                                 + train["launches"]["rmsnorm_bwd/add"])}
     summary = []

@@ -8,7 +8,11 @@ beside the plain version's, the flash kernel's two routes (f32, v's head
 dim past 128, D past 256 and D % 8 != 0 on the CUDA cores; dv != d up to
 qk 256 / v 128 on wgmma) and the three 3xTF32 GEMM kernels against their
 plain versions (chip_smoke.py's tolerances) at the serving and offload
-shapes, ragged shapes whose N or K is not a multiple of 4 and a misaligned
+shapes, the flash backward's routes (bf16 up to qk 256 / v 128 on wgmma:
+every instantiation of its dK / dV and dQ kernels, causal and not, a group
+and ragged S; f32 on the CUDA cores) against its plain version, with
+ptxas's registers and spills for each of the backward's wgmma kernels
+(a spill or a C7515 warning, wgmma serialized, fails), ragged shapes whose N or K is not a multiple of 4 and a misaligned
 operand view (both padded or copied by the wrappers for TMA), and time
 the large cases with CUDA events (warm L2, 20 calls) beside SDPA and the
 PyTorch call for the same function (``torch.matmul``, complex64
@@ -50,6 +54,17 @@ SSD_CASES = [  # B, S, H, P, N, L, dtype
     (1, 1024, 4, 64, 128, 1024, torch.bfloat16), (1, 512, 80, 64, 128, 256, torch.float32),
     (1, 97, 80, 64, 128, 97, torch.float32), (2, 96, 3, 12, 20, 48, torch.float32),
     (1, 512, 8, 128, 256, 128, torch.float32),
+]
+FLASH_BWD_CASES = [  # B, H, KH, S, D, Dv, dtype, causal: <NK, NV> noted
+    (1, 32, 8, 512, 64, 64, torch.bfloat16, True),  # <1,1>, llama's train shape
+    (1, 56, 8, 512, 128, 128, torch.bfloat16, True),  # <2,2>, arctic's
+    (1, 128, 128, 512, 192, 128, torch.bfloat16, True),  # <3,2>, deepseek-v2's
+    (2, 8, 4, 300, 192, 64, torch.bfloat16, True),  # <3,1>
+    (1, 16, 4, 300, 256, 128, torch.bfloat16, True),  # <4,2>
+    (1, 8, 2, 200, 256, 64, torch.bfloat16, True),  # <4,1>
+    (1, 4, 4, 100, 200, 128, torch.bfloat16, True),  # <4,2> zero-filled past 200
+    (1, 8, 8, 256, 192, 128, torch.bfloat16, False),  # <3,2>, every query block
+    (1, 8, 8, 300, 192, 128, torch.float32, True),  # the CUDA cores' 32-row tiles
 ]
 GEMM_CASES = [  # kernel, (M, N, K), (block_m, block_n, block_k), misaligned A view
     ("matmul", (96, 160, 96), (32, 32, 32), False), ("matmul", (100, 128, 64), (4, 128, 64), False),
@@ -119,6 +134,75 @@ def check_ssd(randn, gen) -> bool:
     return ok
 
 
+def check_bwd_ptxas(log: str) -> bool:
+    """ptxas's registers and spills of every wgmma kernel of the flash
+    backward (``flash_bwd_*``); False on a spill or a C7515 warning."""
+    ok, fn, rows = True, None, {}
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1]
+        elif "C7515" in line and "flash_bwd" in line + (fn or ""):
+            ok = False
+            print("BAD", line.strip()[:300])
+        if fn is None or "flash_bwd" not in fn:
+            continue
+        name = fn[fn.find("flash_bwd"):][:40]
+        if "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            rows.setdefault(name, {})["spill_bytes"] = nums[1:3]
+            ok &= not any(nums[1:3])
+        elif "Used" in line and "registers" in line:
+            rows.setdefault(name, {})["registers"] = int(line.split("Used")[1].split()[0])
+    print(json.dumps({"flash_bwd_ptxas": rows}), flush=True)
+    return ok and bool(rows)
+
+
+def check_flash_bwd(randn) -> bool:
+    """The flash backward against its plain version at FLASH_BWD_CASES,
+    the route each took, two calls bit-identical, and event times beside
+    SDPA's backward (through autograd) where S >= 300."""
+    import chip_smoke
+    from repro_torch.kernels import attention as fa
+    from repro_torch.kernels.attention_chunked import flash_attention_bwd_torch
+
+    ok = True
+    for b, h, kh, s, d, dv, dtype, causal in FLASH_BWD_CASES:
+        try:
+            q, k = randn(b, h, s, d, dtype=dtype), randn(b, kh, s, d, dtype=dtype)
+            v, do = randn(b, kh, s, dv, dtype=dtype), randn(b, h, s, dv, dtype=dtype)
+            out, lse = fa._flash_cuda(q, k, v, causal, with_lse=True)
+            args = (q, k, v, out, lse, do, causal)
+            before = dict(fa.flash_attention_bwd.routes)
+            got = fa.flash_attention_bwd(*args)
+            again = fa.flash_attention_bwd(*args)
+            torch.cuda.synchronize()
+            (route,) = [r for r, n in fa.flash_attention_bwd.routes.items() if n > before[r]]
+            want = flash_attention_bwd_torch(*args)
+            atol, rtol = chip_smoke.TOL[str(dtype).split(".")[1]]
+            row = {"bwd_case": [b, h, kh, s, d, dv, str(dtype), causal], "route": route,
+                   "repeat_bit_identical": all(torch.equal(x, y) for x, y in zip(got, again))}
+            bad = not row["repeat_bit_identical"]
+            for name, g, w in zip(("dq", "dk", "dv"), got, want):
+                err = (g.float() - w.float()).abs()
+                bad |= bool((err > atol + rtol * w.float().abs()).any())
+                bad |= not bool(torch.isfinite(g.float()).all())
+                row[f"{name}_err"] = float(err.max())
+            row["bad"] = bad
+            ok &= not bad
+            if s >= 300:
+                row["ms"] = events_ms(lambda: fa.flash_attention_bwd(*args))
+                ql, kl, vl = (t.detach().clone().requires_grad_(True) for t in (q, k, v))
+                lib = torch.nn.functional.scaled_dot_product_attention(
+                    ql, kl, vl, is_causal=causal, enable_gqa=kh != h)
+                row["sdpa_bwd_ms"] = events_ms(lambda: torch.autograd.grad(
+                    lib, (ql, kl, vl), do, retain_graph=True))
+            print(json.dumps(row), flush=True)
+        except Exception:
+            ok = False
+            traceback.print_exc()
+    return ok
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("check_tc_kernels: needs CUDA", file=sys.stderr)
@@ -143,7 +227,8 @@ def main() -> int:
     def randn(*shape, dtype=torch.float32):
         return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
-    ok = True
+    ok = check_bwd_ptxas(build.build_info["log"])
+    ok &= check_flash_bwd(randn)
     for b, h, kh, s, d, dv, dtype, causal in FLASH_CASES:
         try:
             q, k, v = randn(b, h, s, d, dtype=dtype), randn(b, kh, s, d, dtype=dtype), randn(b, kh, s, dv, dtype=dtype)

@@ -33,8 +33,10 @@ MAX_WGMMA_HEAD_DIM = 256
 MAX_WGMMA_V_HEAD_DIM = 128
 #: the backward kernel's routes, by the code its C entry point takes
 BWD_ROUTES = ("cuda_cores", "wgmma")
-#: the largest head dim the backward's wgmma route takes (two column boxes)
-MAX_WGMMA_BWD_HEAD_DIM = 128
+#: the largest head dims the backward's wgmma route takes: four column
+#: boxes for q and k (the forward's range), two for v
+MAX_WGMMA_BWD_HEAD_DIM = 256
+MAX_WGMMA_BWD_V_HEAD_DIM = 128
 #: the wgmma route's tile rows: its workspace pads Sq to a multiple
 BWD_TILE = 64
 _LOG2E = 1.4426950408889634
@@ -167,13 +169,14 @@ class FlashAttentionFn(torch.autograd.Function):
 
 def flash_bwd_route(*operands: torch.Tensor) -> str:
     """The backward kernel's route for these operands (q, k, v first): bf16
-    with D and Dv multiples of 8 up to ``MAX_WGMMA_BWD_HEAD_DIM`` and
-    16-byte aligned operands (what TMA loads) runs on wgmma, the rest on
-    the CUDA cores."""
+    with D and Dv multiples of 8, D <= ``MAX_WGMMA_BWD_HEAD_DIM``, Dv <=
+    ``MAX_WGMMA_BWD_V_HEAD_DIM`` and 16-byte aligned operands (what TMA
+    loads: deepseek-v2's qk 192 / v 128 among them) runs on wgmma, f32 and
+    every other shape on the CUDA cores."""
     d, dv = operands[0].shape[-1], operands[2].shape[-1]
     aligned = all(build.aligned(t) for t in operands)
     tma = (operands[0].dtype == torch.bfloat16 and d % 8 == 0 and dv % 8 == 0
-           and max(d, dv) <= MAX_WGMMA_BWD_HEAD_DIM and aligned)
+           and d <= MAX_WGMMA_BWD_HEAD_DIM and dv <= MAX_WGMMA_BWD_V_HEAD_DIM and aligned)
     return "wgmma" if tma else "cuda_cores"
 
 

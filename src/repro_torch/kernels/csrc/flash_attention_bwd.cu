@@ -26,9 +26,10 @@
 // Neither uses atomics: every output is written once and every sum runs in
 // a fixed order, so a call is bit for bit repeatable (the train loop's
 // restart is held to the bit):
-//  * bf16 with D and Dv multiples of 8 up to 128 and 16-byte aligned
-//    operands (llama's, zamba2's and arctic's train shapes): wgmma with TMA
-//    loads, three kernels (the `wg` namespace below);
+//  * bf16 with D and Dv multiples of 8, D up to 256, Dv up to 128, and
+//    16-byte aligned operands (llama's, zamba2's and arctic's train shapes,
+//    deepseek-v2's qk 192 / v 128): wgmma with TMA loads, three kernels
+//    (the `wg` namespace below);
 //  * f32 and every other shape: the CUDA cores, two kernels (the `cc`
 //    namespace).
 //
@@ -397,7 +398,10 @@ cudaError_t launch_dims(const void* q, const void* k, const void* v, const void*
 // 64 rows of every product) and one producer warp that issues TMA loads
 // (3-D maps (head dim, S, B * heads): a box past S or the head dim is
 // zero-filled, never the next head's rows; head dims load in boxes of 64,
-// one 128-byte swizzled row, so D up to 128 takes two).
+// one 128-byte swizzled row: NK boxes for q and k, NV for v and do, D up
+// to 256 takes four, Dv up to 128 two).  At NK >= 3 dK / dV takes two
+// consumer warpgroups (flash_bwd_dkdv_split, below), and at NK 3 a dQ CTA
+// two query tiles (flash_bwd_dq_pair).
 //  * flash_bwd_delta: delta = rowsum(do * out) in f32, once a call, into a
 //    workspace the wrapper allocates, rows (b h, 0, i) = lse * log2 e and
 //    (b h, 1, i) = delta, Sq padded to 64; padded rows get +inf and 0, so
@@ -427,6 +431,29 @@ cudaError_t launch_dims(const void* q, const void* k, const void* v, const void*
 //    SMs that grid's tail frees (0.122 -> 0.115 ms at llama's train shape on
 //    the H100); it waits for dK / dV at its end, so what follows on the
 //    stream sees all three outputs.
+//  * flash_bwd_dkdv_split, for NK >= 3 (qk 136-256): one warpgroup holding
+//    dK (32 NK f32 registers a thread) beside dV, S^T, dP^T and both A
+//    operands passes the 255-register cap at NK 3, so two consumer
+//    warpgroups share a 64-key tile, split by output.  Warpgroup V forms
+//    S^T and P^T, writes P^T (f32) to an exchange buffer of the stage,
+//    arrives on the stage's named barrier and runs dV += P^T dO;
+//    warpgroup K forms dP^T, waits on that barrier, reads P^T, forms dS^T
+//    and runs dK += dS^T Q.  Both fragments of a 64 x 64 tile have one
+//    layout, so thread t of K reads what thread t of V wrote.  The buffer
+//    is reused with its stage, after the stage's empty barrier has counted
+//    K's arrival.  The producer is a whole warpgroup (`setmaxnreg` 40 /
+//    232: 384 threads, one CTA an SM); at NK 3 the ring has three stages
+//    (dK / dV 0.1104 -> 0.1057 ms at deepseek-v2's qk 192 / v 128 on the
+//    H100).  The arithmetic is the one-warpgroup kernel's: P^T stays f32
+//    through the buffer.
+//  * flash_bwd_dq_pair, for NK 3: flash_bwd_dq's smem (~125 KB) allows one
+//    CTA an SM, one warpgroup, so a CTA takes two query tiles, one a
+//    consumer warpgroup (dQ 96 registers, S, dP, dS's A operands: 176), on
+//    one stream of K and V tiles (a ring of three stages) with a producer
+//    warpgroup (`setmaxnreg` 40 / 232): dQ 0.0879 -> 0.0687 ms at
+//    deepseek-v2's qk 192 / v 128 on the H100, 0.0662 with the third
+//    stage.  At NK 4 two such warpgroups (208 registers a thread) spill
+//    under 232, so flash_bwd_dq runs there at one CTA an SM.
 // Every sum runs in one order: the group's heads, then query blocks, in
 // the dK / dV CTA; key blocks in the dQ CTA; k16 steps within a product.
 
@@ -443,14 +470,18 @@ constexpr int kRow = 128;               // bytes of a swizzled row: 64 bf16 head
 constexpr int kBox = kBM * kRow;        // a 64-row box of 64 head dims
 constexpr int kRowsBytes = 2 * kBM * 4;  // a tile's lse2 and delta slices
 constexpr int kRowsSlot = 1024;         // ... padded: tiles stay 1024-byte aligned
-constexpr int kMaxD = 128;
+constexpr int kMaxD = 256;   // q and k's head dim: four column boxes
+constexpr int kMaxDv = 128;  // v and do's: two (the delta pass reads 16 chunks a row)
+constexpr int kXBytes = kBM * kBM * 4;  // the split kernel's P^T exchange, f32
+constexpr int kSplitConsumers = 2 * kConsumers;
+constexpr int kSplitThreads = kSplitConsumers + 128;  // and a producer warpgroup
 constexpr int kDeltaThreads = 256;  // the delta pass: 8 lanes a row
 constexpr float kLog2e = 1.4426950408889634f;
 
 // Sq rounded up to whole tiles: the workspace's row length
 __host__ __device__ constexpr int padded(int sq) { return (sq + kBM - 1) / kBM * kBM; }
 
-// NK, NV: column boxes of q / k's and of v / do's head dims (1 or 2)
+// NK, NV: column boxes of q / k's (1-4) and of v / do's (1 or 2) head dims
 template <int NK, int NV>
 struct Cfg {
   static constexpr int kK = NK * kBox;  // a q or k tile
@@ -466,6 +497,20 @@ struct Cfg {
   static constexpr int kQSmem = kQBarOffset + kBars + 1024;
   // dK / dV CTAs an SM: two where its two f32 accumulators take one box each
   static constexpr int kKVMinBlocks = NK + NV == 2 ? 2 : 1;
+  // dQ CTAs an SM: two of ~149 KB do not fit at NK 4
+  static constexpr int kQMinBlocks = NK >= 3 ? 1 : 2;
+  // the pair dQ kernel (NK 3): two tiles' Q, dO and rows resident; three
+  // stages of (K, V) (203 KB)
+  static constexpr int kQTile = kK + kV + kRowsSlot;
+  static constexpr int kPairStages = 3;
+  static constexpr int kPairBarOffset = 2 * kQTile + kPairStages * kQStage;
+  static constexpr int kPairSmem = kPairBarOffset + (2 * kPairStages + 1) * 8 + 1024;
+  // the split dK / dV kernel: K, V resident; stages of (Q, dO, rows, P^T),
+  // three where they fit (211 KB at NK 3)
+  static constexpr int kSplitStage = kK + kV + kRowsSlot + kXBytes;
+  static constexpr int kSplitStages = NK == 3 ? 3 : 2;
+  static constexpr int kSplitBarOffset = kK + kV + kSplitStages * kSplitStage;
+  static constexpr int kSplitSmem = kSplitBarOffset + (2 * kSplitStages + 1) * 8 + 1024;
 };
 
 __global__ void __launch_bounds__(kDeltaThreads)
@@ -531,6 +576,12 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], const uint32_t (&a)[4], u
 __device__ __forceinline__ void mma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
   mma_bf16_rs_n128(d, a, b, 1);
 }
+__device__ __forceinline__ void mma_rs(float (&d)[96], const uint32_t (&a)[4], uint64_t b) {
+  mma_bf16_rs_n192(d, a, b, 1);
+}
+__device__ __forceinline__ void mma_rs(float (&d)[128], const uint32_t (&a)[4], uint64_t b) {
+  mma_bf16_rs_n256(d, a, b, 1);
+}
 
 // d (64 x 64 NB) += X T: X's A operands (4 k16 steps over T's 64 rows), T
 // a 64-row tile of NB column boxes read MN-major
@@ -558,12 +609,14 @@ __device__ __forceinline__ void fence_a(uint32_t (&a)[4][R]) {
 }
 
 // a 64 x 64 NB f32 accumulator (rows row0 + 16 warp + lane / 4 (+ 8)) times
-// `mul` to dst rows of `width` columns, bf16
+// `mul` to dst rows of `width` columns, bf16; t: the thread's index in its
+// warpgroup
 template <int R>
 __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[R], int row0,
-                                           int n_rows, int width, float mul) {
-  const int lane = threadIdx.x % 32;
-  const int r0 = row0 + 16 * (threadIdx.x / 32) + lane / 4;
+                                           int n_rows, int width, float mul,
+                                           unsigned t = threadIdx.x) {
+  const int lane = t % 32;
+  const int r0 = row0 + 16 * (t / 32) + lane / 4;
 #pragma unroll
   for (int i = 0; i < R; i += 2) {
     const int row = r0 + 8 * ((i / 2) % 2);
@@ -723,8 +776,190 @@ flash_bwd_dkdv(const __grid_constant__ CUtensorMap q_map, const __grid_constant_
   store_rows(dv + kvh * dm.Skv * dm.Dv, dv_acc, k0, dm.Skv, dm.Dv, 1.f);
 }
 
+// dK / dV at NK >= 3: warpgroup V (threads 0-127) owns dV, warpgroup K
+// (128-255) dK, the producer warpgroup (256-383) the loads; see the block
+// comment above
 template <int NK, int NV>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kSplitThreads, 1)
+flash_bwd_dkdv_split(const __grid_constant__ CUtensorMap q_map,
+                     const __grid_constant__ CUtensorMap k_map,
+                     const __grid_constant__ CUtensorMap v_map,
+                     const __grid_constant__ CUtensorMap do_map,
+                     const __grid_constant__ CUtensorMap rows_map, bf16* __restrict__ dk,
+                     bf16* __restrict__ dv, const Dims dm) {
+  using C = Cfg<NK, NV>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* ks = smem;
+  uint8_t* vs = ks + C::kK;
+  uint8_t* stages = vs + C::kV;  // stage s: Q, dO, the rows slice, then P^T
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kSplitBarOffset);
+  uint64_t* empty = full + C::kSplitStages;
+  uint64_t* kv_full = empty + C::kSplitStages;
+
+  const int kh = blockIdx.x, b = blockIdx.y, kb = blockIdx.z;  // key tile 0 is the heaviest
+  const int k0 = kb * kBM, G = dm.H / dm.KH;
+  const int nq = (dm.Sq + kBM - 1) / kBM;
+  const int qb0 = dm.causal ? kb : 0;  // a query block before the key tile sees none of it
+  const int per_head = max(nq - qb0, 0);
+  const int n_it = G * per_head;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < C::kSplitStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kSplitConsumers);  // both warpgroups read both tiles
+    }
+    mbar_init(kv_full, 1);
+    mbar_init_fence();
+  }
+  // the dQ grid (no reader of dK / dV) may start on the SMs this grid's tail frees
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  __syncthreads();
+
+  if (tid >= kSplitConsumers) {  // the producer warpgroup: one thread issues the loads
+    regs_dealloc<40>();
+    if (tid != kSplitConsumers) return;
+    const int kvh = b * dm.KH + kh;
+    mbar_expect_tx(kv_full, C::kK + C::kV);
+#pragma unroll
+    for (int c = 0; c < NK; ++c) tma_load_3d(ks + c * kBox, &k_map, kv_full, 64 * c, k0, kvh);
+#pragma unroll
+    for (int c = 0; c < NV; ++c) tma_load_3d(vs + c * kBox, &v_map, kv_full, 64 * c, k0, kvh);
+    for (int t = 0; t < n_it; ++t) {
+      const int s = t % C::kSplitStages;
+      const int bh = b * dm.H + kh * G + t / per_head;
+      const int q0 = (qb0 + t % per_head) * kBM;
+      uint8_t* st = stages + s * C::kSplitStage;
+      mbar_wait(&empty[s], ((t / C::kSplitStages) & 1) ^ 1);
+      mbar_expect_tx(&full[s], C::kK + C::kV + kRowsBytes);
+#pragma unroll
+      for (int c = 0; c < NK; ++c) tma_load_3d(st + c * kBox, &q_map, &full[s], 64 * c, q0, bh);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        tma_load_3d(st + C::kK + c * kBox, &do_map, &full[s], 64 * c, q0, bh);
+      }
+      tma_load_2d(st + C::kK + C::kV, &rows_map, &full[s], q0, 2 * bh);
+    }
+    return;
+  }
+
+  regs_alloc<232>();
+  const bool owns_dv = tid < kConsumers;  // warpgroup V; else warpgroup K
+  const unsigned wt = tid % kConsumers;    // the thread's index in its warpgroup
+  const int warp = wt / 32, lane = wt % 32;
+  const int key0 = k0 + 16 * warp + lane / 4;  // this thread's keys: key0, key0 + 8
+  const float scale_log2 = dm.scale * kLog2e;
+  const size_t kvh = static_cast<size_t>(b) * dm.KH + kh;
+  mbar_wait(kv_full, 0);
+
+  if (owns_dv) {
+    float dv_acc[32 * NV];
+#pragma unroll
+    for (int i = 0; i < 32 * NV; ++i) dv_acc[i] = 0.f;
+    for (int t = 0; t < n_it; ++t) {
+      const int s = t % C::kSplitStages;
+      const int q0 = (qb0 + t % per_head) * kBM;
+      uint8_t* qs = stages + s * C::kSplitStage;
+      uint8_t* dos = qs + C::kK;
+      const float* lse2 = reinterpret_cast<const float*>(dos + C::kV);
+      float2* xp = reinterpret_cast<float2*>(dos + C::kV + kRowsSlot);
+      mbar_wait(&full[s], (t / C::kSplitStages) & 1);
+
+      // S^T (keys x queries): register i at key key0 + 8 ((i / 2) % 2),
+      // query q0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+      float st[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) st[i] = 0.f;
+      wgmma_fence();
+      mma_ss<NK>(st, ks, qs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(st);
+
+      const bool edge = (dm.causal && k0 + kBM - 1 > q0) || k0 + kBM > dm.Skv;
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        const int col = 8 * n + 2 * (lane % 4);
+        const float2 l = *reinterpret_cast<const float2*>(lse2 + col);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * n + e;
+          float p = exp2f(fmaf(st[i], scale_log2, -(e % 2 ? l.y : l.x)));
+          if (edge) {
+            const int key = key0 + 8 * (e / 2), query = q0 + col + e % 2;
+            if ((dm.causal && key > query) || key >= dm.Skv) p = 0.f;
+          }
+          st[i] = p;
+        }
+      }
+      // P^T to warpgroup K: pair j of every thread's fragment is one row
+      // of 128 float2, a warp's 32 stores consecutive
+#pragma unroll
+      for (int j = 0; j < 16; ++j) xp[j * kConsumers + wt] = make_float2(st[2 * j], st[2 * j + 1]);
+      named_arrive(1 + s, kSplitConsumers);
+      uint32_t pa[4][4];
+      pack_a(pa, st);
+      wgmma_fence();
+      mma_acc(dv_acc, pa, dos);  // dV += P^T dO
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dv_acc);
+      fence_a(pa);
+      mbar_arrive(&empty[s]);
+    }
+    store_rows(dv + kvh * dm.Skv * dm.Dv, dv_acc, k0, dm.Skv, dm.Dv, 1.f, wt);
+    return;
+  }
+
+  float dk_acc[32 * NK];
+#pragma unroll
+  for (int i = 0; i < 32 * NK; ++i) dk_acc[i] = 0.f;
+  for (int t = 0; t < n_it; ++t) {
+    const int s = t % C::kSplitStages;
+    const uint8_t* qs = stages + s * C::kSplitStage;
+    const uint8_t* dos = qs + C::kK;
+    const float* delta = reinterpret_cast<const float*>(dos + C::kV) + kBM;
+    const float2* xp = reinterpret_cast<const float2*>(dos + C::kV + kRowsSlot);
+    mbar_wait(&full[s], (t / C::kSplitStages) & 1);
+
+    // dP^T, laid out as S^T
+    float dpt[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dpt[i] = 0.f;
+    wgmma_fence();
+    mma_ss<NV>(dpt, vs, dos);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dpt);
+
+    named_sync(1 + s, kSplitConsumers);  // P^T of this stage is written
+#pragma unroll
+    for (int n = 0; n < 8; ++n) {
+      const float2 dl = *reinterpret_cast<const float2*>(delta + 8 * n + 2 * (lane % 4));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int i = 4 * n + 2 * h;
+        const float2 p = xp[(i / 2) * kConsumers + wt];
+        dpt[i] = p.x * (dpt[i] - dl.x);
+        dpt[i + 1] = p.y * (dpt[i + 1] - dl.y);
+      }
+    }
+    uint32_t da[4][4];
+    pack_a(da, dpt);
+    wgmma_fence();
+    mma_acc(dk_acc, da, qs);  // dK += dS^T Q (times scale at the end)
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dk_acc);
+    fence_a(da);
+    mbar_arrive(&empty[s]);
+  }
+  store_rows(dk + kvh * dm.Skv * dm.D, dk_acc, k0, dm.Skv, dm.D, dm.scale, wt);
+}
+
+template <int NK, int NV>
+__global__ void __launch_bounds__(kThreads, Cfg<NK, NV>::kQMinBlocks)
 flash_bwd_dq(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
              const __grid_constant__ CUtensorMap v_map, const __grid_constant__ CUtensorMap do_map,
              const __grid_constant__ CUtensorMap rows_map, bf16* __restrict__ dq,
@@ -847,6 +1082,165 @@ flash_bwd_dq(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ 
   asm volatile("griddepcontrol.wait;\n" ::: "memory");
 }
 
+// dQ at NK 3: one warpgroup's dQ (96 registers) with S, dP and dS fits
+// at one CTA an SM, so a CTA takes two query tiles (2z and 2z + 1, z
+// the pair), one a consumer warpgroup, both reading one stream of K and V
+// tiles up to the later tile's diagonal: K and V are loaded once for 128
+// queries, and the two warpgroups share the SM's tensor cores.  A
+// warpgroup whose tile ends earlier (or lies past Sq) waits for and frees
+// the stages it does not read.  Each warpgroup's arithmetic is
+// flash_bwd_dq's.
+template <int NK, int NV>
+__global__ void __launch_bounds__(kSplitThreads, 1)
+flash_bwd_dq_pair(const __grid_constant__ CUtensorMap q_map,
+                  const __grid_constant__ CUtensorMap k_map,
+                  const __grid_constant__ CUtensorMap v_map,
+                  const __grid_constant__ CUtensorMap do_map,
+                  const __grid_constant__ CUtensorMap rows_map, bf16* __restrict__ dq,
+                  const Dims dm) {
+  using C = Cfg<NK, NV>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* stages = smem + 2 * C::kQTile;  // tile w: Q, dO, rows at w kQTile; stage s: K, V
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::kPairBarOffset);
+  uint64_t* empty = full + C::kPairStages;
+  uint64_t* q_full = empty + C::kPairStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int pair = gridDim.z - 1 - blockIdx.z;  // heaviest pairs first
+  const int bh = b * dm.H + h, kvh = b * dm.KH + h / (dm.H / dm.KH);
+  const int n_all = (dm.Skv + kBM - 1) / kBM;
+  // the key blocks tile w reads: up to its diagonal, none past Sq
+  auto blocks_of = [&](int w) {
+    const int q0 = (2 * pair + w) * kBM;
+    if (q0 >= dm.Sq) return 0;
+    const int q_last = min(q0 + kBM, dm.Sq) - 1;
+    return dm.causal ? min(n_all, q_last / kBM + 1) : n_all;
+  };
+  const int n_kv = max(blocks_of(0), blocks_of(1));
+  const int n_tiles = (2 * pair + 1) * kBM < dm.Sq ? 2 : 1;
+  const int tid = threadIdx.x;
+  if (tid == 0) {
+    for (int s = 0; s < C::kPairStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kSplitConsumers);
+    }
+    mbar_init(q_full, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= kSplitConsumers) {  // the producer warpgroup: one thread issues the loads
+    regs_dealloc<40>();
+    if (tid != kSplitConsumers) return;
+    mbar_expect_tx(q_full, n_tiles * (C::kK + C::kV + kRowsBytes));
+    for (int w = 0; w < n_tiles; ++w) {
+      uint8_t* qs = smem + w * C::kQTile;
+      const int q0 = (2 * pair + w) * kBM;
+#pragma unroll
+      for (int c = 0; c < NK; ++c) tma_load_3d(qs + c * kBox, &q_map, q_full, 64 * c, q0, bh);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        tma_load_3d(qs + C::kK + c * kBox, &do_map, q_full, 64 * c, q0, bh);
+      }
+      tma_load_2d(qs + C::kK + C::kV, &rows_map, q_full, q0, 2 * bh);
+    }
+    for (int t = 0; t < n_kv; ++t) {
+      const int s = t % C::kPairStages;
+      uint8_t* st = stages + s * C::kQStage;
+      mbar_wait(&empty[s], ((t / C::kPairStages) & 1) ^ 1);
+      mbar_expect_tx(&full[s], C::kK + C::kV);
+#pragma unroll
+      for (int c = 0; c < NK; ++c) tma_load_3d(st + c * kBox, &k_map, &full[s], 64 * c, t * kBM, kvh);
+#pragma unroll
+      for (int c = 0; c < NV; ++c) {
+        tma_load_3d(st + C::kK + c * kBox, &v_map, &full[s], 64 * c, t * kBM, kvh);
+      }
+    }
+    return;
+  }
+
+  regs_alloc<232>();
+  const int w = tid / kConsumers;       // this warpgroup's tile of the pair
+  const unsigned wt = tid % kConsumers;  // the thread's index in its warpgroup
+  const int warp = wt / 32, lane = wt % 32;
+  const int r0 = 16 * warp + lane / 4;  // this thread's rows of the tile: r0, r0 + 8
+  const int q0 = (2 * pair + w) * kBM;
+  const int n_mine = blocks_of(w);
+  const uint8_t* qs = smem + w * C::kQTile;
+  const uint8_t* dos = qs + C::kK;
+  const float* lse2 = reinterpret_cast<const float*>(dos + C::kV);
+  const float scale_log2 = dm.scale * kLog2e;
+  float dq_acc[32 * NK];
+#pragma unroll
+  for (int i = 0; i < 32 * NK; ++i) dq_acc[i] = 0.f;
+  mbar_wait(q_full, 0);
+  const float l[2] = {lse2[r0], lse2[r0 + 8]};
+  const float dl[2] = {lse2[kBM + r0], lse2[kBM + r0 + 8]};
+
+  for (int t = 0; t < n_mine; ++t) {
+    const int s = t % C::kPairStages;
+    const uint8_t* ks = stages + s * C::kQStage;
+    const uint8_t* vs = ks + C::kK;
+    mbar_wait(&full[s], (t / C::kPairStages) & 1);
+
+    // S and dP (queries x keys): register i at row q0 + r0 + 8 ((i / 2) %
+    // 2), key k0 + 8 (i / 4) + 2 (lane % 4) + i % 2
+    float sc[32], dp[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] = dp[i] = 0.f;
+    wgmma_fence();
+    mma_ss<NK>(sc, qs, ks);
+    wgmma_commit();
+    wgmma_fence();
+    mma_ss<NV>(dp, dos, vs);
+    wgmma_commit();
+    wgmma_wait<1>();
+    fence_regs(sc);
+
+    const int k0 = t * kBM;
+    const bool edge = (dm.causal && k0 + kBM - 1 > q0) || k0 + kBM > dm.Skv;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      float p = exp2f(fmaf(sc[i], scale_log2, -l[(i / 2) % 2]));
+      if (edge) {
+        const int key = k0 + 8 * (i / 4) + 2 * (lane % 4) + i % 2;
+        const int row = q0 + r0 + 8 * ((i / 2) % 2);
+        if ((dm.causal && key > row) || key >= dm.Skv) p = 0.f;
+      }
+      sc[i] = p;
+    }
+    wgmma_wait<0>();
+    fence_regs(dp);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dp[i] = sc[i] * (dp[i] - dl[(i / 2) % 2]);
+    uint32_t da[4][4];
+    pack_a(da, dp);
+    wgmma_fence();
+    mma_acc(dq_acc, da, ks);  // dQ += dS K (times scale at the end)
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(dq_acc);
+    fence_a(da);
+    mbar_arrive(&empty[s]);
+  }
+  // the stages the other tile reads past this one's last block: waited for
+  // (their phase is the current one) and freed
+  for (int t = n_mine; t < n_kv; ++t) {
+    mbar_wait(&full[t % C::kPairStages], (t / C::kPairStages) & 1);
+    mbar_arrive(&empty[t % C::kPairStages]);
+  }
+
+  if (n_mine > 0) {
+    store_rows(dq + static_cast<size_t>(bh) * dm.Sq * dm.D, dq_acc, q0, dm.Sq, dm.D, dm.scale,
+               wt);
+  }
+  // the grid ends after the dK / dV grid it overlapped: what follows on the
+  // stream sees all three outputs
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // the workspace's floats for B * H rows of Sq: lse2 and delta, Sq padded
 inline size_t workspace_elems(int B, int H, int Sq) {
   return static_cast<size_t>(B) * H * 2 * padded(Sq);
@@ -877,29 +1271,58 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* out,
                    CU_TENSOR_MAP_SWIZZLE_NONE);
   }
   if (err != cudaSuccess) return err;
+  // dK / dV on one consumer warpgroup up to two column boxes of q / k, on
+  // two above; dQ on a CTA a query tile, but at three boxes a CTA a tile
+  // pair (at four, two tiles' dQ in 232 registers a thread spill)
+  constexpr bool kSplit = NK >= 3;
+  constexpr bool kPair = NK == 3;
   static const cudaError_t smem_err = [] {
-    const cudaError_t e = allow_smem(flash_bwd_dkdv<NK, NV>, C::kKVSmem);
-    return e == cudaSuccess ? allow_smem(flash_bwd_dq<NK, NV>, C::kQSmem) : e;
+    cudaError_t e;
+    if constexpr (NK >= 3) {
+      e = allow_smem(flash_bwd_dkdv_split<NK, NV>, C::kSplitSmem);
+    } else {
+      e = allow_smem(flash_bwd_dkdv<NK, NV>, C::kKVSmem);
+    }
+    if (e != cudaSuccess) return e;
+    if constexpr (NK == 3) {
+      return allow_smem(flash_bwd_dq_pair<NK, NV>, C::kPairSmem);
+    } else {
+      return allow_smem(flash_bwd_dq<NK, NV>, C::kQSmem);
+    }
   }();
   if (smem_err != cudaSuccess) return smem_err;
-  flash_bwd_dkdv<NK, NV><<<dim3(dm.KH, B, (dm.Skv + kBM - 1) / kBM), kThreads, C::kKVSmem, s>>>(
-      q_map, k_map, v_map, do_map, rows_map, static_cast<bf16*>(dk), static_cast<bf16*>(dv), dm);
+  const dim3 kv_grid(dm.KH, B, (dm.Skv + kBM - 1) / kBM);
+  if constexpr (kSplit) {
+    flash_bwd_dkdv_split<NK, NV><<<kv_grid, kSplitThreads, C::kSplitSmem, s>>>(
+        q_map, k_map, v_map, do_map, rows_map, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        dm);
+  } else {
+    flash_bwd_dkdv<NK, NV><<<kv_grid, kThreads, C::kKVSmem, s>>>(
+        q_map, k_map, v_map, do_map, rows_map, static_cast<bf16*>(dk), static_cast<bf16*>(dv),
+        dm);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   // a programmatic dependent of the dK / dV grid: both read only what the
   // delta pass (finished before dK / dV started) and the inputs hold
+  const int nq = (dm.Sq + kBM - 1) / kBM;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(dm.H, B, (dm.Sq + kBM - 1) / kBM);
-  cfg.blockDim = dim3(kThreads);
-  cfg.dynamicSmemBytes = C::kQSmem;
+  cfg.gridDim = dim3(dm.H, B, kPair ? (nq + 1) / 2 : nq);
+  cfg.blockDim = dim3(kPair ? kSplitThreads : kThreads);
+  cfg.dynamicSmemBytes = kPair ? C::kPairSmem : C::kQSmem;
   cfg.stream = s;
   cudaLaunchAttribute attr;
   attr.id = cudaLaunchAttributeProgrammaticStreamSerialization;
   attr.val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = &attr;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, flash_bwd_dq<NK, NV>, q_map, k_map, v_map, do_map, rows_map,
-                           static_cast<bf16*>(dq), dm);
+  if constexpr (kPair) {
+    err = cudaLaunchKernelEx(&cfg, flash_bwd_dq_pair<NK, NV>, q_map, k_map, v_map, do_map,
+                             rows_map, static_cast<bf16*>(dq), dm);
+  } else {
+    err = cudaLaunchKernelEx(&cfg, flash_bwd_dq<NK, NV>, q_map, k_map, v_map, do_map, rows_map,
+                             static_cast<bf16*>(dq), dm);
+  }
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -930,14 +1353,15 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (route == kRouteWgmma) {
     // what the route takes: bf16, head dims multiples of 8 (TMA's 16-byte
-    // strides) up to two column boxes, 16-byte aligned operands (TMA, and
+    // strides), q / k's up to four column boxes and v's up to two, 16-byte
+    // aligned operands (TMA, and
     // the delta pass's 16-byte loads), a workspace of the right size
     const uintptr_t bases = reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
                             reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(out) |
                             reinterpret_cast<uintptr_t>(dout) | reinterpret_cast<uintptr_t>(dq) |
                             reinterpret_cast<uintptr_t>(dk) | reinterpret_cast<uintptr_t>(dv) |
                             reinterpret_cast<uintptr_t>(workspace);
-    if (dtype != repro::kBFloat16 || D % 8 || Dv % 8 || D > wg::kMaxD || Dv > wg::kMaxD ||
+    if (dtype != repro::kBFloat16 || D % 8 || Dv % 8 || D > wg::kMaxD || Dv > wg::kMaxDv ||
         bases % 16 || !workspace ||
         workspace_elems < static_cast<long long>(wg::workspace_elems(B, H, Sq))) {
       return cudaErrorInvalidValue;
@@ -945,8 +1369,16 @@ extern "C" int repro_flash_attention_bwd(const void* q, const void* k, const voi
     float* ws = static_cast<float*>(workspace);
     if (D <= 64 && Dv <= 64) return wg::launch<1, 1>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
     if (D <= 64) return wg::launch<1, 2>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
-    if (Dv <= 64) return wg::launch<2, 1>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
-    return wg::launch<2, 2>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
+    if (D <= 128) {
+      if (Dv <= 64) return wg::launch<2, 1>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
+      return wg::launch<2, 2>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
+    }
+    if (D <= 192) {
+      if (Dv <= 64) return wg::launch<3, 1>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
+      return wg::launch<3, 2>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
+    }
+    if (Dv <= 64) return wg::launch<4, 1>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
+    return wg::launch<4, 2>(q, k, v, out, l, dout, dq, dk, dv, ws, B, dm, s);
   }
   if (route != kRouteCudaCores) return cudaErrorInvalidValue;
   if (dtype == repro::kFloat32) {

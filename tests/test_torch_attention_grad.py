@@ -249,8 +249,9 @@ def test_backward_wrapper_raises_on_what_the_kernel_does_not_take(emulated):
 
 
 def test_backward_route_is_picked_by_the_wrapper_passed_and_counted(emulated, monkeypatch):
-    """bf16 with head dims multiples of 8 up to 128 and 16-byte aligned
-    operands takes the wgmma route (TMA loads), the rest the CUDA cores;
+    """bf16 with head dims multiples of 8, q / k's up to 256 and v's up to
+    128, and 16-byte aligned operands takes the wgmma route (TMA loads),
+    the rest the CUDA cores;
     the wrapper passes the route's code and counts the launch under it.
     (Meta tensors stand in for CUDA ones.)"""
     def ops(d, dv, dtype=torch.bfloat16, device="cpu"):
@@ -258,9 +259,11 @@ def test_backward_route_is_picked_by_the_wrapper_passed_and_counted(emulated, mo
         v, do = (torch.zeros(1, 4, 8, dv, dtype=dtype, device=device) for _ in range(2))
         return q, k, v, do
 
-    for d, dv in ((64, 64), (16, 48), (32, 64), (24, 24), (112, 112), (128, 128), (128, 64)):
+    for d, dv in ((64, 64), (16, 48), (32, 64), (24, 24), (112, 112), (128, 128), (128, 64),
+                  (192, 128), (256, 128), (200, 64)):
         assert tatt.flash_bwd_route(*ops(d, dv)) == "wgmma"
-    for args in (ops(20, 20), ops(136, 136), ops(64, 64, torch.float32), ops(192, 128)):
+    for args in (ops(20, 20), ops(136, 136), ops(64, 64, torch.float32), ops(264, 128),
+                 ops(192, 136), ops(192, 128, torch.float32)):
         assert tatt.flash_bwd_route(*args) == "cuda_cores"
     q, k, v, do = ops(64, 64)
     shifted = torch.zeros(1 + q.numel(), dtype=torch.bfloat16)[1:].view(q.shape)

@@ -8,7 +8,9 @@ The emulation follows the three kernels: the delta pass's rows (lse in
 log2 units, ``+inf`` past Sq; delta from the bf16 ``out`` and ``do``), then
 the dK / dV kernel's 64-key tiles walking the group's heads and the query
 blocks on and below the diagonal, and the dQ kernel's 64-query tiles
-walking the key blocks up to the diagonal, in that order, with tiles past
+walking the key blocks up to the diagonal, in that order (above qk 128
+the dK / dV tile's products are shared by two warpgroups and a dQ CTA
+may hold two query tiles: each sum keeps this order), with tiles past
 S zero-filled as TMA loads them.  Scores and dP accumulate in f32; P^T and
 dS^T (dS in the dQ kernel) are rounded to bf16 as the A operands of the
 accumulating products, which accumulate in f32; dK and dQ take the scale
@@ -142,8 +144,11 @@ def _reference(q, k, v, do):
 
 
 # (S, D, Dv): llama's 64, zamba2's 112 (two boxes, zero-filled past 112),
-# arctic's 128, each at a ragged S 300 and at 512; D != Dv below one box
-SHAPES = [(s, d, d) for d in (64, 112, 128) for s in (300, 512)] + [(300, 48, 32)]
+# arctic's 128, each at a ragged S 300 and at 512; D != Dv below one box;
+# deepseek-v2's qk 192 / v 128 and qk 256 / v 128 (dK / dV on two consumer
+# warpgroups, three and four boxes of q and k)
+SHAPES = [(s, d, d) for d in (64, 112, 128) for s in (300, 512)] + [
+    (300, 48, 32), (300, 192, 128), (512, 192, 128), (300, 256, 128)]
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=lambda t: "S%d-D%d-Dv%d" % t)
