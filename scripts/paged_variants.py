@@ -28,6 +28,14 @@ catch:
   P V (they stay zero);
 - ``latent_fault_causal``: a query row does not see its own position.
 
+Faults planted in the split walk and in flash's wgmma forward, which the
+zoo's bf16 path check (phase 27's ``bf16_path_vs_plain``) must catch at
+full depth:
+
+- ``split_fault_causal``: on the CUDA-core walk (G <= 4 at decode: the
+  granite decode's) a query row does not see its own position;
+- ``flash_fault_peek``: a prefill row also sees the key after its own.
+
 Each variant is this tree's ``src/repro_torch`` and ``chip_smoke.py``
 copied into ``build/paged_variants/<variant>`` with one line of a kernel
 file edited.  The modes:
@@ -46,9 +54,15 @@ file edited.  The modes:
 - ``bf16_path``: chip_smoke.py's phase-15 check of deepseek-v2's bf16 path
   (4 layers, full width) on a fresh engine, the tree's first, then each
   variant's: the logits against the plain attention with the MoE's
-  expert choices pinned, and ``within_tol`` against ``PATH_TOL``.
+  expert choices pinned, and ``within_tol`` against ``PATH_TOL``;
+- ``zoo_path``: the same check of granite-3-8b's bf16 path (all 40
+  layers, full width): the kernels' path and the rounding floor against
+  the pinned plain path, each step's ``within_bound`` (``PATH_TOL`` or
+  ``PATH_FLOOR_FACTOR`` floors) and the attention calls that disagree
+  with their kernel (``per_call``); its variants by default the two faults
+  above.
 
-    python3 scripts/paged_variants.py [paged_kernels|main_path|latent_times|bf16_path] [VARIANT ...]
+    python3 scripts/paged_variants.py [paged_kernels|main_path|latent_times|bf16_path|zoo_path] [VARIANT ...]
 
 Prints one JSON line per case and version, ``version`` naming the variant
 or ``change`` / ``tree`` (this tree).  Compare versions only within one
@@ -66,6 +80,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 KERNELS = Path("repro_torch") / "kernels"
 CU = "csrc/paged_attention.cu"
+FLASH = "csrc/flash_attention.cu"
 #: variant -> (file under src/repro_torch/kernels, its text, the replacement)
 VARIANTS = {
     "cp_async_only": (CU, "  p.tma = p.bh > 0;\n", "  p.tma = 0;\n"),
@@ -85,7 +100,12 @@ VARIANTS = {
     "latent_fault_one_half": (CU, "      mma_bf16_rs_n256(o, a,",
                               "      if (wg == 0) mma_bf16_rs_n256(o, a,"),
     "latent_fault_causal": (CU, "t0 + j <= qpos[(i / 2) % 2];", "t0 + j < qpos[(i / 2) % 2];"),
+    "split_fault_causal": (CU, "tile.t0 + lane <= qpos[r];", "tile.t0 + lane < qpos[r];"),
+    "flash_fault_peek": (FLASH, "(causal && key > row)) x = kNeg;",
+                         "(causal && key > row + 1)) x = kNeg;"),
 }
+#: each mode's variants when none is named
+DEFAULT_VARIANTS = {"zoo_path": ["split_fault_causal", "flash_fault_peek"]}
 #: modes run through ab_parent_change.py (V C C V), and modes that run
 #: each version once, by this code
 AB_MODES = ("paged_kernels", "main_path")
@@ -130,16 +150,20 @@ for b, s, lengths in ((8, 1, [1022, 700, 511, 256, 95, 16, 15, 0]), (1, 16, [384
 '''
 BF16_PATH = r'''
 import json, sys, torch
+arch = sys.argv[1]
 sys.path.insert(0, ".")
 sys.path.insert(0, "src")
 import chip_smoke as c
 from repro_torch.serve import ServeEngine
 
-engine = ServeEngine(c._serve_config("deepseek-v2-236b"), seed=0, device="cuda", n_slots=8,
+engine = ServeEngine(c._serve_config(arch), seed=0, device="cuda", n_slots=8,
                      max_len=1024, page_size=16)
-print(json.dumps({"shape": "bf16_path", **c._bf16_path_vs_plain(torch, engine)}), flush=True)
+print(json.dumps({"shape": "bf16_path", "arch": arch, **c._bf16_path_vs_plain(torch, engine)}),
+      flush=True)
 '''
-ONCE = {"latent_times": LATENT_TIMES, "bf16_path": BF16_PATH}
+#: modes that run each version once: (script, its arguments)
+ONCE = {"latent_times": (LATENT_TIMES,), "bf16_path": (BF16_PATH, "deepseek-v2-236b"),
+        "zoo_path": (BF16_PATH, "granite-3-8b")}
 
 
 def make_variant(name: str) -> Path:
@@ -180,8 +204,9 @@ def run_ab(mode: str, names: list) -> int:
 
 def run_once(mode: str, names: list) -> int:
     for name, root in [("tree", ROOT)] + [(n, make_variant(n)) for n in names]:
-        out = subprocess.run([sys.executable, "-c", ONCE[mode]], cwd=root, capture_output=True,
-                             text=True, timeout=900)
+        script, *script_args = ONCE[mode]
+        out = subprocess.run([sys.executable, "-c", script, *script_args], cwd=root,
+                             capture_output=True, text=True, timeout=900)
         for line in out.stdout.splitlines():
             if line.startswith("{") and '"shape"' in line:
                 print(json.dumps({"version": name, **json.loads(line)}), flush=True)
@@ -194,7 +219,7 @@ def run_once(mode: str, names: list) -> int:
 def main() -> int:
     args = sys.argv[1:]
     mode = args.pop(0) if args and args[0] in AB_MODES + tuple(ONCE) else AB_MODES[0]
-    names = args or list(VARIANTS)
+    names = args or DEFAULT_VARIANTS.get(mode, list(VARIANTS))
     if any(name not in VARIANTS for name in names):
         print(__doc__, file=sys.stderr)
         return 2

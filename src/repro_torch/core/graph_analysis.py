@@ -254,6 +254,18 @@ def trace_with_work(fn: Callable[..., Any], *example_args: Any) -> tuple[Any, li
     return gm, list(kernels)
 
 
+def histogram_similarity(a: dict[str, int], b: dict[str, int]) -> float:
+    """Size-normalised L1 similarity between op histograms, the graph
+    counterpart of Deckard vector distance: 1 for equal histograms, 0 for
+    disjoint ones."""
+    keys = set(a) | set(b)
+    dist = sum(abs(a.get(k, 0) - b.get(k, 0)) for k in keys)
+    denom = sum(a.values()) + sum(b.values())
+    if denom == 0:
+        return 1.0
+    return 1.0 - dist / denom
+
+
 def trace_report(fn: Callable[..., Any], *example_args: Any) -> GraphReport:
     return analyze_graph(*trace(fn, *example_args))
 

@@ -21,10 +21,12 @@ from __future__ import annotations
 
 from typing import Any, Protocol, runtime_checkable
 
-#: Nominal board power charged by the time-proportional fallback.  The
-#: absolute value only shifts energy scores by a constant factor — relative
-#: ranking, which is all the search needs, is unaffected.
-DEFAULT_DEVICE_WATTS = 170.0
+#: Nominal board power charged by the time-proportional fallback: the
+#: H100 SXM's power limit, as ``nvidia-smi --query-gpu=name,power.limit``
+#: gives it (``NVIDIA H100 80GB HBM3, 700.00 W``).  The absolute value only
+#: shifts energy scores by a constant factor — relative ranking, which is
+#: all the search needs, is unaffected.
+DEFAULT_DEVICE_WATTS = 700.0
 
 
 # -- power metering -----------------------------------------------------------

@@ -21,6 +21,13 @@ def fft2d_ref(x: torch.Tensor) -> torch.Tensor:
     return torch.fft.fft2(x).to(torch.complex64)
 
 
+def lu_ref(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """LAPACK-style getrf oracle: the packed LU and its 0-based pivots, as
+    ``jax.scipy.linalg.lu_factor`` returns them."""
+    lu, piv = torch.linalg.lu_factor(a)
+    return lu, (piv - 1).to(torch.int32)
+
+
 def lu_reconstruct(lu: torch.Tensor, piv: torch.Tensor) -> torch.Tensor:
     """Rebuild P^-1 L U from a packed factorisation + NR/LAPACK pivots —
     the pivot-invariant way to verify an LU."""

@@ -101,8 +101,9 @@ def make_requests(cfg, args: argparse.Namespace, rng: np.random.Generator) -> li
     return requests
 
 
-def build_parser() -> argparse.ArgumentParser:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+def add_engine_args(ap: argparse.ArgumentParser) -> None:
+    """The flags that shape the engine (:func:`build_engine` reads them),
+    shared by this CLI and any script that builds its engine the same way."""
     ap.add_argument("--arch", default="llama3.2-1b")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--layers", type=int, default=None,
@@ -146,13 +147,6 @@ def build_parser() -> argparse.ArgumentParser:
                     help="measurement executor for --plan-search")
     ap.add_argument("--meter", default="none", choices=METER_NAMES,
                     help="power telemetry per phase (and for --plan-search's trials)")
-    ap.add_argument("--requests", type=int, default=8)
-    ap.add_argument("--prompt-len", type=int, default=24)
-    ap.add_argument("--len-jitter", type=int, default=8,
-                    help="uniform prompt-length jitter (staggers slots)")
-    ap.add_argument("--gen", type=int, default=16)
-    ap.add_argument("--gen-jitter", type=int, default=4)
-    ap.add_argument("--max-steps", type=int, default=10_000)
     ap.add_argument("--trace-out", default=None,
                     help="enable request-lifecycle tracing and write a Chrome/Perfetto "
                          "trace_event JSON here")
@@ -166,21 +160,45 @@ def build_parser() -> argparse.ArgumentParser:
                     help="device envelope for --preflight: a static name (h100-80g, "
                          "cpu-host-16g, tiny-32m, ...) or 'host' to probe --device "
                          "(default)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    add_engine_args(ap)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=24)
+    ap.add_argument("--len-jitter", type=int, default=8,
+                    help="uniform prompt-length jitter (staggers slots)")
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--gen-jitter", type=int, default=4)
+    ap.add_argument("--max-steps", type=int, default=10_000)
     ap.add_argument("--preflight", action="store_true",
                     help="static capacity check only: size params + KV against "
                          "--envelope and exit (0 fits, 2 not) without building the engine")
     return ap
 
 
-def preflight(args: argparse.Namespace, cfg) -> int:
+def config_of(args: argparse.Namespace):
+    """The config the flags name: ``--arch``, ``--reduced``, ``--layers``."""
+    cfg = get_config(args.arch)
+    if args.reduced:
+        cfg = cfg.reduced()
+    if args.layers:
+        cfg = cfg.cut(args.layers)
+    return cfg
+
+
+def preflight(args: argparse.Namespace, cfg=None) -> int:
     """Static capacity check of the requested deployment — the paper's
     FPGA resource-fit gate applied before the engine is built.  Sizes
     params + KV cache from metadata (nothing is materialised, so full-size
     configs check in milliseconds) against ``--envelope`` and refuses to
-    proceed when they cannot fit.  Returns a process exit code: 0 fits, 2
-    does not."""
+    proceed when they cannot fit.  ``cfg`` defaults to the flags' config
+    (:func:`config_of`).  Returns a process exit code: 0 fits, 2 does
+    not."""
     from repro_torch.analysis.resources import plan_serve_capacity
 
+    cfg = config_of(args) if cfg is None else cfg
     plan = plan_serve_capacity(
         cfg,
         n_slots=args.slots,
@@ -232,18 +250,11 @@ def plan_keys_of(args: argparse.Namespace) -> "dict[str, str | None] | str | Non
     return None
 
 
-def main(argv: "list[str] | None" = None) -> int:
-    args = build_parser().parse_args(argv)
-    cfg = get_config(args.arch)
-    if args.reduced:
-        cfg = cfg.reduced()
-    if args.layers:
-        cfg = cfg.cut(args.layers)
-    if args.preflight:
-        return preflight(args, cfg)
-    plan_keys = plan_keys_of(args)
-    engine = ServeEngine(
-        cfg,
+def build_engine(args: argparse.Namespace) -> ServeEngine:
+    """The engine :func:`add_engine_args`' flags describe (the reference's
+    engine construction, shared with its load benchmark)."""
+    return ServeEngine(
+        config_of(args),
         n_slots=args.slots,
         max_len=args.max_len,
         sampler=Sampler.parse(args.sampler),
@@ -255,7 +266,7 @@ def main(argv: "list[str] | None" = None) -> int:
         seed=args.seed,
         device=args.device,
         plan_dir=args.plan_dir,
-        plan_keys=plan_keys,
+        plan_keys=plan_keys_of(args),
         decode_impl=args.decode_impl,
         meter=args.meter,
         kv_validate=args.kv_validate,
@@ -264,6 +275,13 @@ def main(argv: "list[str] | None" = None) -> int:
         # engine keeps the process tracer, disabled
         tracer=Tracer() if args.trace_out else None,
     )
+
+
+def main(argv: "list[str] | None" = None) -> int:
+    args = build_parser().parse_args(argv)
+    if args.preflight:
+        return preflight(args)
+    engine = build_engine(args)
     rng = np.random.default_rng(args.seed)
     requests = make_requests(engine.cfg, args, rng)
     for request in requests:

@@ -27,6 +27,7 @@ version, as the reference's default runs ``xla``; the run ends with a
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import tempfile
 import time
@@ -45,6 +46,14 @@ from repro_torch.models.params import count_params
 from repro_torch.optim.adamw import AdamW
 from repro_torch.runtime.fault import FaultTolerantLoop
 from repro_torch.runtime.monitor import StepMonitor
+
+
+@dataclasses.dataclass
+class TrainState:
+    """The state a train step carries: the parameters and the optimizer's."""
+
+    params: object
+    opt_state: object
 
 
 def build(args: argparse.Namespace):

@@ -42,10 +42,22 @@ class ParamMeta:
         assert len(self.shape) == len(self.axes), (self.shape, self.axes)
 
 
+def is_meta(x: Any) -> bool:
+    return isinstance(x, ParamMeta)
+
+
 def tree_map_metas(fn: Callable[[ParamMeta], Any], tree: Any) -> Any:
-    if isinstance(tree, ParamMeta):
+    if is_meta(tree):
         return fn(tree)
     return {k: tree_map_metas(fn, v) for k, v in tree.items()}
+
+
+def abstract_params(metas: Any) -> Any:
+    """The meta tree as tensors on the ``meta`` device (shape and dtype,
+    no storage): the counterpart of ``jax.ShapeDtypeStruct`` leaves."""
+    return tree_map_metas(
+        lambda m: torch.empty(m.shape, dtype=torch_dtype(m.dtype), device="meta"), metas
+    )
 
 
 def init_params(

@@ -472,7 +472,8 @@ PAGED_VARIANTS = _paged_variants()
 def test_paged_variant_edits_one_line_of_this_tree(name):
     """Each of ``scripts/paged_variants.py``'s variants (the latent walk's
     stages taken out, its planted faults, its plan at one CTA an SM, the
-    split walk's forks) finds the text it replaces exactly once in this
+    split walk's forks, the faults planted in the split walk and in
+    flash) finds the text it replaces exactly once in this
     tree's kernel sources, so a change to a kernel that moves the text
     shows here and not as a failed build on the card."""
     from pathlib import Path

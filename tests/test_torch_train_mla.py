@@ -25,7 +25,7 @@ WIDTH = ("d_model", "n_heads", "n_kv_heads", "d_ff", "vocab_size", "mla", "param
 
 
 def test_train_mla_is_deepseeks_dense_layer_at_full_width():
-    cfg, full = chip_smoke.train_mla_config(), get_config("deepseek-v2-236b")
+    cfg, full = chip_smoke.train_cut_config(chip_smoke.TRAIN_MLA), get_config("deepseek-v2-236b")
     assert cfg.pattern() == "d" and cfg.n_layers == 1
     assert {k: getattr(cfg, k) for k in WIDTH} == {k: getattr(full, k) for k in WIDTH}
     assert cfg.param_dtype == cfg.opt_dtype == "bfloat16"
@@ -41,7 +41,7 @@ def test_train_mla_is_deepseeks_dense_layer_at_full_width():
 
 
 def test_train_mla_step_fits_the_card_by_the_dry_run():
-    rec = chip_smoke.train_mla_estimate("cpu")
+    rec = chip_smoke.train_estimate(chip_smoke.TRAIN_MLA, "cpu")
     assert rec["status"] == "ok", rec.get("error")
     assert rec["shape"] == "train_mla" and rec["chips"] == 1
     # weights, gradients and two bf16 moments alone: ~11.7 GB
