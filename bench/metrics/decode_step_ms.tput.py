@@ -1,0 +1,8 @@
+"""decode_step_ms.tput (ms, program span; layer: model step): decode
+telemetry seconds over decode calls in the window, in the backlog cells."""
+
+from bench.harness import readers
+
+
+def read(run):
+    return readers.decode_step_ms(run)
