@@ -3,14 +3,18 @@
 reference's modules, which import no JAX).
 
   trace     :class:`Tracer` — typed spans/events on a thread-safe ring
-            buffer; Chrome/Perfetto ``trace_event`` JSON and JSONL
-            exporters.  The serve engine records against the
-            process-default tracer (:func:`get_tracer`), disabled — and
-            near-free — until enabled.
+            buffer; a Chrome/Perfetto ``trace_event`` JSON exporter.
+            The serve engine records against the process-default tracer
+            (:func:`get_tracer`), disabled — and near-free — until
+            enabled.
   metrics   :class:`MetricsRegistry` — counter/gauge/exponential-bucket
             histogram families with a Prometheus text renderer and an
             optional stdlib HTTP ``/metrics`` endpoint
             (:class:`MetricsServer`; ``ServeEngine.serve_metrics(port)``).
+  segment   :class:`Segment` — a named stretch of host code timed by one
+            pair of clock reads, a ``serve.<name>`` profiler range while
+            a ``torch.profiler`` capture records (imported from its
+            module: it needs torch).
   profile   :func:`profile_window` — opt-in ``torch.profiler`` capture
             around N serve steps, a Chrome trace in a log directory.
   timeline  ``python -m repro_torch.obs.timeline trace.json`` — terminal

@@ -1,5 +1,5 @@
 """Low-overhead structured tracing: typed spans on a thread-safe ring (a
-copy of ``repro/obs/trace.py``).
+copy of ``repro/obs/trace.py`` without its JSONL exporter).
 
 The paper's loop decides *where* to offload from measurements of the
 running system; this module records *what the system did and when*, so a
@@ -7,8 +7,7 @@ slow step has an explanation, not just an aggregate.  A :class:`Tracer`
 collects :class:`SpanRecord`s — complete spans (``ph="X"``), instant
 events (``ph="i"``) — into a bounded ring buffer (old records drop, the
 serve loop never blocks on its own telemetry) and exports them as
-Chrome/Perfetto ``trace_event`` JSON (open in https://ui.perfetto.dev) or
-a plain JSONL stream.
+Chrome/Perfetto ``trace_event`` JSON (open in https://ui.perfetto.dev).
 
 Two usage shapes::
 
@@ -41,7 +40,7 @@ import json
 import threading
 import time
 from collections import deque
-from typing import Any, Iterable, TextIO
+from typing import Any
 
 __all__ = [
     "NULL_SPAN",
@@ -262,27 +261,6 @@ class Tracer:
         with open(path, "w") as f:
             json.dump(self.to_chrome(), f)
             f.write("\n")
-
-    def iter_jsonl(self) -> Iterable[str]:
-        for rec in sorted(self.records(), key=lambda r: r.t0):
-            yield json.dumps({
-                "name": rec.name,
-                "ph": rec.ph,
-                "tid": rec.tid,
-                "ts": self._ts_us(rec.t0),
-                "dur": max(rec.t1 - rec.t0, 0.0) * 1e6,
-                "args": rec.args or {},
-            })
-
-    def write_jsonl(self, path_or_file: "str | TextIO") -> None:
-        """One JSON record per line — the streaming/grep-friendly form."""
-        if hasattr(path_or_file, "write"):
-            for line in self.iter_jsonl():
-                path_or_file.write(line + "\n")
-            return
-        with open(path_or_file, "w") as f:
-            for line in self.iter_jsonl():
-                f.write(line + "\n")
 
 
 #: Module-level default tracer: disabled until someone opts in.  Library

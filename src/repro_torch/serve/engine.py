@@ -64,7 +64,11 @@ streaming :class:`Token` events and a final :class:`Completion` per request.
   :class:`PhaseTelemetry`, the scheduler and a decode
   :class:`~repro_torch.runtime.monitor.StepMonitor`, and
   :meth:`ServeEngine.metrics` for KV-pool utilization, stranded capacity
-  and page fragmentation.
+  and page fragmentation.  The host's own stretches of a step
+  (:data:`SEGMENTS`) are timed always, into ``telemetry[segment]``; with
+  the tracer enabled each is a span on the engine's track, and while a
+  ``torch.profiler`` capture records, a ``serve.<segment>`` range on the
+  profiler's clock (:mod:`repro_torch.obs.segment`).
 * **Plan binding** — ``plan_dir`` / ``plan_keys`` bind each phase
   (prefill, which covers the chunk programs, and decode) to a committed
   offload plan (:func:`repro_torch.offload.zoo.plan_zoo`), and
@@ -115,7 +119,8 @@ from repro_torch.models import lm
 from repro_torch.metering import meter_window, resolve_meter
 from repro_torch.metering.meters import WindowTelemetry
 from repro_torch.models.attention import cache_seq_axes, insert_pages
-from repro_torch.obs import MetricsRegistry, Tracer, get_tracer
+from repro_torch.obs import NULL_SPAN, MetricsRegistry, Tracer, get_tracer
+from repro_torch.obs.segment import PREFIX, Segment, annotation
 from repro_torch.offload.session import stored_binding
 from repro_torch.runtime.monitor import StepMonitor
 from repro_torch.serve.kv import PagePool, PageTable, PoolExhausted, pages_for
@@ -125,6 +130,16 @@ from repro_torch.serve.sampler import Sampler, policy_of, sample_tokens
 from repro_torch.serve.scheduler import Scheduler, request_track
 
 PHASES = ("prefill", "decode")
+#: host segments of a step, telemetry keys beside the phases (their
+#: profiler ranges add ``serve.``): the whole ``step()``; decode's page
+#: growth and active set, its page-table upload (only the steps that
+#: upload), its program call up to the call's return on the host, and its
+#: per-slot commit once the tokens are read; each prefill chunk with its
+#: sync (tokens: the chunk's new ones).  Every other one lies inside
+#: ``step``, and ``decode.pages`` / ``decode.launch`` inside the decode
+#: window: the entries overlap, so a sum over all of them means nothing.
+SEGMENTS = ("step", "decode.prep", "decode.pages", "decode.launch", "decode.commit",
+            "prefill.chunk")
 
 
 def resolve_device(device: "torch.device | str") -> torch.device:
@@ -181,19 +196,24 @@ class PhaseTelemetry:
             )
 
     def add(self, tele: WindowTelemetry, tokens: int) -> None:
-        self.calls += 1
-        self.seconds += tele.seconds
-        self.tokens += tokens
+        self.count(tele.seconds, tokens)
         if tele.joules is not None:
             self.joules = (self.joules or 0.0) + tele.joules
             self.provenance = tele.provenance
+            if self._counters is not None:
+                self._counters[3].inc(max(tele.joules, 0.0))
+
+    def count(self, seconds: float, tokens: int = 0) -> None:
+        """One call of ``seconds`` with no energy reading (a host
+        segment's, or a window's time alone)."""
+        self.calls += 1
+        self.seconds += seconds
+        self.tokens += tokens
         if self._counters is not None:
-            calls_c, seconds_c, tokens_c, joules_c = self._counters
+            calls_c, seconds_c, tokens_c, _ = self._counters
             calls_c.inc()
-            seconds_c.inc(max(tele.seconds, 0.0))
+            seconds_c.inc(max(seconds, 0.0))
             tokens_c.inc(tokens)
-            if tele.joules is not None:
-                joules_c.inc(max(tele.joules, 0.0))
 
     @property
     def tokens_per_second(self) -> float:
@@ -529,7 +549,10 @@ class ServeEngine:
                 span_kind="prefill-chunk", trace=self._traceable(self._extend_sample_step),
             )
 
-        self.telemetry = {p: PhaseTelemetry(p, registry=self.registry) for p in PHASES}
+        self.telemetry = self._new_telemetry()
+        # a chunk's time is its phase window's (``_run_chunk``)
+        self._segments = {name: Segment(name, self._segment_done)
+                          for name in SEGMENTS if name != "prefill.chunk"}
         self.completions: dict[int, Completion] = {}
         self._finished: list[Completion] = []
         self._next_id = 0
@@ -544,6 +567,18 @@ class ServeEngine:
         # (utilization_pct, stranded_pct, fragmentation_pct) running sums
         self._kv_samples = 0
         self._kv_sums = [0.0, 0.0, 0.0]
+
+    # -- telemetry -------------------------------------------------------------
+    def _new_telemetry(self) -> dict[str, PhaseTelemetry]:
+        """One entry a phase and a host segment, every key from the start
+        (a reader may snapshot the set and diff it later)."""
+        return {name: PhaseTelemetry(name, registry=self.registry)
+                for name in PHASES + SEGMENTS}
+
+    def _segment_done(self, name: str, t0: float, t1: float) -> None:
+        self.telemetry[name].count(t1 - t0)
+        if self.tracer.enabled:
+            self.tracer.add_span(name, t0, t1)
 
     # -- admission policy ------------------------------------------------------
     @staticmethod
@@ -718,18 +753,20 @@ class ServeEngine:
             )
         return tok
 
-    def _sync_pages(self) -> None:
+    def _sync_pages(self, segment=NULL_SPAN) -> None:
         """Rewrite the static device page table if the table or the set of
-        mid-prefill slots changed; a mid-prefill slot's row is the null row
+        mid-prefill slots changed, under ``segment`` (a :class:`Segment`
+        times the rewrites alone); a mid-prefill slot's row is the null row
         (decode's write for it lands in the null page)."""
         key = (self.kv.version, tuple(sorted(self._prefilling)))
         if key != self._pages_key:
-            table = self.kv.array()
-            if self._prefilling:
-                table = table.copy()
-                table[list(self._prefilling)] = self.kv.pool.null_page
-            self._pages_dev.copy_(torch.tensor(table))
-            self._pages_key = key
+            with segment:
+                table = self.kv.array()
+                if self._prefilling:
+                    table = table.copy()
+                    table[list(self._prefilling)] = self.kv.pool.null_page
+                self._pages_dev.copy_(torch.tensor(table))
+                self._pages_key = key
 
     def _insert(self, slot: int) -> None:
         """The ``insert`` program: write the prefilled batch-1 cache into
@@ -756,10 +793,10 @@ class ServeEngine:
         """One decode step for the whole slot batch, its policy from the
         ``active`` slots' knobs; returns (B,) tokens."""
         if self.paged:
-            self._sync_pages()
+            self._sync_pages(self._segments["decode.pages"])
         slots = list(active)
         policy = policy_of(self._temps[slots], self._topks[slots])
-        with self._phase("decode"):
+        with self._phase("decode"), self._segments["decode.launch"]:
             tok, _ = self._decode_fn(self._decode_inputs(), policy=policy)
         return tok
 
@@ -826,26 +863,27 @@ class ServeEngine:
         decodable slot.  Returns the streamed events in generation order."""
         if not self.scheduler.has_work:
             return []
-        self._steps += 1
-        events: list[Token | Completion] = []
+        with self._segments["step"]:
+            self._steps += 1
+            events: list[Token | Completion] = []
 
-        decoding = sum(1 for slot in self.scheduler.active if slot not in self._prefilling)
-        planned, reserved = self._plan_chunks(decoding)
-        spent = decoding + sum(run for _, run in planned) + reserved
-        for slot, run in planned:
-            self._run_chunk(slot, run, events)
+            decoding = sum(1 for slot in self.scheduler.active if slot not in self._prefilling)
+            planned, reserved = self._plan_chunks(decoding)
+            spent = decoding + sum(run for _, run in planned) + reserved
+            for slot, run in planned:
+                self._run_chunk(slot, run, events)
 
-        admitted = self.scheduler.admissions(spent=spent)
-        # concurrency peaks right after admission, before same-step
-        # finishes release their slots
-        self._max_active = max(self._max_active, len(self.scheduler.active))
-        for state in admitted:
-            events.extend(self._admit(state))
-        if any(slot not in self._prefilling for slot in self.scheduler.active):
-            events.extend(self._decode_active())
-        self._sample_kv_health()
-        self._queue_depth_g.set(len(self.scheduler.waiting))
-        self._active_slots_g.set(len(self.scheduler.active))
+            admitted = self.scheduler.admissions(spent=spent)
+            # concurrency peaks right after admission, before same-step
+            # finishes release their slots
+            self._max_active = max(self._max_active, len(self.scheduler.active))
+            for state in admitted:
+                events.extend(self._admit(state))
+            if any(slot not in self._prefilling for slot in self.scheduler.active):
+                events.extend(self._decode_active())
+            self._sample_kv_health()
+            self._queue_depth_g.set(len(self.scheduler.waiting))
+            self._active_slots_g.set(len(self.scheduler.active))
         return events
 
     def run_until_idle(self, max_steps: int | None = None) -> list[Completion]:
@@ -882,7 +920,7 @@ class ServeEngine:
         # the registry resets in place (child handles stay valid)
         self.registry.reset()
         self.tracer.clear()
-        self.telemetry = {p: PhaseTelemetry(p, registry=self.registry) for p in PHASES}
+        self.telemetry = self._new_telemetry()
         self.monitor = StepMonitor(
             window=self.monitor.window.maxlen or 32,
             threshold=self.monitor.threshold,
@@ -1159,7 +1197,7 @@ class ServeEngine:
         head = [_i32(slot), _i32(start), pages]
         self._chunk_calls += 1
         t0 = time.perf_counter()
-        with meter_window(self.meter) as tele:
+        with annotation(PREFIX + "prefill.chunk"), meter_window(self.meter) as tele:
             if final:
                 temp, topk = self._request_knobs(state)
                 with self._phase("prefill"):
@@ -1177,9 +1215,12 @@ class ServeEngine:
                 self._synchronize()
                 prog.pos += run
         self.telemetry["prefill"].add(tele, run)
+        self.telemetry["prefill.chunk"].count(tele.seconds, run)
         if self.tracer.enabled:
+            t1 = time.perf_counter()
+            self.tracer.add_span("prefill.chunk", t0, t1)
             self.tracer.add_span(
-                "prefill-chunk", t0, time.perf_counter(),
+                "prefill-chunk", t0, t1,
                 tid=request_track(state.request_id),
                 request=state.request_id, slot=slot, tokens=run,
                 final=final, step=self._steps,
@@ -1236,48 +1277,51 @@ class ServeEngine:
             events.append(self._finish(slot))
 
     def _decode_active(self) -> list[Token | Completion]:
-        if self.paged:
-            # grow page capacity for this step's writes up front; under
-            # pool pressure this preempts the youngest request
-            for slot in sorted(self.scheduler.active):
-                if slot in self._prefilling:
-                    continue
-                if slot in self.scheduler.active:  # not preempted meanwhile
-                    self._ensure_pages(slot, int(self._lengths[slot]) + 1)
-        active = {
-            slot: state for slot, state in self.scheduler.active.items()
-            if slot not in self._prefilling
-        }
+        with self._segments["decode.prep"]:
+            if self.paged:
+                # grow page capacity for this step's writes up front; under
+                # pool pressure this preempts the youngest request
+                for slot in sorted(self.scheduler.active):
+                    if slot in self._prefilling:
+                        continue
+                    if slot in self.scheduler.active:  # not preempted meanwhile
+                        self._ensure_pages(slot, int(self._lengths[slot]) + 1)
+            active = {
+                slot: state for slot, state in self.scheduler.active.items()
+                if slot not in self._prefilling
+            }
         if not active:
             return []
-        t0 = time.perf_counter()
-        self.monitor.start()
+        # the window's one observation feeds the telemetry and the monitor;
+        # the spans' start is read only while tracing
+        t0 = time.perf_counter() if self.tracer.enabled else 0.0
         with meter_window(self.meter) as tele:
             toks = self._decode(active).cpu().numpy()  # the only device->host transfer
-        self.monitor.stop(self._steps)
-        t1 = time.perf_counter()
-        self.telemetry["decode"].add(tele, len(active))
-        if self.tracer.enabled:
-            # one fused-step span on the engine track, mirrored onto each
-            # participating request's track
-            self.tracer.add_span("decode", t0, t1, batch=len(active), step=self._steps)
-            for state in active.values():
-                self.tracer.add_span(
-                    "decode", t0, t1, tid=request_track(state.request_id),
-                    request=state.request_id, step=self._steps,
-                )
+        with self._segments["decode.commit"]:
+            self.monitor.observe(self._steps, tele.seconds)
+            self.telemetry["decode"].add(tele, len(active))
+            if self.tracer.enabled:
+                # one fused-step span on the engine track, mirrored onto each
+                # participating request's track
+                t1 = t0 + tele.seconds
+                self.tracer.add_span("decode", t0, t1, batch=len(active), step=self._steps)
+                for state in active.values():
+                    self.tracer.add_span(
+                        "decode", t0, t1, tid=request_track(state.request_id),
+                        request=state.request_id, step=self._steps,
+                    )
 
-        events: list[Token | Completion] = []
-        for slot, state in active.items():
-            token = int(toks[slot])
-            self._last_tok[slot, 0] = token
-            self._gen_counts[slot] += 1
-            self._lengths[slot] += 1
-            index = len(state.tokens)
-            state.tokens.append(token)
-            events.append(Token(state.request_id, token, index, "decode", self._steps))
-            if state.done:
-                events.append(self._finish(slot))
+            events: list[Token | Completion] = []
+            for slot, state in active.items():
+                token = int(toks[slot])
+                self._last_tok[slot, 0] = token
+                self._gen_counts[slot] += 1
+                self._lengths[slot] += 1
+                index = len(state.tokens)
+                state.tokens.append(token)
+                events.append(Token(state.request_id, token, index, "decode", self._steps))
+                if state.done:
+                    events.append(self._finish(slot))
         return events
 
     def _finish(self, slot: int) -> Completion:

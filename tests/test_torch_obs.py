@@ -49,6 +49,7 @@ from repro_torch.obs import (
 from repro_torch.metering import TimeProportionalPower
 from repro_torch.runtime.monitor import StepMonitor
 from repro_torch.serve import Request, ServeEngine
+from repro_torch.serve.engine import PHASES, SEGMENTS
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -174,18 +175,6 @@ def test_chrome_export_is_viewer_valid(tmp_path):
     assert all(e["ts"] >= 0 and e["dur"] >= 0 for e in spans)
     # spans sorted by start time, timestamps in µs relative to the epoch
     assert [e["ts"] for e in spans] == sorted(e["ts"] for e in spans)
-
-
-def test_jsonl_round_trip(tmp_path):
-    tr = Tracer()
-    with tr.span("a"):
-        pass
-    tr.event("b")
-    path = tmp_path / "trace.jsonl"
-    tr.write_jsonl(str(path))
-    events = timeline.load_events(str(path))
-    assert [e["name"] for e in events] == ["a", "b"]
-    assert timeline.validate(events) == []
 
 
 def test_timeline_cli_check(tmp_path, capsys):
@@ -395,8 +384,7 @@ def test_engine_metrics_parity_with_telemetry(traced_engine):
     views of the same observations — they must agree exactly."""
     engine, completions = traced_engine
     reg = engine.registry
-    for phase in ("prefill", "decode"):
-        tele = engine.telemetry[phase]
+    for phase, tele in engine.telemetry.items():
         assert reg.get("serve_phase_calls_total").labels(phase=phase).value == tele.calls
         assert reg.get("serve_phase_seconds_total").labels(phase=phase).value == (
             pytest.approx(tele.seconds))
@@ -495,6 +483,129 @@ def test_engine_serve_metrics_and_profile_steps(tmp_path):
         srv.close()
 
 
+# -- host segments of a step ----------------------------------------------------------
+
+SEGMENT_KW = dict(n_slots=3, max_len=64, seed=0, device="cpu", page_size=8, n_pages=6,
+                  prefill_chunk=8)  # chunks, page growth, preemption
+SEGMENT_TRAFFIC = ((30, 6), (5, 12), (21, 4), (9, 8), (17, 5))
+
+
+def _serve_segments(engine) -> None:
+    for i, (n, gen) in enumerate(SEGMENT_TRAFFIC):
+        engine.submit(Request([(7 * i + j) % CFG.vocab_size for j in range(n)],
+                              max_new_tokens=gen))
+    engine.run_until_idle(max_steps=500)
+
+
+@pytest.fixture(scope="module")
+def segmented_engine():
+    """A paged, chunked engine under an enabled tracer, run until idle."""
+    engine = ServeEngine(CFG, tracer=Tracer(), **SEGMENT_KW)
+    _serve_segments(engine)
+    return engine
+
+
+def test_segment_calls_match_what_they_count(segmented_engine):
+    engine = segmented_engine
+    tele, stats = engine.telemetry, engine.stats
+    assert set(tele) == set(PHASES + SEGMENTS)
+    assert stats.preemptions > 0 and stats.prefill_chunks > 0
+    assert tele["step"].calls == stats.steps
+    for name in ("decode.prep", "decode.launch", "decode.commit"):
+        assert tele[name].calls == tele["decode"].calls == stats.decode_steps, name
+    # uploads only: a step whose table did not change skips the segment
+    assert 0 < tele["decode.pages"].calls <= tele["decode"].calls
+    assert tele["prefill.chunk"].calls == stats.prefill_chunks
+    # a chunk counts its new tokens, as the prefill phase does
+    chunked = sum(n for n, _ in SEGMENT_TRAFFIC if n > SEGMENT_KW["prefill_chunk"])
+    assert tele["prefill.chunk"].tokens >= chunked
+    assert tele["prefill.chunk"].tokens <= tele["prefill"].tokens
+    reg = engine.registry
+    for name in SEGMENTS:
+        assert reg.get("serve_phase_calls_total").labels(phase=name).value == tele[name].calls
+        assert reg.get("serve_phase_tokens_total").labels(phase=name).value == (
+            tele[name].tokens)
+        assert reg.get("serve_phase_seconds_total").labels(phase=name).value == (
+            pytest.approx(tele[name].seconds))
+
+
+def test_segment_seconds_nest(segmented_engine):
+    tele = segmented_engine.telemetry
+    assert all(t.seconds >= 0 for t in tele.values())
+    # both lie inside the decode window, one after the other
+    assert tele["decode.pages"].seconds + tele["decode.launch"].seconds <= tele["decode"].seconds
+    for name in SEGMENTS[1:]:
+        assert tele[name].seconds <= tele["step"].seconds, name
+    # the step monitor reads the decode window's own seconds
+    assert segmented_engine.monitor.total_time == pytest.approx(tele["decode"].seconds)
+
+
+def test_segment_spans_on_the_engine_track(segmented_engine):
+    engine = segmented_engine
+    track = threading.get_ident()  # the thread that ran the steps
+    counts = collections.Counter(r.name for r in engine.tracer.records()
+                                 if r.tid == track and r.ph == "X")
+    for name in SEGMENTS:
+        assert counts[name] == engine.telemetry[name].calls > 0, name
+    steps = [r for r in engine.tracer.records() if r.name == "step"]
+    for rec in engine.tracer.records():
+        if rec.name in SEGMENTS[1:]:
+            assert any(s.t0 <= rec.t0 and rec.t1 <= s.t1 for s in steps), rec
+
+
+def test_reset_stats_keeps_the_segment_keys():
+    engine = ServeEngine(CFG, tracer=Tracer(), **SEGMENT_KW)
+    keys = list(engine.telemetry)
+    assert keys == list(PHASES + SEGMENTS)
+    _serve_segments(engine)
+    engine.reset_stats()
+    assert list(engine.telemetry) == keys
+    assert all(t.calls == 0 and t.seconds == 0 for t in engine.telemetry.values())
+    assert engine.registry.get("serve_phase_calls_total").labels(phase="step").value == 0
+    engine.submit(Request([1, 2, 3], max_new_tokens=2))
+    engine.run_until_idle(max_steps=100)
+    assert engine.telemetry["step"].calls == engine.stats.steps > 0
+    assert engine.registry.get("serve_phase_calls_total").labels(phase="step").value == (
+        engine.stats.steps)
+
+
+def test_segment_annotations_under_the_profiler(tmp_path):
+    """Under a ``torch.profiler`` capture, every segment call is a
+    ``serve.<segment>`` user annotation, each inside a ``serve.step``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    engine = ServeEngine(CFG, **SEGMENT_KW)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _serve_segments(engine)
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    events = [e for e in json.loads(path.read_text())["traceEvents"]
+              if e.get("cat") == "user_annotation" and e.get("name", "").startswith("serve.")]
+    counts = collections.Counter(e["name"] for e in events)
+    assert counts == {f"serve.{name}": engine.telemetry[name].calls for name in SEGMENTS}
+    steps = [(e["ts"], e["ts"] + e["dur"]) for e in events if e["name"] == "serve.step"]
+    for e in events:
+        if e["name"] != "serve.step":
+            assert any(a <= e["ts"] and e["ts"] + e["dur"] <= b for a, b in steps), e
+
+
+def test_no_profiler_range_without_a_capture(monkeypatch):
+    """With no capture recording, no segment creates a profiler range."""
+    import torch.profiler
+
+    made = []
+
+    def counting(label, *args, **kwargs):
+        made.append(label)
+        return NULL_SPAN
+
+    monkeypatch.setattr(torch.profiler, "record_function", counting)
+    engine = ServeEngine(CFG, **SEGMENT_KW)
+    _serve_segments(engine)
+    assert engine.telemetry["step"].calls > 0 and engine.telemetry["prefill.chunk"].calls > 0
+    assert made == []
+
+
 # -- span and counter parity with the reference engine -----------------------------------
 
 J32 = dataclasses.replace(jget("llama3.2-1b").reduced(), compute_dtype="float32", remat="none")
@@ -535,6 +646,9 @@ def test_span_names_counts_and_counters_match_reference(kw, rng):
     want.pop(("compile", "X"), None)
     assert got.pop(("compile", "X")) == sum(
         r["signatures"] for r in teng.programs.stats().values())
+    # the port's host segments: one span a call, on the engine's track
+    for name in SEGMENTS:
+        assert got.pop((name, "X"), 0) == teng.telemetry[name].calls, name
     assert got == want
     if "prefill_chunk" in kw:
         assert got[("prefill-chunk", "X")] == teng.stats.prefill_chunks > 0
