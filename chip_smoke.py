@@ -291,6 +291,15 @@ its kernels' own device ms (``ms_by_kernel``). Each is called twice on the
 same inputs, bit for bit; the library call is the backward alone of SDPA /
 ``F.rms_norm`` through autograd, timed eagerly.
 
+The grouped MoE expert kernels (``kernels/moe_experts.py``) are held in
+phase 2 at cell 2's decode shape (32 tokens, top-6 of 160, 5120 / 1536)
+and arctic-480b's (top-2 of 128, 7168 / 4864), bf16, with the capacity
+route's expert products (``models/moe.py``, four slots an expert a row)
+timed beside them as the yardstick and the bound the touched experts'
+bytes; and for parity alone with every token on the same experts (32 and
+100 tokens: more M-tiles, more passes) and in f32 (the CUDA-core route).
+Each is called twice on the same inputs, bit for bit.
+
 The offload kernels (complex matmul, Schur update, matmul) are held
 against their plain versions in phase 2 at the paper's scale (2048^2 f32),
 matmul also at (96, 160, 96) at blocks of 32, and each at a ragged shape
@@ -375,6 +384,9 @@ SOURCES = {
         "src/repro/kernels/fft.py:90",
     ),
     "ssd_chunks": ("src/repro_torch/kernels/csrc/ssd_chunks.cu", "src/repro/kernels/ssd.py:92"),
+    # no Pallas kernel: the reference's expert einsums, which XLA compiles
+    "moe_experts": ("src/repro_torch/kernels/csrc/moe_experts.cu",
+                    "none (XLA einsums, src/repro/models/moe.py)"),
     # the backward kernels of the train path: no Pallas kernel of the
     # reference has a backward; these replace its jnp VJP of the chunked
     # attention and XLA's autodiff of the reference rmsnorm
@@ -386,6 +398,9 @@ SOURCES = {
 
 #: the serving path's kernels (phase 4); the offload shelf's run in phase 6
 SERVE_KERNELS = ("rmsnorm", "paged_attention", "flash_attention")
+#: an MoE's serving path (phases 15-17): the grouped expert kernels run
+#: its decode steps
+MOE_KERNELS = SERVE_KERNELS + ("moe_experts",)
 #: the SSM path's kernels (phase 9) and the hybrid's (phase 10)
 SSM_KERNELS = ("rmsnorm", "ssd_chunks")
 HYBRID_KERNELS = ("rmsnorm", "ssd_chunks", "paged_attention", "flash_attention")
@@ -398,6 +413,10 @@ NORM_FORMS = {"llama3.2-1b": ("plain", "add"), "mamba2-2.7b": ("plain", "add", "
               "arctic-480b": ("plain", "add"), "stablelm-1.6b": ("plain", "add"),
               "granite-3-8b": ("plain", "add"), "command-r-35b": ("plain", "add"),
               "musicgen-large": ("plain", "add")}
+#: phase 2's grouped expert rows: (config, tokens, experts, top_k, d, f) at
+#: cell 2's decode shape (deepseek-v2) and arctic-480b's
+MOE_CASES = (("deepseek-v2-236b", 32, 160, 6, 5120, 1536),
+             ("arctic-480b", 32, 128, 2, 7168, 4864))
 #: zamba2-7b at full width, cut to 12 layers (two shared-attention sites)
 ZAMBA2_PATTERN = "mmmmmsmmmmms"
 #: the MoE configs at full width, cut in depth to fit one card's 80 GB with
@@ -744,7 +763,79 @@ def phase_kernels(torch) -> dict:
     rows["flash_attention_bwd"] = _flash_bwd_cases(torch, timer, randn)
     rows["rmsnorm_bwd"] = _norm_bwd_cases(torch, timer, randn)
     rows["ssd_chunks"] = _ssd_cases(torch, timer, randn, gen)
+    rows["moe_experts"] = _moe_cases(torch, timer, randn)
     rows.update(_offload_kernel_cases(torch, timer, randn))
+    return rows
+
+
+def _moe_cases(torch, timer, randn) -> list:
+    """The grouped expert kernels against their plain version at
+    ``MOE_CASES`` (bf16, weights ~1/sqrt(fan-in), a router drawn the same
+    way, so the choices spread over the experts): each row's bound is the
+    touched experts' bytes, and its ``library_ms`` the capacity route's
+    expert products at the same choices (``models/moe.py``
+    ``_capacity_experts``, C = 4), which the grouped route replaces.  Then
+    parity alone: every token on the same experts (32 and 100 tokens: two
+    M-tiles, then two passes of four), and f32 (the CUDA-core route).  Each
+    call is repeated bit for bit."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.models import moe
+
+    bf = torch.bfloat16
+    rows = []
+
+    def weights(e, d, f, dtype):
+        return [randn(e, a, b, dtype=torch.float32).mul_(a ** -0.5).to(dtype)
+                for a, b in ((d, f), (d, f), (f, d))]
+
+    def parity(case, x, topi, topv, w):
+        """A parity-only row: the kernel against the plain version, twice bit for bit."""
+        dtype = str(x.dtype).split(".")[1]
+        err = compare(torch, mx.moe_experts(x, topi, topv, *w),
+                      mx.moe_experts_torch(x, topi, topv, *w), dtype)
+        _repeat_identical(torch, f"moe_experts {case}",
+                          lambda: (mx.moe_experts(x, topi, topv, *w),))
+        emit({"phase": "kernel", "name": "moe_experts", "dtype": dtype,
+              "shape": [x.shape[0], w[0].shape[0], topi.shape[1], *w[0].shape[1:]], "case": case,
+              "max_abs_err": err, "tol": TOL[dtype]})
+
+    for arch, t, e, k, d, f in MOE_CASES:
+        w = weights(e, d, f, bf)
+        x = randn(t, d, dtype=bf)
+        router = randn(d, e, dtype=torch.float32).mul_(d ** -0.5)
+        gates = torch.softmax(x.float() @ router, -1)[:, None]  # (B, S = 1, E)
+        topv, topi = (a[:, 0] for a in moe.choose(gates, k))
+        touched = int(topi.unique().numel())
+        cap = moe.capacity_of(1, get_config(arch).moe)
+        _repeat_identical(torch, f"moe_experts {arch}",
+                          lambda: (mx.moe_experts(x, topi, topv, *w),))
+        rows.append(_case(
+            torch, "moe_experts", "bfloat16", [t, e, k, d, f], mx.moe_experts(x, topi, topv, *w),
+            mx.moe_experts_torch(x, topi, topv, *w), timer,
+            lambda: mx.moe_experts(x, topi, topv, *w),
+            lambda: mx.moe_experts_torch(x, topi, topv, *w),
+            lambda: moe._capacity_experts(x[:, None], gates, k, cap, *w),
+            work=mx.experts_work(x, topi, w[0], touched),
+            extra={"arch": arch, "touched_experts": touched,
+                   "library": f"capacity route, C = {cap}"}))
+        del w
+        torch.cuda.empty_cache()
+
+    # parity alone: the same experts for every token, then the f32 route
+    e, k, d, f = 160, 6, 5120, 1536
+    w = weights(e, d, f, bf)
+    for t in (32, 100):
+        topi = torch.arange(k, device="cuda").expand(t, k).contiguous()
+        parity("every token on experts 0-5", randn(t, d, dtype=bf), topi,
+               torch.full((t, k), 1.0 / k, device="cuda"), w)
+    del w
+    torch.cuda.empty_cache()
+    e, k, d, f, t = 16, 2, 256, 192, 40
+    w = weights(e, d, f, torch.float32)
+    x = randn(t, d, dtype=torch.float32)
+    topv, topi = moe.choose(torch.softmax(randn(t, 1, e, dtype=torch.float32), -1), k)
+    parity("the CUDA-core route", x, topi[:, 0].contiguous(), topv[:, 0].contiguous(), w)
     return rows
 
 
@@ -2292,15 +2383,17 @@ def _bf16_path_vs_plain(torch, engine, n_req: int = 8) -> dict:
     pre_in = [torch.from_numpy(a).to(dev) for a in pre_in]
     dec_in = [torch.from_numpy(a.copy()).to(dev) for a in _decode_inputs(engine, "greedy")]
     saved = _tree(torch.clone, engine.cache)
-    route = moe.route
+    choose = moe.choose
 
     def run(binding, pin=None):
         """(prefill logits, decode logits), and each step's expert choices
-        (one (B, S, top_k) tensor per MoE layer)."""
+        (one (B, S, top_k) tensor per MoE layer).  ``moe.choose`` picks the
+        experts of both routes (the prefill's capacity route, the decode's
+        grouped route), so the pin holds each."""
         chosen = ([], [])
         step = [0]
 
-        def routed(gates, top_k, capacity):
+        def routed(gates, top_k):
             picks = chosen[step[0]]
             top = torch.topk(gates, top_k, dim=-1).indices
             if pin is not None:
@@ -2308,16 +2401,16 @@ def _bf16_path_vs_plain(torch, engine, n_req: int = 8) -> dict:
                 keep = torch.zeros_like(gates, dtype=torch.bool).scatter_(-1, top, True)
                 gates = gates.masked_fill(~keep, float("-inf"))
             picks.append(top)
-            return route(gates, top_k, capacity)
+            return choose(gates, top_k)
 
-        moe.route = routed
+        moe.choose = routed
         try:
             with blocks.bind(binding) if binding else contextlib.nullcontext():
                 _, pre = engine._prefill_step(*pre_in, policy="greedy")
                 step[0] = 1
                 _, dec = engine._decode_step(*dec_in, policy="greedy")
         finally:
-            moe.route = route
+            moe.choose = choose
         logits = (pre.float().clone(), dec.float().clone())
         _tree(lambda pair: pair[0].copy_(pair[1]), _zip_trees(engine.cache, saved))
         return logits, chosen
@@ -2433,6 +2526,8 @@ def phase_main_path_cut(torch, arch: str, phase: str, **engine_kw) -> dict:
                       FLASH_ROUTE[arch])
         _check_routes(phase, out["paged_routes"], out["launches"]["paged_attention"],
                       PAGED_ROUTE[arch])
+        if arch in MOE_LAYERS:
+            _report_moe_routes(phase, engine, out)
         out["cut"] = f"{engine.cfg.n_layers} of {get_config(arch).n_layers} layers, full width"
         check = _replay_vs_eager(torch, engine, "greedy")
         check["bit_identical"] = all(e == 0.0 for e in check["max_abs_err"].values())
@@ -2446,7 +2541,22 @@ def phase_main_path_cut(torch, arch: str, phase: str, **engine_kw) -> dict:
                                      f"bound (PATH_TOL or the rounding floor), or an "
                                      f"attention call against its kernel over TOL: {path}")
 
-    return phase_main_path(torch, arch, phase=phase, report=report, **engine_kw)
+    expect = MOE_KERNELS if arch in MOE_LAYERS else SERVE_KERNELS
+    return phase_main_path(torch, arch, expect, phase=phase, report=report, **engine_kw)
+
+
+def _report_moe_routes(phase: str, engine, out: dict) -> None:
+    """An MoE path's calls by route (replays counted): its prefills take
+    the capacity route and its decode steps the grouped one, each > 0;
+    with the share of experts the grouped route read."""
+    import repro_torch.kernels as kernels
+
+    routes = {k.split("/")[1]: n for k, n in kernels.counters().items()
+              if k.startswith("moe_forward/")}
+    out["moe_routes"] = routes
+    out["moe_experts_read_pct"] = engine.metrics()["moe_experts_read_pct"]
+    if routes["grouped"] <= 0 or routes["capacity"] <= 0:
+        raise AssertionError(f"{phase}: the MoE took only one route: {routes}")
 
 
 def phase_extend_mla(torch, main: dict) -> dict:
@@ -2483,9 +2593,10 @@ def phase_extend_mla(torch, main: dict) -> dict:
             "ttft_p50_ms", "ttft_p99_ms", "launches")}
         out["replay_vs_eager"] = [_chunk_replay_vs_eager(torch, engine, name)
                                   for name in ("extend", "extend_sample")]
+        _report_moe_routes("extend_mla", engine, out)
 
-    return phase_main_path(torch, "deepseek-v2-236b", phase="extend_mla", report=report,
-                           prefill_chunk=CHUNK)
+    return phase_main_path(torch, "deepseek-v2-236b", MOE_KERNELS, phase="extend_mla",
+                           report=report, prefill_chunk=CHUNK)
 
 
 #: the train path's kernel launches, each of which main_path_train needs
@@ -4102,7 +4213,7 @@ def main() -> int:
         phase_served_f32(torch, "deepseek-v2-236b", **kw)
     mla = phase_main_path_cut(torch, "deepseek-v2-236b", "main_path_mla_moe")
     phase_extend_mla(torch, mla)
-    phase_main_path_cut(torch, "arctic-480b", "main_path_moe_residual")
+    arctic = phase_main_path_cut(torch, "arctic-480b", "main_path_moe_residual")
     # training: llama3.2-1b's train step through the forward and backward
     # kernels, f32 against the plain bindings, at full size, and the loop
     phase_train_f32(torch)
@@ -4138,7 +4249,8 @@ def main() -> int:
                 "flash_attention_bwd": (train["launches"]["flash_attention_bwd"]
                                         + train_mla["launches"]["flash_attention_bwd"]),
                 "rmsnorm_bwd": (train["launches"]["rmsnorm_bwd/plain"]
-                                + train["launches"]["rmsnorm_bwd/add"])}
+                                + train["launches"]["rmsnorm_bwd/add"]),
+                "moe_experts": mla["launches"]["moe_experts"] + arctic["launches"]["moe_experts"]}
     summary = []
     for name, (source, replaces) in SOURCES.items():
         head = rows[name][0]  # the main path's headline shape

@@ -24,6 +24,7 @@ from repro_torch.kernels import (
     build,
     fft,
     matmul,
+    moe_experts,
     ops,
     paged_attention,
     ref,
@@ -40,6 +41,7 @@ KERNELS = {
     "schur_update": matmul.schur_update,
     "complex_matmul": fft.complex_matmul,
     "ssd_chunks": ssd.ssd_chunks,
+    "moe_experts": moe_experts.moe_experts,
     # the backward kernels, which the train step's autograd launches
     "flash_attention_bwd": attention.flash_attention_bwd,
     "rmsnorm_bwd": rmsnorm.rmsnorm_bwd,
@@ -216,6 +218,15 @@ def _resource_metadata() -> dict[tuple[str, str], ResourceHint]:
 BLOCK_RESOURCES = _resource_metadata()
 
 
+def _routed() -> dict:
+    """The model functions that count their calls by route beside the
+    kernels' counters (imported here, late: the models import the
+    kernels): the MoE's grouped and capacity routes."""
+    from repro_torch.models.moe import moe_forward
+
+    return {"moe_forward": moe_forward}
+
+
 def traced_counts() -> dict[str, int]:
     """The abstract calls of each kernel (a trace's stand-ins, kept apart
     from the launch counters: :func:`counters` never moves under a
@@ -231,6 +242,8 @@ def reset_launches() -> None:
     paged_attention.paged_attention.routes = dict.fromkeys(paged_attention.ROUTES, 0)
     rmsnorm.rmsnorm.forms = dict.fromkeys(rmsnorm.FORMS, 0)
     rmsnorm.rmsnorm_bwd.forms = dict.fromkeys(rmsnorm.BWD_FORMS, 0)
+    for fn in _routed().values():
+        fn.routes = dict.fromkeys(fn.routes, 0)
     blocks.registry.grad_defaults.clear()
 
 
@@ -241,7 +254,7 @@ def launch_counts() -> dict[str, int]:
 def counters() -> dict[str, int]:
     """Every launch counter by name: each kernel's launches, flash's and
     paged attention's per route and rmsnorm's (forward and backward) per
-    form; and
+    form; ``moe_forward/<route>``, the MoE's calls by route; and
     ``grad_default/<block>[.<form>]``, the unbound calls resolved to
     ``torch`` for a gradient their ``cuda`` target cannot take (never
     under a CUDA graph's capture, which records no gradient).  A CUDA graph
@@ -250,6 +263,8 @@ def counters() -> dict[str, int]:
     out = launch_counts()
     for name, attr in _SUBCOUNTS.items():
         out.update({f"{name}/{k}": n for k, n in getattr(KERNELS[name], attr).items()})
+    for name, fn in _routed().items():
+        out.update({f"{name}/{k}": n for k, n in fn.routes.items()})
     out.update({f"{GRAD_DEFAULT}/{k}": n for k, n in blocks.registry.grad_defaults.items()})
     return out
 
@@ -260,5 +275,7 @@ def add_counters(delta: dict[str, int]) -> None:
         name, _, sub = key.partition("/")
         if not sub:
             KERNELS[name].launches += n
-        else:
+        elif name in KERNELS:
             getattr(KERNELS[name], _SUBCOUNTS[name])[sub] += n
+        else:
+            _routed()[name].routes[sub] += n

@@ -84,6 +84,9 @@ ENTRY_POINTS = {
     "repro_schur_update": [_P] * 4 + [_I] * 3 + [_P],
     # ar, ai, br, bi, out_r, out_i, M, N, K, stream
     "repro_complex_matmul": [_P] * 6 + [_I] * 3 + [_P],
+    # x, topi, topv, w_gate, w_up, w_down, offsets, order, h, y, out, tally,
+    # tokens, top_k, n_experts, d, f, dtype, stream
+    "repro_moe_experts": [_P] * 12 + [_I] * 6 + [_P],
     # x, dt, a, bmat, cmat, y, states, cumdecay, totals,
     # x/bmat/cmat batch and sequence strides, B, S, H, P, N, L, dtype, stream
     "repro_ssd_chunks": [_P] * 9 + [_L] * 6 + [_I] * 7 + [_P],

@@ -115,6 +115,7 @@ from repro_torch.analysis.hotpath import ProgramSet
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import blocks as blocks_mod
+from repro_torch.kernels import moe_experts
 from repro_torch.models import lm
 from repro_torch.metering import meter_window, resolve_meter
 from repro_torch.metering.meters import WindowTelemetry
@@ -567,6 +568,14 @@ class ServeEngine:
         # (utilization_pct, stranded_pct, fragmentation_pct) running sums
         self._kv_samples = 0
         self._kv_sums = [0.0, 0.0, 0.0]
+        self._reset_moe_tally()
+
+    def _reset_moe_tally(self) -> None:
+        """Zero the device's tally of the MoE's grouped route (experts read
+        and held), which :meth:`metrics` reads; made here, before any
+        capture."""
+        if self.cfg.moe is not None:
+            moe_experts.reset_tally(self.device)
 
     # -- telemetry -------------------------------------------------------------
     def _new_telemetry(self) -> dict[str, PhaseTelemetry]:
@@ -941,6 +950,7 @@ class ServeEngine:
         self.overlap_tokens = 0
         self._kv_samples = 0
         self._kv_sums = [0.0, 0.0, 0.0]
+        self._reset_moe_tally()
 
     @property
     def stats(self) -> EngineStats:
@@ -997,7 +1007,11 @@ class ServeEngine:
         """KV memory health: pool utilization, stranded capacity and page
         fragmentation (paged), or the contiguous equivalents.  The
         ``mean_*`` keys average one sample per engine step taken while
-        requests were resident; ``programs`` is :meth:`graph_stats`."""
+        requests were resident; ``programs`` is :meth:`graph_stats`;
+        an MoE model's ``moe_experts_read_pct`` is the share of experts its
+        grouped route read over those it held, over the calls since the
+        engine was made or its stats reset (None before one; a read of the
+        device's tally)."""
         active = len(self.scheduler.active)
         resident = int(sum(self._lengths[slot] for slot in self.scheduler.active))
         n = max(self._kv_samples, 1)
@@ -1013,6 +1027,8 @@ class ServeEngine:
             "mean_stranded_pct": self._kv_sums[1] / n,
             "mean_fragmentation_pct": self._kv_sums[2] / n,
         }
+        if self.cfg.moe is not None:
+            out["moe_experts_read_pct"] = moe_experts.read_pct(self.device)
         out["programs"] = self.graph_stats()
         if self.kv is not None:
             out["kv"] = self.kv.stats()

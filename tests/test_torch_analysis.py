@@ -45,7 +45,16 @@ from repro_torch.apps import fourier, matrix
 from repro_torch.configs import get_config
 from repro_torch.core.blocks import FunctionBlockRegistry
 from repro_torch.core.planner import BindingSpace, SingleThenCombine
-from repro_torch.kernels import attention, build, fft, matmul, paged_attention, rmsnorm, ssd
+from repro_torch.kernels import (
+    attention,
+    build,
+    fft,
+    matmul,
+    moe_experts,
+    paged_attention,
+    rmsnorm,
+    ssd,
+)
 from repro_torch.offload import OffloadSession
 from repro_torch.serve import Request, ServeEngine
 from repro_torch.serve.kv import pool as tpool
@@ -224,11 +233,22 @@ def _cases():
         return ssd.ssd_chunks(t((1, 32, 2, 8), f32), t((1, 32, 2), f32), t((2,), f32),
                               t((1, 32, 16), f32), t((1, 32, 16), f32), chunk=16)
 
+    def experts_bf16(t):
+        return moe_experts.moe_experts(t((4, 64), bf), t((4, 2), i32).long(), t((4, 2), f32),
+                                       t((4, 64, 128), bf), t((4, 64, 128), bf),
+                                       t((4, 128, 64), bf))
+
+    def experts_f32(t):
+        return moe_experts.moe_experts(t((3, 64), f32), t((3, 2), i32).long(), t((3, 2), f32),
+                                       t((4, 64, 64), f32), t((4, 64, 64), f32),
+                                       t((4, 64, 64), f32))
+
     return {"rmsnorm": [norm_plain, norm_add, norm_gated],
             "rmsnorm_bwd": [norm_bwd, norm_bwd_add],
             "flash_attention": [flash, flash_f32_mla], "flash_attention_bwd": [flash_bwd],
             "paged_attention": [paged, paged_mla], "matmul": [mm], "schur_update": [schur],
-            "complex_matmul": [cmm], "ssd_chunks": [ssd_bf16, ssd_f32]}
+            "complex_matmul": [cmm], "ssd_chunks": [ssd_bf16, ssd_f32],
+            "moe_experts": [experts_bf16, experts_f32]}
 
 
 CASES = [(name, call) for name, calls in _cases().items() for call in calls]

@@ -12,7 +12,11 @@ Tolerances: prefill and decode logits and caches in f32 within 1e-4
 (absolute and relative): the same f32 formulas, summed in another order by
 another library.  Graph FLOPs of the reduced llama and deepseek cells equal
 the reference's compiled module's exactly (``CELL_TOL``): no dot of these
-steps is rewritten by XLA in a way that changes its FLOPs.
+steps is rewritten by XLA in a way that changes its FLOPs.  The one
+difference is the port's: deepseek's decode runs its MoE's expert products
+over the routed pairs alone (``models/moe.py``'s grouped route), where the
+reference's run over every expert's capacity slots; the test counts that
+difference from the shapes.
 """
 
 import dataclasses
@@ -35,6 +39,7 @@ from repro_torch import bridge
 from repro_torch.configs import get_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.launch import dryrun, steps
+from repro_torch.models import moe
 from repro_torch.optim.adamw import AdamW
 
 B, S = 2, 32
@@ -194,8 +199,16 @@ def test_cell_graph_flops_match_hlo_cost(arch, kind, monkeypatch):
     monkeypatch.setattr(dryrun, "get_config", lambda a: get_config(a).reduced())
     rec = dryrun.run_cell(arch, ShapeConfig("t", S, B, kind), device="cpu")
     assert rec["status"] == "ok", rec.get("error")
-    theirs = _reference_cost(arch, kind)
-    assert rec["graph_flops_per_device"] == pytest.approx(theirs["flops"], rel=CELL_TOL[arch])
+    theirs = _reference_cost(arch, kind)["flops"]
+    cfg = get_config(arch).reduced()
+    if kind == "decode" and cfg.moe is not None:
+        # the port's decode takes the MoE's grouped route: its three expert
+        # products run over the B * top_k routed pairs of each MoE layer,
+        # where the reference's run over every expert's capacity slots
+        m = cfg.moe
+        rows = B * m.top_k - m.n_experts * B * moe.capacity_of(1, m)
+        theirs += cfg.pattern().count("a") * rows * 6 * cfg.d_model * m.d_expert
+    assert rec["graph_flops_per_device"] == pytest.approx(theirs, rel=CELL_TOL[arch])
     assert rec["model_flops"] == pytest.approx(
         (6 if kind == "train" else 2) * get_config(arch).reduced().active_param_count()
         * B * (1 if kind == "decode" else S))

@@ -13,7 +13,15 @@ import torch
 from torch._subclasses.fake_tensor import FakeTensorMode
 
 from repro.launch import hlo_cost
-from repro_torch.kernels import attention, fft, matmul, paged_attention, rmsnorm, ssd
+from repro_torch.kernels import (
+    attention,
+    fft,
+    matmul,
+    moe_experts,
+    paged_attention,
+    rmsnorm,
+    ssd,
+)
 from repro_torch.launch import graph_cost
 from repro_torch.launch.mesh import HW
 
@@ -195,10 +203,17 @@ def _stand_ins():
                              t((1, 32, 16), bf), chunk=16)
         return out, ssd.ssd_work(x, 16, 16)
 
+    def experts(t):
+        x, topi, wg = t((4, 64), bf), t((4, 2), torch.int64), t((8, 64, 128), bf)
+        out = moe_experts.moe_experts(x, topi, t((4, 2), f32), wg, t((8, 64, 128), bf),
+                                      t((8, 128, 64), bf))
+        return out, moe_experts.experts_work(x, topi, wg)
+
     return [("flash_attention", flash), ("flash_attention_bwd", flash_bwd),
             ("paged_attention", paged), ("rmsnorm", norm), ("rmsnorm", norm_add),
             ("rmsnorm", norm_gated), ("rmsnorm_bwd", norm_bwd), ("matmul", mm),
-            ("schur_update", schur), ("complex_matmul", cmm), ("ssd_chunks", ssd_chunks)]
+            ("schur_update", schur), ("complex_matmul", cmm), ("ssd_chunks", ssd_chunks),
+            ("moe_experts", experts)]
 
 
 STAND_INS = _stand_ins()

@@ -614,10 +614,13 @@ def test_kernel_sources_carry_their_notes_and_hash(tmp_path, monkeypatch):
     assert kernel_sources == {
         "rmsnorm.cu", "paged_attention.cu", "flash_attention.cu", "matmul.cu",
         "complex_matmul.cu", "ssd_chunks.cu", "flash_attention_bwd.cu", "rmsnorm_bwd.cu",
+        "moe_experts.cu",
     }
     for name in kernel_sources:
         text = (build.CSRC / name).read_text()
-        assert "Replaces: repro/kernels/" in text and "Bound on the H100" in text, name
+        # a kernel ports a Pallas kernel, or says that it replaces none and why
+        replaces = "Replaces: repro/kernels/" in text or "Replaces no TPU kernel:" in text
+        assert replaces and "Bound on the H100" in text, name
     assert build.source_hash() == build.source_hash()
     assert build.BUILD_DIR.parts[-2:] == ("build", "repro_torch")
     # a header the kernels include (the Hopper primitives) is part of the hash

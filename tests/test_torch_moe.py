@@ -12,6 +12,7 @@ up to top_k rows a token in another order than the reference's scatter-add,
 so outputs are held to 1e-5, and served traces to token identity.
 """
 
+import contextlib
 import dataclasses
 
 import jax
@@ -109,17 +110,112 @@ def test_moe_forward_matches_reference(arch, moe_kw, s, rng):
         assert int((idx < s).sum()) < 3 * s * tcfg.moe.top_k
 
 
-def test_moe_forward_reads_nothing_on_the_host():
+@pytest.mark.parametrize("s", [9, 1], ids=["capacity", "grouped"])
+def test_moe_forward_reads_nothing_on_the_host(s):
     """A CUDA graph captures the MoE only if it reads nothing on the host:
-    under ``FakeTensorMode`` any such read raises."""
+    under ``FakeTensorMode`` any such read raises.  Both routes: S = 9 is
+    past the capacity (4), S = 1 within it."""
     _, tcfg = _cfgs("deepseek-v2-236b")
     params = moe.moe_metas(tcfg)
+    before = dict(moe.moe_forward.routes)
     mode = FakeTensorMode()
-    with mode:
+    with mode, torch.no_grad():
         tp = jax.tree.map(lambda m: torch.randn(m.shape), params,
                           is_leaf=lambda m: hasattr(m, "shape"))
-        out, aux = moe.moe_forward(tp, torch.randn(2, 9, tcfg.d_model), tcfg, torch.float32)
-    assert out.shape == (2, 9, tcfg.d_model) and aux.shape == ()
+        out, aux = moe.moe_forward(tp, torch.randn(2, s, tcfg.d_model), tcfg, torch.float32)
+    assert out.shape == (2, s, tcfg.d_model) and aux.shape == ()
+    route = "grouped" if s == 1 else "capacity"
+    assert moe.moe_forward.routes[route] == before[route] + 1
+
+
+# -- the grouped route against the capacity route ----------------------------------------
+
+
+def _wide(arch, n_experts, top_k, seed):
+    """A reduced f32 config of ``arch`` with the published expert count and
+    top-k, and seeded weights (numpy) for one MoE layer."""
+    _, tcfg = _cfgs(arch, n_experts=n_experts, top_k=top_k)
+    rng = np.random.default_rng(seed)
+    leaves = jax.tree.map(lambda m: torch.from_numpy(
+        (0.3 * rng.standard_normal(m.shape)).astype(np.float32)), moe.moe_metas(tcfg),
+        is_leaf=lambda m: hasattr(m, "shape"))
+    return tcfg, leaves
+
+
+def _both_routes(tp, x, tcfg):
+    """(grouped, capacity) moe_forward outputs and aux losses on ``x``: the
+    grouped route under ``no_grad``, the capacity route with a gradient
+    wanted; each route counted once."""
+    before = dict(moe.moe_forward.routes)
+    with torch.no_grad():
+        grouped = moe.moe_forward(tp, x, tcfg, torch.float32)
+    capacity = moe.moe_forward(tp, x.clone().requires_grad_(), tcfg, torch.float32)
+    assert moe.moe_forward.routes == {k: n + 1 for k, n in before.items()}
+    return grouped, tuple(t.detach() for t in capacity)
+
+
+@pytest.mark.parametrize("at", ["s1", "s_eq_c"])
+@pytest.mark.parametrize("arch,n_experts,top_k", [
+    ("deepseek-v2-236b", 160, 6), ("arctic-480b", 128, 2)],
+    ids=["deepseek_top6_of_160", "arctic_top2_of_128_dense_residual"])
+def test_grouped_route_matches_the_capacity_route(arch, n_experts, top_k, at, rng):
+    """The plain grouped version within 1e-5 of the capacity path, output
+    and aux loss, at S = 1 and at S = C (no choice drops at either), shared
+    experts (deepseek) and the dense residual (arctic) included."""
+    tcfg, tp = _wide(arch, n_experts, top_k, seed=3)
+    s = 1 if at == "s1" else moe.capacity_of(1, tcfg.moe)
+    assert at == "s1" or moe.capacity_of(s, tcfg.moe) == s
+    x = torch.from_numpy(rng.standard_normal((5, s, tcfg.d_model)).astype(np.float32))
+    (out, aux), (want, want_aux) = _both_routes(tp, x, tcfg)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=0, atol=ATOL)
+    assert ("dense" in tp) == tcfg.moe.dense_residual
+
+
+def test_grouped_route_when_every_token_picks_the_same_experts(rng):
+    """Every token of 40 rows ranks the experts alike (positive inputs, a
+    router whose columns are multiples of one vector), so the same top-6
+    take all 40 tokens and the other 154 experts none."""
+    tcfg, tp = _wide("deepseek-v2-236b", 160, 6, seed=4)
+    e = tcfg.moe.n_experts
+    tp["router"] = torch.ones(tcfg.d_model, 1) * torch.linspace(1.0, -1.0, e)[None, :]
+    x = torch.from_numpy(np.abs(rng.standard_normal((40, 1, tcfg.d_model))).astype(np.float32))
+    gates = torch.softmax(x @ tp["router"], -1)
+    _, topi = moe.choose(gates, tcfg.moe.top_k)
+    assert (topi == torch.arange(tcfg.moe.top_k)).all()
+    (out, aux), (want, want_aux) = _both_routes(tp, x, tcfg)
+    np.testing.assert_allclose(out.numpy(), want.numpy(), rtol=0, atol=ATOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), rtol=0, atol=ATOL)
+
+
+@pytest.mark.parametrize("case", ["s_over_c", "grad", "dtensor"])
+def test_the_capacity_route_where_a_choice_could_drop_or_a_gradient_is_wanted(case, rng):
+    """S = C + 1 (a choice could drop), a gradient wanted, or ``DTensor``
+    gates take the capacity route, and ``moe_forward.routes`` counts it."""
+    tcfg, tp = _wide("deepseek-v2-236b", 160, 6, seed=5)
+    cap = moe.capacity_of(1, tcfg.moe)
+    s = cap + 1 if case == "s_over_c" else 1
+    assert s <= moe.capacity_of(s, tcfg.moe) or case == "s_over_c"
+    x = torch.from_numpy(rng.standard_normal((2, s, tcfg.d_model)).astype(np.float32))
+    gates = torch.softmax(x @ tp["router"], -1)
+    if case == "dtensor":
+        from torch.distributed.tensor import Replicate, distribute_tensor
+
+        from repro_torch.launch.dryrun import fake_world
+        from repro_torch.launch.mesh import make_mesh
+
+        with fake_world(1):
+            mesh = make_mesh((1,), ("data",), "cpu")
+            assert not moe.grouped(distribute_tensor(gates, mesh, (Replicate(),)), cap)
+        assert moe.grouped(gates, cap)
+        return
+    before = dict(moe.moe_forward.routes)
+    with torch.no_grad() if case == "s_over_c" else contextlib.nullcontext():
+        if case == "grad":
+            x.requires_grad_()
+        assert not moe.grouped(gates, moe.capacity_of(s, tcfg.moe), x)
+        moe.moe_forward(tp, x, tcfg, torch.float32)
+    assert moe.moe_forward.routes == {**before, "capacity": before["capacity"] + 1}
 
 
 # -- arctic served against the reference engine ------------------------------------------
@@ -201,3 +297,27 @@ def test_moe_chunk_functions_read_nothing_on_the_host():
                 i32(1), i32(16), pages, i32(3), i32(0), fake(torch.tensor([0.8])), i32(5),
                 fake(torch.zeros((1, width), dtype=torch.int32)), policy=policy)
             assert tok.shape == (1,) and logits.shape == (1, engine.cfg.vocab_size)
+
+
+def test_engine_reports_the_share_of_experts_the_grouped_route_read():
+    """``engine.metrics()["moe_experts_read_pct"]``: None before any grouped
+    call; after decode steps (each one token a row: the grouped route), the
+    distinct experts of each call over the experts held, summed over the
+    calls (top-2 of 4: at least 50), zeroed by ``reset_stats``; a dense
+    model has no such key (its metrics stay the reference engine's)."""
+    from repro_torch.kernels import moe_experts
+
+    engine = ServeEngine(get_config("deepseek-v2-236b").reduced(), n_slots=2, max_len=32,
+                         device="cpu", seed=0)
+    assert engine.metrics()["moe_experts_read_pct"] is None
+    before = dict(moe.moe_forward.routes)
+    for prompt in ([1, 2, 3, 4, 5], [7, 8, 9]):
+        engine.submit(Request(prompt, max_new_tokens=4))
+    engine.run_until_idle(max_steps=100)
+    assert moe.moe_forward.routes["grouped"] > before["grouped"]
+    pct = engine.metrics()["moe_experts_read_pct"]
+    assert 50.0 <= pct <= 100.0 and moe_experts.read_pct("cpu") == pct
+    engine.reset_stats()
+    assert engine.metrics()["moe_experts_read_pct"] is None
+    dense = ServeEngine(get_config("llama3.2-1b").reduced(), n_slots=1, max_len=16, device="cpu")
+    assert "moe_experts_read_pct" not in dense.metrics()
